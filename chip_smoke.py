@@ -9,16 +9,33 @@ Phases, each printed on its own line; any failed check exits nonzero:
               capability 9.0 is required.
   2. build    nvcc builds the kernels from src/repro_torch/kernels/csrc.
   3. check    every kernel against its plain PyTorch version on the card, at
-              the shapes the main path gives it and at stress shapes, with the
-              kernel's, the plain version's and the bound's time in ms.
-  4. slice    the main path through ``repro_torch.MemForestSystem``:
-              ``ingest_batch`` of 500 sessions (about 20k turns, 13k tree
-              nodes) in batches of 16, then ``query_batch`` of 64 queries in
-              each of the six browse modes. Launch counts are reset just before
-              and read just after; every kernel must have launched and no plain
-              version may have run. The same run on the CPU must give the same
-              facts, trees, answers and evidence, and embeddings within 1e-5.
-  5. kernels  one line per kernel, and the JSON summary of all of them.
+              the shapes the main paths give it and at stress shapes, with the
+              kernel's, the plain version's, the library call's and the bound's
+              time in ms.
+  4. slice    the memory system's path through ``repro_torch.MemForestSystem``
+              with its hashing encoder: ``ingest_batch`` of 500 sessions (about
+              20k turns, 13k tree nodes) in batches of 16, then ``query_batch``
+              of 64 queries in each of the six browse modes. Launch counts are
+              reset just before and read just after; every kernel of the path
+              must have launched and no plain version may have run. The same
+              run on the CPU must give the same facts, trees, answers and
+              evidence, and embeddings within 1e-5.
+  5. serve    the serve engine on llama3-8b at its published width and depth
+              (bf16, random weights from a seeded generator on the card):
+              ``ServeEngine(max_batch=8, max_len=512)`` whose memory is a
+              ``MemForestSystem(embed_dim=4096)`` with a ``ModelEncoder`` on the
+              same weights. The 500 sessions go through the ingest lane, the 64
+              queries through the query lane, and 16 decode requests (two
+              rounds of 8 identical prefix-keyed prompts, 32 new tokens each)
+              through the decode lane. Launch counts are reset just before and
+              read just after: all five kernels must have launched, no plain
+              version may have run, the prefix cache must have been reused and
+              every query answered. A profiled repeat gives the device's idle
+              share.
+  6. parity   the same engine traffic at llama3-8b's full width but depth 2,
+              in float32, on a few sessions, on the card and on the CPU: equal
+              decoded tokens, facts, trees and answers; embeddings within 1e-4.
+  7. kernels  one line per kernel, and the JSON summary of all of them.
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a
 visible CUDA device, or without the rest of the repository beside it, the
@@ -40,15 +57,20 @@ ROOT = Path(__file__).resolve().parent
 MODES = ("flat", "root-only", "emb", "emb+planner", "llm", "llm+planner")
 SLEEP_CYCLES = 2_000_000     # keeps the stream busy while launches queue up
 TIMING_REPS = 25
-# memory rate (bytes/s) and non-tensor fp32 rate (FLOP/s) of the H100 SXM,
-# from NVIDIA's data sheet; the bounds are computed for this card only
-H100_SXM_PEAKS = (3.35e12, 67e12)
+# memory rate (bytes/s), non-tensor fp32 rate and dense bf16 tensor-core rate
+# (FLOP/s) of the H100 SXM, from NVIDIA's data sheet; the bounds are computed
+# for this card only. A bf16 kernel's bound uses the bf16 rate: the least
+# time the card could take for its work.
+H100_SXM_PEAKS = {"bytes": 3.35e12, "fp32": 67e12, "bf16": 989e12}
 REPLACES = {
     "tree_refresh": "src/repro/kernels/tree_refresh.py:54",
     "topk_sim": "src/repro/kernels/topk_sim.py:149",
     "browse_scores": "src/repro/kernels/browse_scores.py:51",
+    "flash_attention": "src/repro/kernels/flash_attention.py:116",
+    "decode_attention": "src/repro/kernels/decode_attention.py:103",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
+SLICE_KERNELS = ("tree_refresh", "topk_sim", "browse_scores")
 
 
 class CheckFailed(Exception):
@@ -88,9 +110,11 @@ def peaks_for(name: str):
     return H100_SXM_PEAKS
 
 
-def bound_ms(nbytes: float, flops: float, peaks):
-    t_bytes = nbytes / peaks[0] * 1e3
-    t_ops = flops / peaks[1] * 1e3
+def bound_ms(nbytes: float, flops: float, peaks, op: str = "fp32"):
+    """(ms, "bytes" or "operations"): the larger of bytes over the memory
+    rate and operations over the peak rate of type ``op``."""
+    t_bytes = nbytes / peaks["bytes"] * 1e3
+    t_ops = flops / peaks[op] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -100,6 +124,8 @@ def bound_ms(nbytes: float, flops: float, peaks):
 def check_kernels(torch, peaks, seed: int):
     from repro_torch.kernels import ref
     from repro_torch.kernels.browse_scores import browse_scores
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.topk_sim import topk_sim
     from repro_torch.kernels.tree_refresh import tree_refresh
 
@@ -108,22 +134,33 @@ def check_kernels(torch, peaks, seed: int):
     results = {}
 
     def record(name, label, err, tol, fn, plain, nbytes, flops, main,
-               library=None):
+               library=None, op="fp32"):
+        """Time the kernel, its plain version and the library call. A main
+        row is one the main paths run; the first main row of a kernel is
+        its row in the JSON summary, the others ride along in it."""
         ms = device_ms(torch, fn)
         plain_ms = device_ms(torch, plain)
         lib_ms = device_ms(torch, library) if library is not None else None
-        b_ms, b_by = bound_ms(nbytes, flops, peaks)
+        b_ms, b_by = bound_ms(nbytes, flops, peaks, op)
+        peak = peaks["bytes"] / 1e12 if b_by == "bytes" else peaks[op] / 1e12
+        unit = "TB/s" if b_by == "bytes" else f"TFLOP/s {op}"
         lib_txt = f"{lib_ms:.5f}" if lib_ms is not None else "none"
         print(f"check: {name} {label} max_abs_err={err:.3e} (tol {tol:.0e}) "
               f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib_txt} "
-              f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+              f"bound_ms={b_ms:.5f} ({b_by} at {peak:g} {unit})", flush=True)
         if main:
-            results[name] = {"shape": label, "max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": b_ms,
-                             "bound_by": b_by, "library_ms": lib_ms}
+            row = {"shape": label, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "peak": "bytes" if b_by == "bytes" else op,
+                   "library_ms": lib_ms}
+            if name not in results:
+                results[name] = dict(row, other_main_rows=[])
+            else:
+                results[name]["other_main_rows"].append(row)
 
     # -- tree_refresh -------------------------------------------------------
-    for (P, K, D), main in (((128, 8, 256), True), ((4096, 16, 256), False)):
+    for (P, K, D), main in (((128, 8, 256), True), ((128, 8, 4096), True),
+                            ((4096, 16, 256), False)):
         emb = ref.normalize_rows(torch.randn(P * K, D, generator=g, device=dev)
                                  ).reshape(P, K, D).contiguous()
         cnt = torch.randint(0, K + 1, (P,), generator=g, device=dev)
@@ -142,7 +179,8 @@ def check_kernels(torch, peaks, seed: int):
                (P * K * D + P * K + P * D) * 4, 2 * P * K * D + 3 * P * D, main)
 
     # -- browse_scores ------------------------------------------------------
-    for (F, K, D), main in (((1024, 8, 256), True), ((4096, 16, 256), False)):
+    for (F, K, D), main in (((1024, 8, 256), True), ((512, 8, 4096), True),
+                            ((4096, 16, 256), False)):
         # unit rows, as the browse gathers them from the forest
         child = ref.normalize_rows(torch.randn(F * K, D, generator=g,
                                                device=dev)).reshape(F, K, D)
@@ -222,12 +260,108 @@ def check_kernels(torch, peaks, seed: int):
 
     topk_case(64, 256, 256, 16, 256)
     topk_case(64, 1024, 256, 24, 1024, main=True)
+    topk_case(32, 1024, 4096, 24, 1024, main=True)      # the serve phase's D
     topk_case(64, 256, 256, 16, 5)                       # num_valid < k
     topk_case(8, 1000, 256, 7, 1000, normalize=True)
     big = 262144
     topk_case(64, big, 256, 16, big - 1, plant=True)
     topk_case(1, big, 256, 32, big - 1, plant=True)
     topk_case(200, big, 256, 32, big - 1, plant=True)
+
+    # -- flash_attention ----------------------------------------------------
+    # bf16 rows: the kernel and its plain version both compute in f32 from
+    # the same bf16 inputs and round the result to bf16 once, so they may
+    # differ by one bf16 ulp of the output: tests/test_kernels.py's bf16
+    # criterion, |err| <= 2e-2 + 1e-2 |plain|. f32 rows: 2e-5 (f32 sums in
+    # another order).
+    # The library call is checked only to show that it computes the same
+    # function: its bf16 kernels round P to bf16 before P.V, so it is held
+    # to 5e-2 (bf16) or 1e-3 (f32) beyond 5e-2 |plain|.
+    F = torch.nn.functional
+    tols = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (2e-5, 0.0)}
+    lib_tols = {torch.bfloat16: (5e-2, 5e-2), torch.float32: (1e-3, 5e-2)}
+    ops_of = {torch.bfloat16: "bf16", torch.float32: "fp32"}
+
+    def agree(out, want, dt, what, tolerances=tols):
+        atol, rtol = tolerances[dt]
+        o, w = out.float(), want.float()
+        excess = ((o - w).abs() - rtol * w.abs()).max().item()
+        need(excess <= atol, f"{what}: differs from the plain version by "
+             f"{excess:.3e} beyond rtol {rtol} (atol {atol})")
+        return (o - w).abs().max().item()
+
+    def flash_case(B, S, Hq, Hkv, D, causal, dt, main, what):
+        q = torch.randn(B, S, Hq, D, generator=g, device=dev).to(dt)
+        k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dt)
+        v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dt)
+        out = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        label = (f"{what} {B}x{S}x{Hq}/{Hkv}x{D} "
+                 f"{'causal' if causal else 'full'} {ops_of[dt]}")
+        err = agree(out, ref.attention_ref(q, k, v, causal=causal), dt,
+                    f"flash_attention {label}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library():     # timed for comparison; the port never calls it
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+        agree(library().transpose(1, 2), out, dt,
+              f"flash_attention {label}: the library call", lib_tols)
+        pairs = S * (S + 1) // 2 if causal else S * S
+        elem = out.element_size()
+        record("flash_attention", label, err, tols[dt][0],
+               lambda: flash_attention(q, k, v, causal=causal),
+               lambda: ref.attention_ref(q, k, v, causal=causal),
+               (2 * B * S * Hq * D + 2 * B * S * Hkv * D) * elem,
+               4 * B * Hq * pairs * D, main, library, ops_of[dt])
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    flash_case(336, 28, 32, 8, 128, True, bf16, True, "encoder")
+    flash_case(8, 128, 32, 8, 128, True, bf16, True, "prefill")
+    flash_case(48, 28, 32, 8, 128, True, f32, False, "parity encoder")
+    flash_case(1, 4096, 32, 8, 128, True, bf16, False, "stress")
+    flash_case(2, 2048, 32, 32, 96, False, bf16, False, "stress")
+
+    # -- decode_attention ---------------------------------------------------
+    def decode_case(B, Smax, Hq, Hkv, D, lengths, dt, main, what):
+        q = torch.randn(B, Hq, D, generator=g, device=dev).to(dt)
+        kc = torch.randn(B, Smax, Hkv, D, generator=g, device=dev).to(dt)
+        vc = torch.randn(B, Smax, Hkv, D, generator=g, device=dev).to(dt)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        out = decode_attention(q, kc, vc, lens)
+        torch.cuda.synchronize()
+        label = f"{what} {B}x{Smax}x{Hq}/{Hkv}x{D} {ops_of[dt]}"
+        err = agree(out, ref.decode_attention_ref(q, kc, vc, lens), dt,
+                    f"decode_attention {label}")
+        need(bool((out[lens == 0] == 0).all()), "decode_attention: length 0 "
+             "must give zeros")
+        live = lens > 0                 # the library call has no answer at 0
+        mask = (torch.arange(Smax, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        qs, ks, vs = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+
+        def library():     # timed for comparison; the port never calls it
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  enable_gqa=True)
+        agree(library()[:, :, 0][live], out[live], dt,
+              f"decode_attention {label}: the library call", lib_tols)
+        rows = sum(min(max(n, 0), Smax) for n in lengths)
+        elem = out.element_size()
+        record("decode_attention", label, err, tols[dt][0],
+               lambda: decode_attention(q, kc, vc, lens),
+               lambda: ref.decode_attention_ref(q, kc, vc, lens),
+               2 * rows * Hkv * D * elem + 2 * B * Hq * D * elem + 4 * B,
+               4 * rows * Hq * D, main, library, ops_of[dt])
+
+    rng = np.random.default_rng(seed)
+    main_lens = rng.integers(40, 200, size=8).tolist()
+    decode_case(8, 512, 32, 8, 128, main_lens, bf16, True, "decode")
+    decode_case(4, 512, 32, 8, 128, rng.integers(20, 80, size=4).tolist(),
+                f32, False, "parity decode")
+    decode_case(1, 32768, 32, 8, 128, [32760], bf16, False, "stress split-KV")
+    wide = rng.integers(1, 4097, size=64).tolist()
+    wide[0], wide[1] = 0, 5000          # an empty row, a row past Smax
+    decode_case(64, 4096, 32, 8, 128, wide, bf16, False, "stress")
     return results
 
 
@@ -311,6 +445,225 @@ def profile_slice(torch, wl):
         run_slice(torch, wl, "cuda")
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    return (wall,) + device_busy(prof)
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the serve engine on llama3-8b
+# ---------------------------------------------------------------------------
+PROMPT_TOKENS = 120       # decode prompts: the first turns of a session
+DECODE_PROMPTS = 8
+NEW_TOKENS = 32
+
+
+def build_engine(cfg, params, device, obs=None):
+    """ServeEngine on ``cfg`` whose memory is a MemForestSystem with a
+    ModelEncoder on the same weights (examples/serve_memforest.py)."""
+    from repro_torch import MemForestConfig, MemForestSystem
+    from repro_torch.core.encoder import ModelEncoder
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import ServeEngine
+
+    tok = HashTokenizer(cfg.vocab_size)
+    memory = MemForestSystem(MemForestConfig(embed_dim=cfg.d_model),
+                             ModelEncoder(cfg, params, tok, max_len=128),
+                             device=device, obs=obs)
+    engine = ServeEngine(get_model(cfg), params, max_batch=8, max_len=512,
+                         memory=memory, max_ingest_batch=16, obs=obs)
+    return engine, tok
+
+
+def decode_prompts(wl, tok, n):
+    out = []
+    for s in wl.sessions[:n]:
+        ids = [i for t in s.turns for i in tok.encode(t.text)]
+        out.append(ids[:PROMPT_TOKENS])
+    return out
+
+
+def serve_traffic(torch, engine, prompts, sessions, queries, new_tokens):
+    """Round 1: the sessions through the ingest lane beside the prompts'
+    decodes. Round 2: the queries through the query lane beside the same
+    prompts again (the same padded block and prefix key: a prefix hit).
+    Each round runs to drained; returns (round-1 s, round-2 s, results)."""
+    def run():
+        t0 = time.perf_counter()
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for s in sessions:
+        engine.submit_session(s)
+    for p in prompts:
+        engine.submit(p, max_new_tokens=new_tokens, prefix_key="summarize")
+    ingest_s = run()
+    rids = [engine.submit_query(q) for q in queries]
+    for p in prompts:
+        engine.submit(p, max_new_tokens=new_tokens, prefix_key="summarize")
+    query_s = run()
+    return ingest_s, query_s, [engine.pop_query_result(r) for r in rids]
+
+
+def read_counts(names):
+    """{kernel: (launches, plain calls)} from the wrappers' counters."""
+    from repro_torch.kernels import COUNTS
+    return {k: (COUNTS[k].launches, COUNTS[k].plain_calls) for k in names}
+
+
+def run_serve(torch, wl, seed):
+    """Phase 5 on llama3-8b (bf16, published width and depth)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import MemorySink, Observability, Tracer
+
+    cfg = get_config("llama3_8b")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    print(f"serve: model={cfg.name} layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} dtype={cfg.dtype} "
+          f"params={cfg.param_count():,} init_s={time.perf_counter() - t0:.2f} "
+          f"device_gib={torch.cuda.memory_allocated() / 2**30:.2f}", flush=True)
+
+    sink = MemorySink()
+    obs = Observability(tracer=Tracer(sink=sink, enabled=True))
+    engine, tok = build_engine(cfg, params, "cuda", obs)
+    prompts = decode_prompts(wl, tok, DECODE_PROMPTS)
+    kernels.reset_counts()
+    ingest_s, query_s, results = serve_traffic(
+        torch, engine, prompts, wl.sessions, wl.queries, NEW_TOKENS)
+    counts = read_counts(REPLACES)
+
+    m = engine.metrics()
+    totals = span_totals(sink)
+    mf = engine.memory
+    decode_s = totals.get("engine.decode", 0.0)
+    print(f"serve: sessions={len(wl.sessions)} round1_s={ingest_s:.4f} "
+          f"sessions_per_s={len(wl.sessions) / ingest_s:.2f} "
+          f"encoder_tokens={mf.encoder.stats.tokens} "
+          f"encoder_calls={mf.encoder.stats.calls} stats={mf.scale_stats()}")
+    print(f"serve: queries_served={m['queries_served']} round2_s={query_s:.4f} "
+          f"decoded_tokens={m['decoded_tokens']} decode_span_s={decode_s:.4f} "
+          f"decoded_tokens_per_s={m['decoded_tokens'] / decode_s:.1f} "
+          f"(decode spans) "
+          f"{m['decoded_tokens'] / (ingest_s + query_s):.1f} (wall)")
+    print("serve: metrics " + json.dumps(m, sort_keys=True))
+    print("serve: span_s " + " ".join(
+        f"{k}={v:.4f}" for k, v in sorted(totals.items())), flush=True)
+    print("serve: launches " + " ".join(
+        f"{k}={n} plain={p}" for k, (n, p) in counts.items()))
+    for k, (n, p) in counts.items():
+        need(n > 0, f"{k} never launched on the serve path")
+        need(p == 0, f"{k} ran its plain version {p} times on CUDA")
+    need(m["prefills_reused"] >= 1, "the prefix cache was never reused")
+    need(len(results) == len(wl.queries)
+         and all(r is not None for r in results), "a query went unanswered")
+    gold = sum(r.answer.strip().lower() == q.gold.strip().lower()
+               for r, q in zip(results, wl.queries))
+    print(f"serve: answers={len(results)} non_empty="
+          f"{sum(bool(r.answer) for r in results)} equal_to_gold={gold} "
+          "(random weights: not a measure of quality)")
+    need(m["decoded_tokens"] > 0, "no tokens decoded")
+    texts = [t.text for s in wl.sessions[:8] for t in s.turns]
+    e1, e2 = mf.encoder.encode(texts), mf.encoder.encode(texts)
+    need(e1.shape == (len(texts), cfg.d_model) and bool(np.isfinite(e1).all()),
+         "encoder output has the wrong shape or is not finite")
+    need(e1.tobytes() == e2.tobytes(), "two encodes of one batch differ")
+    print(f"serve: encoder repeatable, {len(texts)} texts bitwise equal")
+    del engine, mf
+
+    # device busy time over a profiled repeat of the same traffic
+    from torch.profiler import ProfilerActivity, profile
+    engine, _ = build_engine(cfg, params, "cuda")
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve_traffic(torch, engine, prompts, wl.sessions, wl.queries,
+                      NEW_TOKENS)
+    wall = time.perf_counter() - t0
+    busy_s, top = device_busy(prof)
+    serve_s = ingest_s + query_s
+    if busy_s > 0:
+        print(f"serve: profiled_wall_s={wall:.4f} device_busy_s={busy_s:.4f} "
+              f"unprofiled_wall_s={serve_s:.4f} "
+              f"idle_share={1 - busy_s / serve_s:.4f} "
+              f"idle_share_profiled={1 - busy_s / wall:.4f}")
+        print("serve: device_ms " + "; ".join(
+            f"{k[:48]}={v / 1e3:.3f}" for k, v in top))
+    else:
+        print(f"serve: profiled_wall_s={wall:.4f} device busy time not "
+              "measured (the profiler saw no device activity)")
+    del engine, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_parity(torch, seed):
+    """Phase 6: the engine at llama3-8b's width, depth 2, float32, on the
+    card and on the CPU with the same weights and traffic."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_workload
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("llama3_8b").replace(num_layers=2, dtype="float32",
+                                          param_dtype="float32")
+    wl = make_workload(num_entities=4, num_sessions=4,
+                       transitions_per_entity=3, num_queries=8, seed=seed)
+    gpu_params = T.init_params(cfg, seed, device="cuda")
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_cpu(v) for v in tree]
+        return tree.cpu()
+    cpu_params = to_cpu(gpu_params)
+    runs = {}
+    for device, params in (("cuda", gpu_params), ("cpu", cpu_params)):
+        engine, tok = build_engine(cfg, params, device)
+        prompts = decode_prompts(wl, tok, 4)
+        t0 = time.perf_counter()
+        _, _, results = serve_traffic(torch, engine, prompts, wl.sessions,
+                                      wl.queries, 8)
+        texts = [t.text for s in wl.sessions[:2] for t in s.turns]
+        runs[device] = (engine, results, engine.memory.encoder.encode(texts),
+                        time.perf_counter() - t0)
+    (ge, gres, gemb, gs), (ce, cres, cemb, cs) = runs["cuda"], runs["cpu"]
+    emb_err = float(np.abs(gemb - cemb).max())
+    # float32 on both sides, TF32 off; the sums run in another order
+    need(emb_err <= 1e-4, f"parity: encoder embeddings differ by {emb_err}")
+    tokens = lambda e: sorted((r.req_id, r.out_tokens) for r in e.finished)
+    need(tokens(ge) == tokens(ce), "parity: decoded tokens differ")
+    need(len(ge.finished) == 8, "parity: a decode request did not finish")
+    fa, fb = ge.memory.forest, ce.memory.forest
+    need([(f.fact_id, f.text, f.value) for f in fa.facts]
+         == [(f.fact_id, f.text, f.value) for f in fb.facts],
+         "parity: facts differ")
+    need(ge.memory.scale_stats() == ce.memory.scale_stats(),
+         "parity: scale_stats differ")
+    for key, ta in fa.trees.items():
+        tb = fb.trees[key]
+        need(ta.children == tb.children and ta.level == tb.level
+             and ta.root == tb.root, f"parity: tree {key} differs")
+    need(fa.placement == fb.placement, "parity: placement differs")
+    need([(r.answer, r.evidence) for r in gres]
+         == [(r.answer, r.evidence) for r in cres], "parity: answers differ")
+    need(ge.metrics()["prefills_reused"] >= 1, "parity: no prefix hit")
+    print(f"parity: llama3-8b width, {cfg.num_layers} layers, float32: "
+          f"sessions={len(wl.sessions)} queries={len(gres)} "
+          f"decoded_tokens={ge.metrics()['decoded_tokens']} tokens equal, "
+          f"facts={len(fa.facts)} trees={len(fa.trees)} answers equal, "
+          f"embedding max_abs_err={emb_err:.3e} (tol 1e-4) "
+          f"card_s={gs:.3f} cpu_s={cs:.3f}", flush=True)
+    del runs, ge, ce, gpu_params
+    torch.cuda.empty_cache()
+
+
+def device_busy(prof):
+    """(device busy seconds, the eight largest device items in us)."""
     by_name = {}
     for ev in prof.key_averages():
         if not str(ev.device_type).endswith("CUDA"):
@@ -319,7 +672,8 @@ def profile_slice(torch, wl):
                      getattr(ev, "self_cuda_time_total", 0.0))
         if us > 0:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us
-    return wall, by_name
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return sum(by_name.values()) / 1e6, top
 
 
 def main() -> int:
@@ -354,8 +708,10 @@ def main() -> int:
     peaks = peaks_for(name)
     print(smi_line)
     print(f"device: {name} capability={cap[0]}.{cap[1]} torch={torch.__version__}"
-          f" cuda={torch.version.cuda} peaks: {peaks[0] / 1e12:.2f} TB/s, "
-          f"{peaks[1] / 1e12:.0f} TFLOP/s fp32", flush=True)
+          f" cuda={torch.version.cuda} peaks: {peaks['bytes'] / 1e12:.2f} TB/s, "
+          f"{peaks['fp32'] / 1e12:.0f} TFLOP/s fp32, "
+          f"{peaks['bf16'] / 1e12:.0f} TFLOP/s bf16 (tensor cores, dense)",
+          flush=True)
     need(cap == (9, 0), f"compute capability {cap}, need 9.0 (sm_90a)")
 
     # 2. build --------------------------------------------------------------
@@ -379,7 +735,7 @@ def main() -> int:
 
     kernels.reset_counts()
     mf, answers, ingest_s, query_s = run_slice(torch, wl, "cuda", obs)
-    counts = {k: (c.launches, c.plain_calls) for k, c in kernels.COUNTS.items()}
+    counts = read_counts(SLICE_KERNELS)
 
     turns = sum(len(s.turns) for s in wl.sessions)
     print(f"slice: sessions={len(wl.sessions)} turns={turns} "
@@ -404,9 +760,7 @@ def main() -> int:
     need(e1.tobytes() == e2.tobytes(), "two encodes of one batch differ")
     print(f"slice: encoder repeatable, {len(texts)} texts bitwise equal")
 
-    wall, dev_us = profile_slice(torch, wl)
-    busy_s = sum(dev_us.values()) / 1e6
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    wall, busy_s, top = profile_slice(torch, wl)
     slice_s = ingest_s + sum(query_s.values())
     if busy_s > 0:
         # the profiler slows the host, so the share against the unprofiled
@@ -424,20 +778,32 @@ def main() -> int:
     cpu_mf, cpu_answers, cpu_ingest_s, cpu_query_s = run_slice(torch, wl, "cpu")
     print(f"slice: cpu rerun ingest_s={cpu_ingest_s:.4f} matches: "
           + compare_systems(mf, cpu_mf, answers, cpu_answers), flush=True)
+    del mf, cpu_mf
 
-    # 5. kernels ------------------------------------------------------------
+    # 5. the serve engine on llama3-8b ---------------------------------------
+    serve_counts = run_serve(torch, wl, args.seed)
+
+    # 6. the same engine on the card and on the CPU --------------------------
+    run_parity(torch, args.seed)
+
+    # 7. kernels ------------------------------------------------------------
     summary = []
     for k in REPLACES:
         r = results[k]
-        print(f"kernels: {k} launches={counts[k][0]} check=ok "
-              f"main_shape={r['shape']}")
+        by_path = {"slice": counts[k][0] if k in counts else 0,
+                   "serve": serve_counts[k][0]}
+        print(f"kernels: {k} launches={sum(by_path.values())} "
+              f"(slice {by_path['slice']}, serve {by_path['serve']}) "
+              f"check=ok main_shape={r['shape']}")
         summary.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
-            "replaces": REPLACES[k], "launches": counts[k][0],
+            "replaces": REPLACES[k], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"],
+            "bound_by": r["bound_by"], "peak": r["peak"],
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "other_main_rows": r["other_main_rows"],
         })
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Embedding encoder for the memory substrate.
+"""Embedding encoders for the memory substrate.
 
 HashingEncoder: deterministic token/bigram hashing into a fixed random
 projection, the JAX package's default encoder. The table is built from
@@ -7,7 +7,11 @@ same seed gives the same table bytes in both packages. The projection runs on
 the encoder's device; the result returns to the host as numpy, which is where
 the write and read paths consume it.
 
-It counts calls and tokens, so the write path can report its cost.
+ModelEncoder: a dense LM as the embedding backbone: tokenize, run the trunk
+(its attention is the ``flash_attention`` kernel on the card), masked
+mean-pool, normalise.
+
+Both count calls and tokens, so the write path can report its cost.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer
 
 
 def _stable_hash(s: str) -> int:
@@ -149,6 +154,61 @@ class HashingEncoder:
         self.stats.texts += len(texts)
         out = project(torch.from_numpy(flat).to(self.device),
                       torch.from_numpy(lengths).to(self.device), self._table)
+        return out.cpu().numpy()
+
+    def encode_one(self, text: str) -> np.ndarray:
+        return self.encode([text])[0]
+
+
+class ModelEncoder:
+    """LM-backed encoder: trunk forward + masked mean-pool, then ``s /
+    (||s|| + 1e-6)`` in float32. It runs on the device of ``params``.
+
+    Each call pads its texts to the longest of them (at most ``max_len``
+    tokens), right-padded; causal attention keeps the padding out of the
+    real positions, and the pool's mask keeps it out of the mean."""
+
+    def __init__(self, cfg, params, tokenizer, max_len: int = 128):
+        self.cfg = cfg
+        self.params = params
+        self.tok = tokenizer
+        self.max_len = max_len
+        self.dim = cfg.d_model
+        self.device = params["embed"].device
+        self.stats = EncoderStats()
+
+    def _pooled(self, tokens: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        x = self.params["embed"][tokens]
+        positions = torch.arange(tokens.shape[1], device=self.device)[None, :]
+        h, _ = transformer.trunk(self.params, self.cfg, x, positions)
+        # the masked sum runs in h's type, the normalisation in float32
+        m = mask[..., None].to(h.dtype)
+        s = torch.sum(h * m, dim=1) / torch.clamp(torch.sum(m, dim=1), min=1.0)
+        sf = s.to(torch.float32)
+        n = torch.linalg.vector_norm(sf, dim=-1, keepdim=True) + 1e-6
+        return sf / n
+
+    def encode(self, texts: Sequence[str], *, sequential: bool = False) -> np.ndarray:
+        if not texts:
+            return np.zeros((0, self.dim), np.float32)
+        if sequential:
+            self.stats.sequential_calls += len(texts)
+            return np.concatenate([self._fwd([t]) for t in texts], axis=0)
+        return self._fwd(list(texts))
+
+    def _fwd(self, texts: List[str]) -> np.ndarray:
+        ids = [self.tok.encode(t)[: self.max_len] for t in texts]
+        L = max(len(i) for i in ids)
+        toks = np.zeros((len(ids), L), np.int64)
+        mask = np.zeros((len(ids), L), np.float32)
+        for i, seq in enumerate(ids):
+            toks[i, : len(seq)] = seq
+            mask[i, : len(seq)] = 1.0
+        self.stats.calls += 1
+        self.stats.tokens += int(mask.sum())
+        self.stats.texts += len(texts)
+        out = self._pooled(torch.from_numpy(toks).to(self.device),
+                           torch.from_numpy(mask).to(self.device))
         return out.cpu().numpy()
 
     def encode_one(self, text: str) -> np.ndarray:

@@ -1,14 +1,17 @@
-"""The main path's three kernels (CUDA C++ for Hopper, in ``csrc/``), their
-plain PyTorch versions (``ref.py``) and the device-index ops (``ops.py``)."""
+"""The port's kernels (CUDA C++ for Hopper, in ``csrc/``), their plain
+PyTorch versions (``ref.py``) and the device-index ops (``ops.py``)."""
 from typing import Dict
 
-from repro_torch.kernels import browse_scores, topk_sim, tree_refresh
+from repro_torch.kernels import (browse_scores, decode_attention,
+                                 flash_attention, topk_sim, tree_refresh)
 from repro_torch.kernels._build import LaunchCount
 
 COUNTS: Dict[str, LaunchCount] = {
     "tree_refresh": tree_refresh.COUNT,
     "topk_sim": topk_sim.COUNT,
     "browse_scores": browse_scores.COUNT,
+    "flash_attention": flash_attention.COUNT,
+    "decode_attention": decode_attention.COUNT,
 }
 
 

@@ -26,7 +26,8 @@ from typing import Dict, List, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("tree_refresh.cu", "topk_sim.cu", "browse_scores.cu")
+SOURCES = ("tree_refresh.cu", "topk_sim.cu", "browse_scores.cu",
+           "flash_attention.cu", "decode_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,6 +41,10 @@ SIGNATURES: Dict[str, Tuple] = {
     "memforest_topk_sim": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P),
     "memforest_browse_scores": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "memforest_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _P),
+    "memforest_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _P),
 }
 
 
@@ -135,16 +140,18 @@ def library() -> KernelLibrary:
     return KernelLibrary(entries, list(outs.values()), build_s, report)
 
 
-def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> torch.device:
-    """Every input is a contiguous float32 tensor on one CUDA device."""
+def check_cuda_inputs(name: str, *tensors: torch.Tensor,
+                      dtypes=(torch.float32,)) -> torch.device:
+    """Every input is a contiguous tensor on one CUDA device, of one of
+    ``dtypes``."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: inputs must all lie on one CUDA device "
                              f"(got {[str(x.device) for x in tensors]})")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32, got "
-                            f"{t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: the CUDA kernel takes "
+                            f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel takes contiguous "
                              "tensors")

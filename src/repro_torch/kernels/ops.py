@@ -1,6 +1,6 @@
-"""Entry points the forest and the retriever call.
+"""Entry points the forest, the retriever and the models call.
 
-The three kernels dispatch on the device of their inputs: a CUDA tensor
+The kernels dispatch on the device of their inputs: a CUDA tensor
 launches the hand-written kernel, a CPU tensor runs the plain PyTorch
 version. The device-index ops below are plain PyTorch on either device, as
 they are plain jnp in the JAX package.
@@ -12,13 +12,16 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.browse_scores import browse_scores
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import (grow_rows, normalize_rows,
                                      scatter_normalize_rows)
 from repro_torch.kernels.topk_sim import topk_sim
 from repro_torch.kernels.tree_refresh import tree_refresh
 
-__all__ = ["browse_scores", "grow_rows", "normalize_rows", "release_rows",
-           "scatter_normalize_rows", "topk_sim", "tree_refresh"]
+__all__ = ["attention", "browse_scores", "decode_attention", "grow_rows",
+           "normalize_rows", "release_rows", "scatter_normalize_rows",
+           "topk_sim", "tree_refresh"]
 
 
 def release_rows(arr: Optional[torch.Tensor],
@@ -29,3 +32,10 @@ def release_rows(arr: Optional[torch.Tensor],
     if arr is None or keep <= 0:
         return None
     return arr[:keep].clone()
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True) -> torch.Tensor:
+    """GQA attention over one sequence, in the JAX package's layout: q (B, S,
+    Hq, D), k and v (B, S, Hkv, D) -> (B, S, Hq, D)."""
+    return flash_attention(q, k, v, causal=causal)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three main-path kernels and the index ops.
+"""Plain PyTorch versions of the port's kernels and the index ops.
 
 Each function computes what its CUDA kernel computes, with ordinary tensor
 operations, on any device. The kernel wrappers run these for CPU tensors (the
@@ -97,3 +97,54 @@ def scatter_normalize_rows(arr: torch.Tensor, idx: torch.Tensor,
 def grow_rows(arr: torch.Tensor, add: int) -> torch.Tensor:
     """``arr`` with ``add`` zero rows appended, on its own device."""
     return torch.cat([arr, arr.new_zeros((add, arr.shape[1]))])
+
+
+def _inv_sqrt(D: int, device) -> torch.Tensor:
+    """``1 / sqrt(D)`` in float32, as the JAX reference computes it."""
+    return 1.0 / torch.sqrt(torch.tensor(float(D), dtype=torch.float32,
+                                         device=device))
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True) -> torch.Tensor:
+    """GQA attention over one sequence: q (B, S, Hq, D), k/v (B, S, Hkv, D)
+    -> (B, S, Hq, D) in q's type. Computed in float32; masked scores are
+    -1e30. Query head h reads KV head ``h // (Hq // Hkv)``."""
+    B, S, Hq, D = q.shape
+    group = Hq // k.shape[2]
+    if group > 1:
+        k = torch.repeat_interleave(k, group, dim=2)
+        v = torch.repeat_interleave(v, group, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * _inv_sqrt(D, q.device)
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+        logits = torch.where(mask[None, None], logits,
+                             torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """One new token per sequence against its KV cache: q (B, Hq, D), caches
+    (B, Smax, Hkv, D), lengths (B,) int32 -> (B, Hq, D) in q's type. Cache
+    positions at or past ``lengths[b]`` are masked. A sequence of length 0
+    gets zeros, as the Pallas kernel gives (it skips every block); the JAX
+    package's jnp oracle would give the mean of v over all Smax rows."""
+    B, Smax, Hkv, D = k_cache.shape
+    group = q.shape[1] // Hkv
+    qf = q.to(torch.float32).reshape(B, Hkv, group, D)
+    logits = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.to(torch.float32))
+    logits = logits * _inv_sqrt(D, q.device)
+    pos = torch.arange(Smax, device=q.device)[None, None, None, :]
+    valid = pos < lengths.to(q.device)[:, None, None, None]
+    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", probs, v_cache.to(torch.float32))
+    out = torch.where((lengths.to(q.device) > 0)[:, None, None, None], out,
+                      torch.zeros_like(out))
+    return out.reshape(B, q.shape[1], D).to(q.dtype)

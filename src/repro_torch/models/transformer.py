@@ -1,0 +1,147 @@
+"""Decoder-only LM, dense family: init, trunk, prefill and decode.
+
+Counterpart of the JAX package's ``models/transformer.py``. Parameters are a
+dict: ``embed`` (V, D), ``layers`` (a list with one dict per layer: ``ln1``,
+``ln2``, ``attn``, ``mlp``), ``final_norm`` and, unless the embeddings are
+tied, ``unembed`` (D, V). The JAX package stacks the layers along a leading
+axis for ``lax.scan``; here a Python loop walks the list.
+
+The KV cache is a dict ``{"k", "v": (L, B, max_len, Hkv, Dh) in cfg.dtype,
+"lengths": (B,) int32}`` on the parameters' device. ``decode_step`` writes
+the new K/V rows into it IN PLACE and returns a dict with the same ``k`` and
+``v`` tensors and new ``lengths``; a caller that keeps an older cache dict
+must clone it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def init_params(cfg: ModelConfig, seed: int = 0, *,
+                device=None) -> Dict[str, Any]:
+    """Random weights from a seeded ``torch.Generator`` on ``device`` (None
+    means the CUDA card), with the reference's distributions: dense
+    normal * 1/sqrt(d_in), embeddings normal * 0.02, norms ones."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.family}: the port runs the dense "
+                                  "family only (ROADMAP.md, queue 1)")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = L.torch_dtype(cfg.param_dtype)
+    params: Dict[str, Any] = {
+        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
+        "layers": [{
+            "ln1": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+            "ln2": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+            "attn": L.attn_init(gen, cfg, dtype),
+            "mlp": L.mlp_init(gen, cfg, dtype),
+        } for _ in range(cfg.num_layers)],
+        "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                         dtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# shared trunk
+# ---------------------------------------------------------------------------
+def _layer_fwd(cfg: ModelConfig, p, x, positions, *, return_kv=False):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    att = L.attention_prefill(p["attn"], h, cfg, positions,
+                              return_kv=return_kv)
+    if return_kv:
+        att, kv = att
+    x = x + att
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + L.mlp_block(p["mlp"], h, cfg)
+    return (x, kv) if return_kv else x
+
+
+def trunk(params, cfg: ModelConfig, x: torch.Tensor,
+          positions: torch.Tensor):
+    """x: (B, S, D) embeddings -> (hidden (B, S, D), aux_loss). The dense
+    family has no auxiliary loss: it is 0."""
+    for p in params["layers"]:
+        x = _layer_fwd(cfg, p, x, positions)
+    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return h, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"].T
+    else:
+        logits = h @ params["unembed"]
+    if cfg.logits_softcap > 0:
+        c = cfg.logits_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits
+
+
+def _embed_batch(params, cfg: ModelConfig,
+                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Token embedding: (B, S) ids -> (B, S, D)."""
+    return params["embed"][batch["tokens"]]
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device=None) -> Dict[str, torch.Tensor]:
+    dev = resolve_device(device)
+    dtype = L.torch_dtype(cfg.dtype)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=dev),
+        "v": torch.zeros(shape, dtype=dtype, device=dev),
+        "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev),
+    }
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            max_len: int):
+    """Full-sequence forward; returns (last logits (B, V), cache). The
+    cache is ``max_len`` wide (``S`` if the prompt is longer, as the
+    reference pads only up to ``max_len``)."""
+    x = _embed_batch(params, cfg, batch)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    cache = init_cache(cfg, B, max(max_len, S), device=x.device)
+    for i, p in enumerate(params["layers"]):
+        x, (k, v) = _layer_fwd(cfg, p, x, positions, return_kv=True)
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, cfg, h[:, -1])
+    cache["lengths"].fill_(S)
+    return logits, cache
+
+
+def decode_step(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                cache: Dict[str, torch.Tensor]):
+    """One-token decode. batch: {"tokens": (B,) int}. Returns (logits (B,
+    V), cache with the new rows written in place and lengths + 1)."""
+    x = params["embed"][batch["tokens"]]           # (B, D)
+    lengths = cache["lengths"]
+    for i, p in enumerate(params["layers"]):
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        att, _, _ = L.attention_decode(p["attn"], h, cfg, cache["k"][i],
+                                       cache["v"][i], lengths)
+        x = x + att
+        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + L.mlp_block(p["mlp"], h, cfg)
+    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, cfg, h)
+    return logits, {"k": cache["k"], "v": cache["v"], "lengths": lengths + 1}
