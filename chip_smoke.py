@@ -35,7 +35,24 @@ Phases, each printed on its own line; any failed check exits nonzero:
   6. parity   the same engine traffic at llama3-8b's full width but depth 2,
               in float32, on a few sessions, on the card and on the CPU: equal
               decoded tokens, facts, trees and answers; embeddings within 1e-4.
-  7. kernels  one line per kernel, and the JSON summary of all of them.
+  7. zamba2   the serve engine on zamba2-7b at its published width and depth
+              (81 Mamba2 layers, the shared attention block after every 6;
+              bf16, random weights from a seeded generator on the card):
+              ``ServeEngine(max_batch=8, max_len=512)`` whose memory is a
+              ``MemForestSystem`` with the hashing encoder at the paper's
+              defaults. The same two rounds of traffic as phase 5, with 8
+              prefix-keyed prompts of exactly 128 tokens (the scans take T <= 64
+              or a multiple of 64). ``mamba2_ssd`` must launch at least 81
+              times, the attention kernels once per application of the shared
+              block, the forest kernels at all; no plain version may run.
+  8. rwkv6    the same on rwkv6-1.6b (24 layers); ``rwkv6_scan`` must launch
+              at least 24 times.
+  9. ssm_parity  zamba2 at full width and 7 layers (one group and one
+              remainder layer) and rwkv6 at full width and 2 layers, float32,
+              a few sessions, on the card and on the CPU with the same
+              weights: equal decoded tokens, facts, trees and answers; the
+              final ssd / wkv state within 1e-4.
+  10. kernels one line per kernel, and the JSON summary of all of them.
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a
 visible CUDA device, or without the rest of the repository beside it, the
@@ -68,9 +85,12 @@ REPLACES = {
     "browse_scores": "src/repro/kernels/browse_scores.py:51",
     "flash_attention": "src/repro/kernels/flash_attention.py:116",
     "decode_attention": "src/repro/kernels/decode_attention.py:103",
+    "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:119",
+    "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:125",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
 SLICE_KERNELS = ("tree_refresh", "topk_sim", "browse_scores")
+SERVE_KERNELS = SLICE_KERNELS + ("flash_attention", "decode_attention")
 
 
 class CheckFailed(Exception):
@@ -126,6 +146,8 @@ def check_kernels(torch, peaks, seed: int):
     from repro_torch.kernels.browse_scores import browse_scores
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
     from repro_torch.kernels.topk_sim import topk_sim
     from repro_torch.kernels.tree_refresh import tree_refresh
 
@@ -318,6 +340,7 @@ def check_kernels(torch, peaks, seed: int):
     bf16, f32 = torch.bfloat16, torch.float32
     flash_case(336, 28, 32, 8, 128, True, bf16, True, "encoder")
     flash_case(8, 128, 32, 8, 128, True, bf16, True, "prefill")
+    flash_case(8, 128, 32, 32, 112, True, bf16, True, "zamba2 prefill")
     flash_case(48, 28, 32, 8, 128, True, f32, False, "parity encoder")
     flash_case(1, 4096, 32, 8, 128, True, bf16, False, "stress")
     flash_case(2, 2048, 32, 32, 96, False, bf16, False, "stress")
@@ -356,13 +379,113 @@ def check_kernels(torch, peaks, seed: int):
     rng = np.random.default_rng(seed)
     main_lens = rng.integers(40, 200, size=8).tolist()
     decode_case(8, 512, 32, 8, 128, main_lens, bf16, True, "decode")
+    decode_case(8, 512, 32, 32, 112, rng.integers(128, 161, size=8).tolist(),
+                bf16, True, "zamba2 decode")
     decode_case(4, 512, 32, 8, 128, rng.integers(20, 80, size=4).tolist(),
                 f32, False, "parity decode")
     decode_case(1, 32768, 32, 8, 128, [32760], bf16, False, "stress split-KV")
     wide = rng.integers(1, 4097, size=64).tolist()
     wide[0], wide[1] = 0, 5000          # an empty row, a row past Smax
     decode_case(64, 4096, 32, 8, 128, wide, bf16, False, "stress")
+
+    # -- mamba2_ssd and rwkv6_scan --------------------------------------------
+    # f32 rows: 2e-4 beyond 1e-2 relative (tests/test_kernels.py; the sums
+    # run in another order). bf16 rows: the kernel and its plain version both
+    # compute in f32 from the same bf16 inputs and round the output once, so
+    # it may differ by one bf16 ulp of the plain value beyond that 2e-4. The
+    # final state is f32 in both and held to the f32 criterion. No single
+    # PyTorch call computes either scan: library_ms is none.
+    def bf16_ulp(t):
+        mag = t.abs().clamp_min(2.0 ** -126)
+        return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+    def scan_agree(out, want, what):
+        o, w = out.float(), want.float()
+        slack = bf16_ulp(w) if out.dtype == bf16 else 1e-2 * w.abs()
+        excess = ((o - w).abs() - slack).max().item()
+        need(excess <= 2e-4, f"{what}: differs from the plain version by "
+             f"{excess:.3e} beyond {'one bf16 ulp' if out.dtype == bf16 else 'rtol 1e-2'} "
+             "(atol 2e-4)")
+        return (o - w).abs().max().item()
+
+    def scan_case(name, kernel, plain, args, chunk, label, nbytes, flops,
+                  main, dt):
+        out, state = kernel(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        want, want_state = plain(*args, chunk=chunk)
+        err = max(scan_agree(out, want, f"{name} {label}: output"),
+                  scan_agree(state, want_state, f"{name} {label}: state"))
+        need(bool(torch.isfinite(out.float()).all()
+                  and torch.isfinite(state).all()), f"{name} {label}: not finite")
+        record(name, label, err, 2e-4, lambda: kernel(*args, chunk=chunk),
+               lambda: plain(*args, chunk=chunk), nbytes, flops, main, None,
+               ops_of[dt])
+
+    def ssd_case(B, T, H, P, N, chunk, dt, main, what):
+        x = torch.randn(B, T, H, P, generator=g, device=dev).to(dt)
+        dts = F.softplus(torch.randn(B, T, H, generator=g, device=dev))
+        A = -torch.linspace(1.0, 16.0, H, device=dev)   # the model's init
+        Bm = torch.randn(B, T, N, generator=g, device=dev).to(dt)
+        C = torch.randn(B, T, N, generator=g, device=dev).to(dt)
+        s0 = 0.1 * torch.randn(B, H, P, N, generator=g, device=dev)
+        c = min(chunk, T)
+        elem = x.element_size()
+        nbytes = (2 * B * T * H * P + 2 * B * T * N) * elem + B * T * H * 4 \
+            + H * 4 + 2 * B * H * P * N * 4
+        scan_case("mamba2_ssd", mamba2_ssd, ref.mamba2_ssd_chunked,
+                  (x, dts, A, Bm, C, s0), chunk,
+                  f"{what} {B}x{T}x{H}x{P}x{N} chunk={c} {ops_of[dt]}", nbytes,
+                  ssd_flops(B, T, H, P, N, c), main, dt)
+
+    def rwkv_case(B, T, H, K, V, chunk, dt, main, what):
+        r, k = (torch.randn(B, T, H, K, generator=g, device=dev).to(dt)
+                for _ in range(2))
+        v = torch.randn(B, T, H, V, generator=g, device=dev).to(dt)
+        w = -0.5 + 0.5 * torch.randn(B, T, H, K, generator=g, device=dev)
+        u = (0.1 * torch.randn(H, K, generator=g, device=dev)).to(dt)
+        s0 = 0.1 * torch.randn(B, H, K, V, generator=g, device=dev)
+        c = min(chunk, T)
+        elem = r.element_size()
+        nbytes = (2 * B * T * H * K + 2 * B * T * H * V + H * K) * elem \
+            + B * T * H * K * 4 + 2 * B * H * K * V * 4
+        scan_case("rwkv6_scan", rwkv6_scan, ref.rwkv6_chunked,
+                  (r, k, v, w, u, s0), chunk,
+                  f"{what} {B}x{T}x{H}x{K}x{V} chunk={c} {ops_of[dt]}", nbytes,
+                  rwkv_flops(B, T, H, K, V, c), main, dt)
+
+    ssd_case(8, 128, 112, 64, 64, 64, bf16, True, "prefill")
+    ssd_case(8, 128, 112, 64, 64, 64, f32, False, "parity prefill")
+    ssd_case(8, 16, 112, 64, 64, 64, f32, False, "one chunk")
+    ssd_case(2, 96, 112, 64, 64, 32, f32, False, "ragged chunks")
+    ssd_case(1, 4096, 112, 64, 64, 64, bf16, False, "stress")
+    rwkv_case(8, 128, 32, 64, 64, 64, bf16, True, "prefill")
+    rwkv_case(8, 128, 32, 64, 64, 64, f32, False, "parity prefill")
+    rwkv_case(8, 16, 32, 64, 64, 64, f32, False, "one chunk")
+    rwkv_case(2, 96, 32, 64, 64, 32, f32, False, "ragged chunks")
+    rwkv_case(1, 4096, 32, 64, 64, 64, bf16, False, "stress")
     return results
+
+
+def ssd_flops(B, T, H, P, N, C) -> int:
+    """Operations the chunked SSD needs: C.B^T once per (batch, chunk) over
+    the lower triangle (B and C are shared by the heads); per (batch, head,
+    chunk) the masked G, G.x, C.S^T and the state update."""
+    nc, tri = T // C, C * (C + 1) // 2
+    per_head = (tri * (3 + 2 * P) + C * P * (2 * N + 2) + P * N * (2 * C + 2)
+                + 4 * C)
+    return B * nc * (tri * 2 * N + H * per_head)
+
+
+def rwkv_flops(B, T, H, K, V, C) -> int:
+    """Operations the chunked WKV6 needs per (batch, head, chunk): the
+    log-decay sums, the gated r.k over the strict lower triangle (exp
+    counted as one operation), the bonus diagonal, the rescales, A.v, the
+    carried state's term and the state update."""
+    nc, tri = T // C, C * (C + 1) // 2
+    strict = C * (C - 1) // 2
+    per_head = (3 * C * K + 5 * strict * K + 3 * C * K + 4 * C * K
+                + C * V * 2 * K + tri * 2 * V + K * V * (2 * C + 2))
+    return B * H * nc * per_head
 
 
 # ---------------------------------------------------------------------------
@@ -436,18 +559,6 @@ def span_totals(sink):
     return out
 
 
-def profile_slice(torch, wl):
-    """Device busy time over one more slice run, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run_slice(torch, wl, "cuda")
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return (wall,) + device_busy(prof)
-
-
 # ---------------------------------------------------------------------------
 # phases 5 and 6: the serve engine on llama3-8b
 # ---------------------------------------------------------------------------
@@ -474,11 +585,11 @@ def build_engine(cfg, params, device, obs=None):
     return engine, tok
 
 
-def decode_prompts(wl, tok, n):
+def decode_prompts(wl, tok, n, length=PROMPT_TOKENS):
     out = []
     for s in wl.sessions[:n]:
         ids = [i for t in s.turns for i in tok.encode(t.text)]
-        out.append(ids[:PROMPT_TOKENS])
+        out.append(ids[:length])
     return out
 
 
@@ -503,6 +614,63 @@ def serve_traffic(torch, engine, prompts, sessions, queries, new_tokens):
         engine.submit(p, max_new_tokens=new_tokens, prefix_key="summarize")
     query_s = run()
     return ingest_s, query_s, [engine.pop_query_result(r) for r in rids]
+
+
+def to_cpu(tree):
+    """A copy of a parameter tree (dicts and lists of tensors) on the CPU."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def same_engines(label, ge, ce, gres, cres) -> None:
+    """The card's engine ``ge`` and the CPU's ``ce`` after the same traffic:
+    equal decoded tokens, facts, trees, placement and answers; a prefix
+    hit."""
+    tokens = lambda e: sorted((r.req_id, r.out_tokens)    # noqa: E731
+                              for r in e.finished)
+    need(tokens(ge) == tokens(ce), f"{label}: decoded tokens differ")
+    need(len(ge.finished) == 8, f"{label}: a decode request did not finish")
+    fa, fb = ge.memory.forest, ce.memory.forest
+    need([(f.fact_id, f.text, f.value) for f in fa.facts]
+         == [(f.fact_id, f.text, f.value) for f in fb.facts],
+         f"{label}: facts differ")
+    need(ge.memory.scale_stats() == ce.memory.scale_stats(),
+         f"{label}: scale_stats differ")
+    need(list(fa.trees) == list(fb.trees), f"{label}: tree sets differ")
+    for key, ta in fa.trees.items():
+        tb = fb.trees[key]
+        need(ta.children == tb.children and ta.level == tb.level
+             and ta.root == tb.root, f"{label}: tree {key} differs")
+    need(fa.placement == fb.placement, f"{label}: placement differs")
+    need([(r.answer, r.evidence) for r in gres]
+         == [(r.answer, r.evidence) for r in cres], f"{label}: answers differ")
+    need(ge.metrics()["prefills_reused"] >= 1, f"{label}: no prefix hit")
+
+
+def profiled_repeat(torch, phase, traffic, serve_s, activities) -> None:
+    """Device busy time over a profiled repeat of a phase's traffic, and
+    the idle share against the unprofiled run's ``serve_s``."""
+    from torch.profiler import profile
+    t0 = time.perf_counter()
+    with profile(activities=activities) as prof:
+        traffic()
+    wall = time.perf_counter() - t0
+    busy_s, top = device_busy(prof)
+    if busy_s > 0:
+        # the profiler slows the host, so the share against the unprofiled
+        # run's wall time is the one the phase sees
+        print(f"{phase}: profiled_wall_s={wall:.4f} device_busy_s={busy_s:.4f} "
+              f"unprofiled_wall_s={serve_s:.4f} "
+              f"idle_share={1 - busy_s / serve_s:.4f} "
+              f"idle_share_profiled={1 - busy_s / wall:.4f}")
+        print(f"{phase}: device_ms " + "; ".join(
+            f"{k[:48]}={v / 1e3:.3f}" for k, v in top))
+    else:
+        print(f"{phase}: profiled_wall_s={wall:.4f} device busy time not "
+              "measured (the profiler saw no device activity)")
 
 
 def read_counts(names):
@@ -535,7 +703,7 @@ def run_serve(torch, wl, seed):
     kernels.reset_counts()
     ingest_s, query_s, results = serve_traffic(
         torch, engine, prompts, wl.sessions, wl.queries, NEW_TOKENS)
-    counts = read_counts(REPLACES)
+    counts = read_counts(SERVE_KERNELS)
 
     m = engine.metrics()
     totals = span_totals(sink)
@@ -576,26 +744,11 @@ def run_serve(torch, wl, seed):
     del engine, mf
 
     # device busy time over a profiled repeat of the same traffic
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     engine, _ = build_engine(cfg, params, "cuda")
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        serve_traffic(torch, engine, prompts, wl.sessions, wl.queries,
-                      NEW_TOKENS)
-    wall = time.perf_counter() - t0
-    busy_s, top = device_busy(prof)
-    serve_s = ingest_s + query_s
-    if busy_s > 0:
-        print(f"serve: profiled_wall_s={wall:.4f} device_busy_s={busy_s:.4f} "
-              f"unprofiled_wall_s={serve_s:.4f} "
-              f"idle_share={1 - busy_s / serve_s:.4f} "
-              f"idle_share_profiled={1 - busy_s / wall:.4f}")
-        print("serve: device_ms " + "; ".join(
-            f"{k[:48]}={v / 1e3:.3f}" for k, v in top))
-    else:
-        print(f"serve: profiled_wall_s={wall:.4f} device busy time not "
-              "measured (the profiler saw no device activity)")
+    profiled_repeat(torch, "serve", lambda: serve_traffic(
+        torch, engine, prompts, wl.sessions, wl.queries, NEW_TOKENS),
+        ingest_s + query_s, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     del engine, params
     torch.cuda.empty_cache()
     return counts
@@ -613,13 +766,6 @@ def run_parity(torch, seed):
     wl = make_workload(num_entities=4, num_sessions=4,
                        transitions_per_entity=3, num_queries=8, seed=seed)
     gpu_params = T.init_params(cfg, seed, device="cuda")
-
-    def to_cpu(tree):
-        if isinstance(tree, dict):
-            return {k: to_cpu(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_cpu(v) for v in tree]
-        return tree.cpu()
     cpu_params = to_cpu(gpu_params)
     runs = {}
     for device, params in (("cuda", gpu_params), ("cpu", cpu_params)):
@@ -635,23 +781,8 @@ def run_parity(torch, seed):
     emb_err = float(np.abs(gemb - cemb).max())
     # float32 on both sides, TF32 off; the sums run in another order
     need(emb_err <= 1e-4, f"parity: encoder embeddings differ by {emb_err}")
-    tokens = lambda e: sorted((r.req_id, r.out_tokens) for r in e.finished)
-    need(tokens(ge) == tokens(ce), "parity: decoded tokens differ")
-    need(len(ge.finished) == 8, "parity: a decode request did not finish")
-    fa, fb = ge.memory.forest, ce.memory.forest
-    need([(f.fact_id, f.text, f.value) for f in fa.facts]
-         == [(f.fact_id, f.text, f.value) for f in fb.facts],
-         "parity: facts differ")
-    need(ge.memory.scale_stats() == ce.memory.scale_stats(),
-         "parity: scale_stats differ")
-    for key, ta in fa.trees.items():
-        tb = fb.trees[key]
-        need(ta.children == tb.children and ta.level == tb.level
-             and ta.root == tb.root, f"parity: tree {key} differs")
-    need(fa.placement == fb.placement, "parity: placement differs")
-    need([(r.answer, r.evidence) for r in gres]
-         == [(r.answer, r.evidence) for r in cres], "parity: answers differ")
-    need(ge.metrics()["prefills_reused"] >= 1, "parity: no prefix hit")
+    same_engines("parity", ge, ce, gres, cres)
+    fa = ge.memory.forest
     print(f"parity: llama3-8b width, {cfg.num_layers} layers, float32: "
           f"sessions={len(wl.sessions)} queries={len(gres)} "
           f"decoded_tokens={ge.metrics()['decoded_tokens']} tokens equal, "
@@ -660,6 +791,175 @@ def run_parity(torch, seed):
           f"card_s={gs:.3f} cpu_s={cs:.3f}", flush=True)
     del runs, ge, ce, gpu_params
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 7-9: the serve engine on zamba2 and rwkv6
+# ---------------------------------------------------------------------------
+SSM_PROMPT_TOKENS = 128   # a multiple of the scans' 64-token chunk
+SSM_ARCHS = {"zamba2": ("zamba2_7b", "mamba2_ssd"),
+             "rwkv6": ("rwkv6_1b6", "rwkv6_scan")}
+
+
+def build_hashing_engine(cfg, params, device, obs=None):
+    """ServeEngine on ``cfg`` whose memory is a MemForestSystem with the
+    hashing encoder at the paper's defaults (``launch/serve.py --encoder
+    hashing``): neither family has the dense trunk a ModelEncoder needs."""
+    from repro_torch import MemForestSystem
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import ServeEngine
+
+    memory = MemForestSystem(device=device, obs=obs)
+    engine = ServeEngine(get_model(cfg), params, max_batch=8, max_len=512,
+                         memory=memory, max_ingest_batch=16, obs=obs)
+    return engine, HashTokenizer(cfg.vocab_size)
+
+
+def ssm_prompts(wl, tok, n):
+    prompts = decode_prompts(wl, tok, n, SSM_PROMPT_TOKENS)
+    need(all(len(p) == SSM_PROMPT_TOKENS for p in prompts),
+         f"a session has fewer than {SSM_PROMPT_TOKENS} tokens")
+    return prompts
+
+
+def param_count(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(param_count(v) for v in tree)
+    return tree.numel()
+
+
+def run_ssm_serve(torch, wl, seed, phase):
+    """Phase 7 (zamba2-7b) or 8 (rwkv6-1.6b): bf16, published width and
+    depth, the engine traffic of phase 5 with 128-token prompts."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.obs import MemorySink, Observability, Tracer
+
+    arch, scan = SSM_ARCHS[phase]
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(seed, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{phase}: model={cfg.name} layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} attn_every={cfg.attn_every} "
+          f"vocab={cfg.vocab_size} dtype={cfg.dtype} "
+          f"params={param_count(params):,} "
+          f"init_s={time.perf_counter() - t0:.2f} "
+          f"device_gib={torch.cuda.memory_allocated() / 2**30:.2f}", flush=True)
+
+    sink = MemorySink()
+    obs = Observability(tracer=Tracer(sink=sink, enabled=True))
+    engine, tok = build_hashing_engine(cfg, params, "cuda", obs)
+    prompts = ssm_prompts(wl, tok, DECODE_PROMPTS)
+    kernels.reset_counts()
+    ingest_s, query_s, results = serve_traffic(
+        torch, engine, prompts, wl.sessions, wl.queries, NEW_TOKENS)
+    counts = read_counts(REPLACES)
+
+    m = engine.metrics()
+    totals = span_totals(sink)
+    decode_s = totals.get("engine.decode", 0.0)
+    steps = m["decode_steps"]
+    print(f"{phase}: sessions={len(wl.sessions)} round1_s={ingest_s:.4f} "
+          f"sessions_per_s={len(wl.sessions) / ingest_s:.2f} "
+          f"queries_served={m['queries_served']} round2_s={query_s:.4f} "
+          f"stats={engine.memory.scale_stats()}")
+    print(f"{phase}: decode_steps={steps} decoded_tokens={m['decoded_tokens']} "
+          f"decode_span_s={decode_s:.4f} "
+          f"decoded_tokens_per_s={m['decoded_tokens'] / decode_s:.1f} "
+          f"(decode spans) "
+          f"{m['decoded_tokens'] / (ingest_s + query_s):.1f} (wall) "
+          f"peak_device_gib={torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    print(f"{phase}: metrics " + json.dumps(m, sort_keys=True))
+    print(f"{phase}: span_s " + " ".join(
+        f"{k}={v:.4f}" for k, v in sorted(totals.items())), flush=True)
+    print(f"{phase}: launches " + " ".join(
+        f"{k}={n} plain={p}" for k, (n, p) in counts.items()))
+    for k, (n, p) in counts.items():
+        need(p == 0, f"{k} ran its plain version {p} times on CUDA")
+    for k in SLICE_KERNELS:
+        need(counts[k][0] > 0, f"{k} never launched on the {phase} path")
+    need(counts[scan][0] >= cfg.num_layers, f"{scan} launched "
+         f"{counts[scan][0]} times, fewer than the {cfg.num_layers} layers "
+         "of one prefill")
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // cfg.attn_every
+        need(counts["flash_attention"][0] >= groups, "flash_attention "
+             f"launched {counts['flash_attention'][0]} times, fewer than the "
+             f"{groups} applications of the shared block")
+        need(counts["decode_attention"][0] >= groups * steps,
+             f"decode_attention launched {counts['decode_attention'][0]} "
+             f"times, fewer than {groups} x {steps} decode steps")
+    need(m["prefills_reused"] >= 1, "the prefix cache was never reused")
+    need(len(engine.finished) == 2 * DECODE_PROMPTS and m["decoded_tokens"] > 0,
+         "a decode request did not finish")
+    need(len(results) == len(wl.queries)
+         and all(r is not None for r in results), "a query went unanswered")
+    need(bool(torch.isfinite(engine._last_logits.float()).all()),
+         "the last logits are not finite")
+    state = engine.cache["ssd" if cfg.family == "hybrid" else "wkv"]
+    need(bool(torch.isfinite(state).all()), "the recurrent state is not "
+         "finite")
+    del engine
+
+    # device busy time over a profiled repeat of the same traffic; device
+    # activity only: the host ops of 64 decode steps of 81 layers make a
+    # trace whose summary takes minutes, and the busy time needs none of them
+    from torch.profiler import ProfilerActivity
+    engine, _ = build_hashing_engine(cfg, params, "cuda")
+    profiled_repeat(torch, phase, lambda: serve_traffic(
+        torch, engine, prompts, wl.sessions, wl.queries, NEW_TOKENS),
+        ingest_s + query_s, [ProfilerActivity.CUDA])
+    del engine, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_ssm_parity(torch, seed):
+    """Phase 9: zamba2 at full width and 7 layers, rwkv6 at full width and
+    2 layers, float32, on the card and on the CPU with the same weights and
+    traffic."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_workload
+    from repro_torch.models import get_model
+
+    wl = make_workload(num_entities=4, num_sessions=4,
+                       transitions_per_entity=3, num_queries=8, seed=seed)
+    for phase, layers in (("zamba2", 7), ("rwkv6", 2)):
+        arch, _ = SSM_ARCHS[phase]
+        cfg = get_config(arch).replace(num_layers=layers, dtype="float32",
+                                       param_dtype="float32")
+        gpu_params = get_model(cfg).init(seed, device="cuda")
+        cpu_params = to_cpu(gpu_params)
+        runs = {}
+        for device, params in (("cuda", gpu_params), ("cpu", cpu_params)):
+            engine, tok = build_hashing_engine(cfg, params, device)
+            t0 = time.perf_counter()
+            _, _, results = serve_traffic(torch, engine,
+                                          ssm_prompts(wl, tok, 4),
+                                          wl.sessions, wl.queries, 8)
+            runs[device] = (engine, results, time.perf_counter() - t0)
+        (ge, gres, gs), (ce, cres, cs) = runs["cuda"], runs["cpu"]
+        same_engines(f"ssm_parity {phase}", ge, ce, gres, cres)
+        fa = ge.memory.forest
+        key = "ssd" if cfg.family == "hybrid" else "wkv"
+        # float32 on both sides, TF32 off; the sums run in another order
+        state_err = float((ge.cache[key].cpu() - ce.cache[key]).abs().max())
+        need(state_err <= 1e-4, f"ssm_parity {phase}: final {key} state "
+             f"differs by {state_err}")
+        print(f"ssm_parity: {cfg.name} width, {cfg.num_layers} layers, "
+              f"float32: sessions={len(wl.sessions)} queries={len(gres)} "
+              f"decoded_tokens={ge.metrics()['decoded_tokens']} tokens equal, "
+              f"facts={len(fa.facts)} trees={len(fa.trees)} answers equal, "
+              f"{key} state max_abs_err={state_err:.3e} (tol 1e-4) "
+              f"card_s={gs:.3f} cpu_s={cs:.3f}", flush=True)
+        del runs, ge, ce, gpu_params, cpu_params
+        torch.cuda.empty_cache()
 
 
 def device_busy(prof):
@@ -680,6 +980,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+
+    started = time.perf_counter()
+
+    def stamp(phase):
+        print(f"time: {phase} done at {time.perf_counter() - started:.1f} s",
+              flush=True)
 
     import torch
     if not torch.cuda.is_available():
@@ -722,8 +1028,11 @@ def main() -> int:
     for ln in regs:
         print(f"build: {ln}")
 
+    stamp("build")
+
     # 3. kernel checks ------------------------------------------------------
     results = check_kernels(torch, peaks, args.seed)
+    stamp("check")
 
     # 4. the main path ------------------------------------------------------
     from repro_torch.obs import MemorySink, Observability, Tracer
@@ -760,41 +1069,47 @@ def main() -> int:
     need(e1.tobytes() == e2.tobytes(), "two encodes of one batch differ")
     print(f"slice: encoder repeatable, {len(texts)} texts bitwise equal")
 
-    wall, busy_s, top = profile_slice(torch, wl)
-    slice_s = ingest_s + sum(query_s.values())
-    if busy_s > 0:
-        # the profiler slows the host, so the share against the unprofiled
-        # run's wall time is the one the main path sees
-        print(f"slice: profiled_wall_s={wall:.4f} device_busy_s={busy_s:.4f} "
-              f"unprofiled_wall_s={slice_s:.4f} "
-              f"idle_share={1 - busy_s / slice_s:.4f} "
-              f"idle_share_profiled={1 - busy_s / wall:.4f}")
-        print("slice: device_ms " + "; ".join(
-            f"{k[:48]}={v / 1e3:.3f}" for k, v in top))
-    else:
-        print(f"slice: profiled_wall_s={wall:.4f} device busy time not "
-              "measured (the profiler saw no device activity)")
+    from torch.profiler import ProfilerActivity
+    profiled_repeat(torch, "slice",
+                    lambda: (run_slice(torch, wl, "cuda"),
+                             torch.cuda.synchronize()),
+                    ingest_s + sum(query_s.values()),
+                    [ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     cpu_mf, cpu_answers, cpu_ingest_s, cpu_query_s = run_slice(torch, wl, "cpu")
     print(f"slice: cpu rerun ingest_s={cpu_ingest_s:.4f} matches: "
           + compare_systems(mf, cpu_mf, answers, cpu_answers), flush=True)
     del mf, cpu_mf
+    stamp("slice")
 
     # 5. the serve engine on llama3-8b ---------------------------------------
     serve_counts = run_serve(torch, wl, args.seed)
+    stamp("serve")
 
     # 6. the same engine on the card and on the CPU --------------------------
     run_parity(torch, args.seed)
+    stamp("parity")
 
-    # 7. kernels ------------------------------------------------------------
+    # 7-8. the serve engine on zamba2-7b and rwkv6-1.6b ----------------------
+    ssm_counts = {}
+    for phase in SSM_ARCHS:
+        ssm_counts[phase] = run_ssm_serve(torch, wl, args.seed, phase)
+        stamp(phase)
+
+    # 9. both on the card and on the CPU --------------------------------------
+    run_ssm_parity(torch, args.seed)
+    stamp("ssm_parity")
+
+    # 10. kernels -----------------------------------------------------------
     summary = []
     for k in REPLACES:
         r = results[k]
         by_path = {"slice": counts[k][0] if k in counts else 0,
-                   "serve": serve_counts[k][0]}
-        print(f"kernels: {k} launches={sum(by_path.values())} "
-              f"(slice {by_path['slice']}, serve {by_path['serve']}) "
-              f"check=ok main_shape={r['shape']}")
+                   "serve": serve_counts[k][0] if k in serve_counts else 0,
+                   **{phase: c[k][0] for phase, c in ssm_counts.items()}}
+        print(f"kernels: {k} launches={sum(by_path.values())} ("
+              + ", ".join(f"{p} {n}" for p, n in by_path.items())
+              + f") check=ok main_shape={r['shape']}")
         summary.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k], "launches": sum(by_path.values()),

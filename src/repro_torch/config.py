@@ -43,9 +43,10 @@ class ModelConfig:
     """Architecture description.
 
     ``family`` selects the block type. The port runs ``dense`` (pre-norm
-    GQA transformer, RoPE, SwiGLU / GeLU / relu^2 MLP); the other families
-    (``moe``, ``ssm``, ``hybrid``, ``encdec``, ``vlm``) are described here
-    so their configs load, and ``models.get_model`` refuses them.
+    GQA transformer, RoPE, SwiGLU / GeLU / relu^2 MLP), ``ssm`` (rwkv6) and
+    ``hybrid`` (zamba2); the other families (``moe``, ``encdec``, ``vlm``)
+    are described here so their configs load, and ``models.get_model``
+    refuses them.
     """
 
     name: str

@@ -1,5 +1,5 @@
-"""Model configurations the port runs: the dense family of the JAX package's
-``repro.configs``, copied as data.
+"""Model configurations the port runs: the dense family, zamba2 and rwkv6 of
+the JAX package's ``repro.configs``, copied as data.
 
 Each module exports ``CONFIG`` (published width and depth) and
 ``SMOKE_CONFIG`` (a few layers at narrow widths, for the CPU tests).
@@ -16,6 +16,8 @@ ARCHS: List[str] = [
     "granite_3_8b",
     "phi3_mini",
     "starcoder2_7b",
+    "zamba2_7b",
+    "rwkv6_1b6",
 ]
 
 # hyphen/dot aliases accepted from command lines
@@ -24,6 +26,8 @@ _ALIASES = {
     "granite-3-8b": "granite_3_8b",
     "phi3-mini-3.8b": "phi3_mini",
     "starcoder2-7b": "starcoder2_7b",
+    "zamba2-7b": "zamba2_7b",
+    "rwkv6-1.6b": "rwkv6_1b6",
 }
 
 

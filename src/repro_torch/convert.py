@@ -11,6 +11,9 @@ A dense transformer's parameters::
     jax_params = get_model(cfg).init(jax.random.key(0))
     params = transformer_params_from_numpy(
         jax.tree.map(np.asarray, jax_params), cfg, device="cuda")
+
+zamba2's and rwkv6's parameters go the same way through
+``zamba2_params_from_numpy`` and ``rwkv6_params_from_numpy``.
 """
 from __future__ import annotations
 
@@ -35,6 +38,42 @@ def hashing_encoder_from_numpy(table: np.ndarray, *, device=None,
                           device=device, table=table)
 
 
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    """One leaf as a tensor on ``device``: in ``dtype``, or in the leaf's
+    own type when ``dtype`` is None. A bf16 array arrives as numpy's
+    bf16-compatible dtype (it becomes torch.bfloat16) or as float32, and
+    either way holds the same values."""
+    a = np.asarray(a)
+    bf16 = a.dtype.kind == "V" or a.dtype.name == "bfloat16"
+    if bf16:
+        a = a.astype(np.float32)    # numpy has no native bf16
+    t = torch.from_numpy(np.array(a, copy=True)).to(device)
+    if dtype is None and bf16:
+        dtype = torch.bfloat16
+    return t if dtype is None else t.to(dtype)
+
+
+def _tree(tree, device, dtype=None, index=None):
+    """A dict tree of leaves as tensors; ``index`` picks one entry of a
+    leading stacked axis."""
+    if isinstance(tree, dict):
+        return {k: _tree(v, device, dtype, index) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return _tensor(a if index is None else a[index], device, dtype)
+
+
+def _unstack(tree, cfg, device, dtype=None):
+    """Layers stacked along a leading axis -> the port's list of per-layer
+    dicts."""
+    return [_tree(tree, device, dtype, i) for i in range(cfg.num_layers)]
+
+
+def _check_final_norm(params, cfg) -> None:
+    n = np.asarray(params["final_norm"]).shape
+    if n != (cfg.d_model,):
+        raise ValueError(f"final_norm has shape {n}, want ({cfg.d_model},)")
+
+
 def transformer_params_from_numpy(params: Dict[str, Any], cfg, *,
                                   device=None) -> Dict[str, Any]:
     """The port's parameters from the JAX package's dense-transformer tree:
@@ -43,32 +82,51 @@ def transformer_params_from_numpy(params: Dict[str, Any], cfg, *,
 
     Projections keep the JAX layout, (d_in, d_out), applied as ``x @ w``:
     nothing is transposed. The stacked layers become the port's list of
-    per-layer dicts. Every tensor takes ``cfg.param_dtype``; a bf16 array
-    arrives as numpy's bf16-compatible dtype or as float32, and either way
-    holds the same values."""
+    per-layer dicts. Every tensor takes ``cfg.param_dtype``."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
-
-    def t(a) -> torch.Tensor:
-        a = np.asarray(a)
-        if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
-            a = a.astype(np.float32)    # numpy has no native bf16
-        return torch.from_numpy(np.array(a, copy=True)).to(device=dev,
-                                                            dtype=dtype)
-
-    def layer(i: int, tree):
-        if isinstance(tree, dict):
-            return {k: layer(i, v) for k, v in tree.items()}
-        return t(np.asarray(tree)[i])
-
-    n = np.asarray(params["final_norm"]).shape
-    if n != (cfg.d_model,):
-        raise ValueError(f"final_norm has shape {n}, want ({cfg.d_model},)")
+    _check_final_norm(params, cfg)
     out = {
-        "embed": t(params["embed"]),
-        "layers": [layer(i, params["layers"]) for i in range(cfg.num_layers)],
-        "final_norm": t(params["final_norm"]),
+        "embed": _tensor(params["embed"], dev, dtype),
+        "layers": _unstack(params["layers"], cfg, dev, dtype),
+        "final_norm": _tensor(params["final_norm"], dev, dtype),
     }
     if not cfg.tie_embeddings:
-        out["unembed"] = t(params["unembed"])
+        out["unembed"] = _tensor(params["unembed"], dev, dtype)
     return out
+
+
+def zamba2_params_from_numpy(params: Dict[str, Any], cfg, *,
+                             device=None) -> Dict[str, Any]:
+    """The port's parameters from the JAX package's zamba2 tree: ``embed``,
+    ``layers`` (stacked; becomes a list of per-layer ``{"ln", "mamba"}``
+    dicts), ``shared_attn`` (stays one dict), ``final_norm``, ``unembed``.
+    Nothing is transposed. Unlike the dense converter, every leaf keeps its
+    own type: ``A_log``, ``dt_bias`` and ``D_skip`` are float32 whatever
+    ``cfg.param_dtype`` is."""
+    dev = resolve_device(device)
+    _check_final_norm(params, cfg)
+    return {
+        "embed": _tensor(params["embed"], dev),
+        "layers": _unstack(params["layers"], cfg, dev),
+        "shared_attn": _tree(params["shared_attn"], dev),
+        "final_norm": _tensor(params["final_norm"], dev),
+        "unembed": _tensor(params["unembed"], dev),
+    }
+
+
+def rwkv6_params_from_numpy(params: Dict[str, Any], cfg, *,
+                            device=None) -> Dict[str, Any]:
+    """The port's parameters from the JAX package's rwkv6 tree: ``embed``,
+    ``ln_in``, ``layers`` (stacked; becomes a list of per-layer dicts),
+    ``final_norm``, ``unembed``. Nothing is transposed, and every leaf keeps
+    its own type."""
+    dev = resolve_device(device)
+    _check_final_norm(params, cfg)
+    return {
+        "embed": _tensor(params["embed"], dev),
+        "ln_in": _tensor(params["ln_in"], dev),
+        "layers": _unstack(params["layers"], cfg, dev),
+        "final_norm": _tensor(params["final_norm"], dev),
+        "unembed": _tensor(params["unembed"], dev),
+    }

@@ -3,7 +3,8 @@ PyTorch versions (``ref.py``) and the device-index ops (``ops.py``)."""
 from typing import Dict
 
 from repro_torch.kernels import (browse_scores, decode_attention,
-                                 flash_attention, topk_sim, tree_refresh)
+                                 flash_attention, mamba2_ssd, rwkv6_scan,
+                                 topk_sim, tree_refresh)
 from repro_torch.kernels._build import LaunchCount
 
 COUNTS: Dict[str, LaunchCount] = {
@@ -12,6 +13,8 @@ COUNTS: Dict[str, LaunchCount] = {
     "browse_scores": browse_scores.COUNT,
     "flash_attention": flash_attention.COUNT,
     "decode_attention": decode_attention.COUNT,
+    "mamba2_ssd": mamba2_ssd.COUNT,
+    "rwkv6_scan": rwkv6_scan.COUNT,
 }
 
 

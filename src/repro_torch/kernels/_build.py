@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("tree_refresh.cu", "topk_sim.cu", "browse_scores.cu",
-           "flash_attention.cu", "decode_attention.cu")
+           "flash_attention.cu", "decode_attention.cu", "mamba2_ssd.cu",
+           "rwkv6_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +46,10 @@ SIGNATURES: Dict[str, Tuple] = {
                                   _P),
     "memforest_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _P),
+    "memforest_mamba2_ssd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _P),
+    "memforest_rwkv6_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _P),
 }
 
 

@@ -3,7 +3,10 @@
 Each function computes what its CUDA kernel computes, with ordinary tensor
 operations, on any device. The kernel wrappers run these for CPU tensors (the
 tests compare them with the JAX package's oracles), and ``chip_smoke.py``
-holds every CUDA kernel against them on the card.
+holds every CUDA kernel against them on the card. For the two recurrent
+scans the wrappers run the chunked forms (``rwkv6_chunked``,
+``mamba2_ssd_chunked``), whose operation order the kernels follow; the exact
+sequential recurrences beside them are oracles for the tests.
 
 The top-k order is part of the contract: (score desc, key index asc). It is
 realised here with a stable sort of the negated scores, never ``torch.topk``,
@@ -148,3 +151,164 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.where((lengths.to(q.device) > 0)[:, None, None, None], out,
                       torch.zeros_like(out))
     return out.reshape(B, q.shape[1], D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the two recurrent scans: RWKV6's WKV and Mamba2's SSD
+# ---------------------------------------------------------------------------
+SCAN_CHUNK = 64
+
+
+def scan_chunk(name: str, T: int, chunk: int = SCAN_CHUNK) -> int:
+    """``min(chunk, T)``, the chunk the reference takes; a ``T`` that is not
+    a multiple of it is refused, as the reference asserts ``T % chunk ==
+    0`` (``src/repro/kernels/ref.py``, ``mamba2_ssd.py``,
+    ``rwkv6_scan.py``)."""
+    if T < 1 or chunk < 1:
+        raise ValueError(f"{name}: T and chunk must be positive, got T={T}, "
+                         f"chunk={chunk}")
+    c = min(chunk, T)
+    if T % c:
+        raise ValueError(f"{name}: T={T} is not a multiple of the chunk {c}: "
+                         "the reference scans take T <= chunk or T % chunk "
+                         "== 0")
+    return c
+
+
+def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, state: torch.Tensor):
+    """Exact sequential WKV6 recurrence. r, k, w (B, T, H, K), v (B, T, H,
+    V), u (H, K), state (B, H, K, V) -> (o (B, T, H, V) in r's type, final
+    state in state's type)::
+
+        o_t = r_t . (S_{t-1} + diag(u) k_t^T v_t)
+        S_t = diag(exp(-exp(w_t))) S_{t-1} + k_t^T v_t
+    """
+    f32 = torch.float32
+    rf, kf, vf, wf = (x.to(f32) for x in (r, k, v, w))
+    uf = u.to(f32)
+    s = state.to(f32)
+    outs = []
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]       # (B,H,K,V)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t],
+                                 s + uf[None, :, :, None] * kv))
+        s = torch.exp(-torch.exp(wf[:, t]))[..., None] * s + kv
+    return torch.stack(outs, dim=1).to(r.dtype), s.to(state.dtype)
+
+
+def rwkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
+                  chunk: int = SCAN_CHUNK):
+    """Chunked WKV6, the reference's operation order (``rwkv6_chunked``):
+    per chunk, per-key cumulative log-decays, the carried state's term, the
+    (C, C, K) log-difference gate with every exponent clamped to <= 0, the
+    bonus ``u`` on the diagonal, then the state update. The plain version
+    of ``csrc/rwkv6_scan.cu``."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    chunk = scan_chunk("rwkv6_scan", T, chunk)
+    nc = T // chunk
+    f32 = torch.float32
+    rf, kf, vf, wf = (x.to(f32) for x in (r, k, v, w))
+    uf = u.to(f32)
+
+    def resh(x, d):             # (nc, B, H, C, d)
+        return x.reshape(B, nc, chunk, H, d).permute(1, 0, 3, 2, 4)
+
+    rc, kc, wc, vc = resh(rf, K), resh(kf, K), resh(wf, K), resh(vf, V)
+    idx = torch.arange(chunk, device=r.device)
+    strict = (idx[:, None] > idx[None, :])[..., None]           # (C, C, 1)
+    diag = idx[:, None] == idx[None, :]
+    s = state.to(f32)
+    outs = []
+    for c in range(nc):
+        rb, kb, vb, wb = rc[c], kc[c], vc[c], wc[c]
+        logdec = -torch.exp(wb)
+        cum = torch.cumsum(logdec, dim=2)
+        cum_excl = cum - logdec
+        o_inter = torch.einsum("bhck,bhkv->bhcv", rb * torch.exp(cum_excl), s)
+        diff = cum_excl[:, :, :, None, :] - cum[:, :, None, :, :]
+        gate = torch.where(strict, torch.exp(torch.clamp(diff, max=0.0)),
+                           torch.zeros((), dtype=f32, device=r.device))
+        A = torch.einsum("bhtk,bhsk,bhtsk->bhts", rb, kb, gate)
+        A_diag = torch.sum(rb * uf[None, :, None, :] * kb, dim=-1)
+        A = A + torch.where(diag, A_diag[..., None],
+                            torch.zeros((), dtype=f32, device=r.device))
+        o_intra = torch.einsum("bhts,bhsv->bhtv", A, vb)
+        total = cum[:, :, -1]                                   # (B, H, K)
+        k_scaled = kb * torch.exp(torch.clamp(total[:, :, None, :] - cum,
+                                              max=0.0))
+        s = torch.exp(total)[..., None] * s + torch.einsum(
+            "bhck,bhcv->bhkv", k_scaled, vb)
+        outs.append(o_inter + o_intra)
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, T, H, V)
+    return out.to(r.dtype), s.to(state.dtype)
+
+
+def mamba2_ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, C: torch.Tensor, state: torch.Tensor):
+    """Exact sequential SSD recurrence. x (B, T, H, P), dt (B, T, H) (after
+    softplus, > 0), A (H,) (< 0), Bm and C (B, T, N) (one group), state (B,
+    H, P, N) -> (y (B, T, H, P) in x's type, final state in state's
+    type)::
+
+        S_t = exp(dt_t A_h) S_{t-1} + dt_t x_t (x) B_t
+        y_t = S_t C_t
+    """
+    f32 = torch.float32
+    xf, dtf, Bf, Cf = (a.to(f32) for a in (x, dt, Bm, C))
+    Af = A.to(f32)
+    s = state.to(f32)
+    ys = []
+    for t in range(x.shape[1]):
+        decay = torch.exp(dtf[:, t] * Af[None, :])                # (B, H)
+        upd = (dtf[:, t, :, None] * xf[:, t])[..., None] \
+            * Bf[:, t, None, None, :]
+        s = decay[..., None, None] * s + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", s, Cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), s.to(state.dtype)
+
+
+def mamba2_ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bm: torch.Tensor, C: torch.Tensor, state: torch.Tensor,
+                       *, chunk: int = SCAN_CHUNK):
+    """Chunked SSD, the reference's operation order
+    (``mamba2_ssd_chunked``): per chunk, the cumulative log-decay dt.A, the
+    decay mask with every exponent clamped to <= 0, G = (C.B^T) * mask * dt,
+    y = G.x + exp(cum) (C.S^T), then the state update. The plain version of
+    ``csrc/mamba2_ssd.cu``."""
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    chunk = scan_chunk("mamba2_ssd", T, chunk)
+    nc = T // chunk
+    f32 = torch.float32
+    xf = x.to(f32).reshape(B, nc, chunk, H, P).permute(1, 0, 3, 2, 4)
+    dtf = dt.to(f32).reshape(B, nc, chunk, H).permute(1, 0, 3, 2)
+    Bf = Bm.to(f32).reshape(B, nc, chunk, N).permute(1, 0, 2, 3)
+    Cf = C.to(f32).reshape(B, nc, chunk, N).permute(1, 0, 2, 3)
+    Af = A.to(f32)
+    idx = torch.arange(chunk, device=x.device)
+    lower = idx[:, None] >= idx[None, :]
+    s = state.to(f32)
+    ys = []
+    for c in range(nc):
+        xb, dtb, Bb, Cb = xf[c], dtf[c], Bf[c], Cf[c]
+        cum = torch.cumsum(dtb * Af[None, :, None], dim=2)        # (B, H, C)
+        dmat = torch.where(
+            lower, torch.exp(torch.clamp(cum[..., :, None] - cum[..., None, :],
+                                         max=0.0)),
+            torch.zeros((), dtype=f32, device=x.device))          # (B,H,C,C)
+        cb = torch.einsum("btn,bsn->bts", Cb, Bb)
+        G = cb[:, None] * dmat * dtb[:, :, None, :]
+        y_intra = torch.einsum("bhts,bhsp->bhtp", G, xb)
+        y_inter = torch.exp(cum)[..., None] * torch.einsum("btn,bhpn->bhtp",
+                                                           Cb, s)
+        total = cum[:, :, -1]                                     # (B, H)
+        xw = xb * (dtb * torch.exp(torch.clamp(total[:, :, None] - cum,
+                                               max=0.0)))[..., None]
+        s = torch.exp(total)[..., None, None] * s + torch.einsum(
+            "bhcp,bcn->bhpn", xw, Bb)
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, T, H, P)
+    return y.to(x.dtype), s.to(state.dtype)

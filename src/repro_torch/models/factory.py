@@ -6,10 +6,11 @@
     model.decode(params, batch, cache) -> (logits, cache)
     model.init_cache(batch, max_len, device=...) -> empty cache
 
-Counterpart of the JAX package's ``models/factory.py``. The dense family
-runs; training (``loss``) and the shape-only ``cache_specs`` of the dry-run
-tooling are not ported yet (ROADMAP.md, queue 1 item 9). Every other family
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+Counterpart of the JAX package's ``models/factory.py``. The dense, ``ssm``
+(rwkv6) and ``hybrid`` (zamba2) families run; training (``loss``) and the
+shape-only ``cache_specs`` of the dry-run tooling are not ported yet
+(ROADMAP.md, queue 1 items 1 and 9). Every other family raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -17,14 +18,12 @@ import functools
 from typing import Any, Callable, NamedTuple
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer, zamba2
 
 # family -> the ROADMAP.md queue-1 item that ports it
 _NOT_PORTED = {
     "moe": "queue 1, item 1 (the MoE block of models/layers.py)",
     "vlm": "queue 1, item 1 (the VLM patch-embedding stub)",
-    "ssm": "queue 1, item 3 (rwkv6 and its rwkv6_scan kernel)",
-    "hybrid": "queue 1, item 3 (zamba2 and its mamba2_ssd kernel)",
     "encdec": "queue 1, item 1 (whisper and cross-attention)",
 }
 
@@ -37,14 +36,17 @@ class Model(NamedTuple):
     init_cache: Callable[..., Any]
 
 
+_MODULES = {"dense": transformer, "ssm": rwkv6, "hybrid": zamba2}
+
+
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
-        if cfg.family in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet; "
-                f"ROADMAP.md {_NOT_PORTED[cfg.family]}")
+    if cfg.family in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet; "
+            f"ROADMAP.md {_NOT_PORTED[cfg.family]}")
+    if cfg.family not in _MODULES:
         raise ValueError(cfg.family)
-    mod = transformer
+    mod = _MODULES[cfg.family]
     return Model(
         cfg=cfg,
         init=functools.partial(mod.init_params, cfg),

@@ -1,7 +1,7 @@
-"""Building blocks of the dense transformer: init, norms, RoPE, attention,
-MLP.
+"""Building blocks of the models: init, norms, RoPE, attention, MLP.
 
-Counterpart of the JAX package's ``models/layers.py`` (its dense subset).
+Counterpart of the JAX package's ``models/layers.py`` (its dense subset and
+``group_rms_norm``; zamba2's shared block is built from the same pieces).
 Parameters are plain dicts of tensors with the JAX layout: a projection is
 stored (d_in, d_out) and applied as ``x @ w``. Every cast follows the
 reference: norms and RoPE compute in float32 and return the input's type,
@@ -56,6 +56,17 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * gamma.to(torch.float32)).to(x.dtype)
+
+
+def group_rms_norm(x: torch.Tensor, gamma: torch.Tensor, num_heads: int,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm per head over the trailing dim split into ``num_heads``
+    (rwkv6's WKV output), then the gain; float32 inside, x's type out."""
+    *lead, D = x.shape
+    xh = x.reshape(*lead, num_heads, D // num_heads).to(torch.float32)
+    var = torch.mean(xh * xh, dim=-1, keepdim=True)
+    y = (xh * torch.rsqrt(var + eps)).reshape(*lead, D)
+    return (y * gamma.to(torch.float32)).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

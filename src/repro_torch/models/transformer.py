@@ -32,8 +32,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     means the CUDA card), with the reference's distributions: dense
     normal * 1/sqrt(d_in), embeddings normal * 0.02, norms ones."""
     if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.family}: the port runs the dense "
-                                  "family only (ROADMAP.md, queue 1)")
+        raise ValueError(f"{cfg.family}: models.transformer builds the dense "
+                         "family; get_model(cfg) picks the module of a "
+                         "family")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = L.torch_dtype(cfg.param_dtype)

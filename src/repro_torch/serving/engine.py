@@ -16,7 +16,8 @@ Not ported yet (ROADMAP.md): the maintenance and residency lanes, the
 multi-device ``sharded`` serve path and the ``tenant=`` routing.
 
 KV cache and prefill reuse. The model writes each decode step's K/V rows
-into the live cache IN PLACE (``models.transformer.decode_step``). The
+(and, for rwkv6 and zamba2, its recurrent state) into the live cache IN
+PLACE (``models.transformer.decode_step`` and its counterparts). The
 prefix cache keeps whole prefill results ``(logits, cache)``; the live cache
 is therefore always the engine's own copy (a cloned tree when an admission
 adopts a prefill result), so a decode step never writes into a stored
@@ -283,11 +284,26 @@ class ServeEngine:
         else:
             slots = torch.tensor(admitted_slots, dtype=torch.long,
                                  device=self.device)
-            self.cache["k"][:, slots] = new_cache["k"][:, slots]
-            self.cache["v"][:, slots] = new_cache["v"][:, slots]
-            self.cache["lengths"][slots] = new_cache["lengths"][slots]
+            self._merge(new_cache, slots)
             self._last_logits[slots] = logits[slots]
         return [self.active[i] for i in admitted_slots]
+
+    def _merge(self, new_cache, slots: torch.Tensor) -> None:
+        """Copy the admitted slots' rows of a prefill's cache into the live
+        cache, IN PLACE, by the reference's rule for every entry: shaped
+        (num_layers, B, ...) -> along axis 1; else shaped (B, ...) -> along
+        axis 0; else left as it is. The last case is zamba2's per-application
+        KV caches (G, B, ...): the reference leaves them stale (or, when G
+        equals B, merges them along the group axis), and the port matches it
+        (ROADMAP.md, section 3)."""
+        B = self.max_batch
+        num_layers = self.model.cfg.num_layers
+        for key, old in self.cache.items():
+            if old.dim() >= 2 and old.shape[0] == num_layers \
+                    and old.shape[1] == B:
+                old[:, slots] = new_cache[key][:, slots]
+            elif old.dim() >= 1 and old.shape[0] == B:
+                old[slots] = new_cache[key][slots]
 
     # ------------------------------------------------------------------
     def step(self) -> int:

@@ -32,7 +32,9 @@ def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core.memforest, "
             "repro_torch.convert, repro_torch.kernels.ops, "
             "repro_torch.serving.engine, repro_torch.models, "
-            "repro_torch.configs.llama3_8b, repro_torch.data.tokenizer; "
+            "repro_torch.configs.llama3_8b, repro_torch.data.tokenizer, "
+            "repro_torch.models.zamba2, repro_torch.models.rwkv6, "
+            "repro_torch.configs.zamba2_7b, repro_torch.configs.rwkv6_1b6; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

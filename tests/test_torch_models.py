@@ -362,9 +362,10 @@ def test_bf16_prefill_and_decode():
         assert t[0].dtype == torch.bfloat16 and t[1]["k"].dtype == torch.bfloat16
 
 
-def test_other_families_are_refused():
+@pytest.mark.parametrize("family", ["moe", "vlm", "encdec"])
+def test_other_families_are_refused(family):
     from repro_torch.config import ModelConfig
-    cfg = ModelConfig(name="x", family="hybrid", num_layers=1, d_model=8,
+    cfg = ModelConfig(name="x", family=family, num_layers=1, d_model=8,
                       num_heads=1, num_kv_heads=1, d_ff=8, vocab_size=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(cfg)
