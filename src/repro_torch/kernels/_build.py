@@ -24,17 +24,20 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("tree_refresh.cu", "topk_sim.cu", "browse_scores.cu",
            "flash_attention.cu", "decode_attention.cu", "mamba2_ssd.cu",
            "rwkv6_scan.cu")
+HEADERS = ("tma.cuh",)     # included by the sources: part of every hash
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry point ``memforest_<kernel>``, defined in ``csrc/<kernel>.cu`` ->
 # argument types; every entry point returns a cudaError_t
 SIGNATURES: Dict[str, Tuple] = {
@@ -43,9 +46,9 @@ SIGNATURES: Dict[str, Tuple] = {
                            _P),
     "memforest_browse_scores": (_P, _P, _P, _P, _I, _I, _I, _P),
     "memforest_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _P),
-    "memforest_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _P),
+                                  _I, _P),
+    "memforest_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _P),
     "memforest_mamba2_ssd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _P),
     "memforest_rwkv6_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -92,7 +95,7 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -185,3 +188,16 @@ def launch(name: str, entry: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError {err}")
+
+
+TMA_ALIGN = 8   # head dims the tensor maps take: 16-byte bf16 rows
+
+
+def tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its head dim zero-padded to a multiple of ``TMA_ALIGN``
+    and its data 16-byte aligned, as the attention kernels' tensor maps
+    need (a copy only where ``x`` is not so already)."""
+    pad = -x.shape[-1] % TMA_ALIGN
+    if pad:
+        return F.pad(x, (0, pad))
+    return x if x.data_ptr() % 16 == 0 else x.clone()

@@ -5,12 +5,12 @@ Counterpart of the JAX package's ``kernels/decode_attention.py``. q (B, Hq,
 D), caches (B, Smax, Hkv, D), lengths (B,) int32 on the device -> (B, Hq, D)
 in q's type. Positions at or past ``lengths[b]`` are masked and never read;
 a length of 0 gives zeros, as the Pallas kernel gives. The kernel is
-``csrc/decode_attention.cu``; CPU tensors take the plain version in
-``ref.py``.
+``csrc/decode_attention.cu``, one launch per call; CPU tensors take the
+plain version in ``ref.py``.
 """
 from __future__ import annotations
 
-import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -20,27 +20,50 @@ from repro_torch.kernels.ref import decode_attention_ref
 COUNT = _build.LaunchCount("decode_attention")
 MAX_HEAD_DIM = 128
 DTYPES = (torch.float32, torch.bfloat16)
-MIN_CHUNK = 512             # positions a split owns at least
-CHUNK_ALIGN = 32
+TILE = 64                   # cache rows per K/V tile in shared memory
+CHUNK = 2 * TILE            # cache rows a block owns: two tiles, both in flight
+FAN_IN = 16                 # partials per merge, in two levels
+BLOCK_HEADS = 16            # bf16: query heads per block at most
 
 
-def plan_splits(B: int, Hkv: int, Smax: int, sms: int):
-    """(splits, chunk) for the KV range. One block per (batch, KV head)
-    when those fill the card's ``sms`` SMs or the cache is short; otherwise
-    about two blocks per SM, each owning at least ``MIN_CHUNK`` positions.
-    Chosen from Smax, never from the lengths, which stay on the device."""
-    blocks = max(B * Hkv, 1)
-    if blocks >= sms or Smax <= MIN_CHUNK:
-        return 1, max(Smax, 1)
-    splits = min(-(-2 * sms // blocks), -(-Smax // MIN_CHUNK))
-    chunk = -(-Smax // splits)
-    chunk = -(-chunk // CHUNK_ALIGN) * CHUNK_ALIGN
-    return -(-Smax // chunk), chunk
+def plan_splits(Smax: int):
+    """(splits, chunk): the positions cut into fixed chunks of ``CHUNK``
+    rows, one block each per (batch, KV head), at every Smax. Made from Smax
+    alone: the lengths stay on the device, where a block whose chunk starts
+    at or past its length exits at once. The live splits of a sequence are
+    merged in split-index order inside the same launch."""
+    return max(1, -(-Smax // CHUNK)), CHUNK
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def scratch_sizes(B: int, Hq: int, Hkv: int, D: int, splits: int,
+                  bf16: bool):
+    """(partial floats, counters) to allocate for the kernel's merge with
+    ``splits`` > 1: per (batch, KV head, chunk of at most 16 query heads in
+    bf16) one slot per split and one per group of ``FAN_IN`` splits, each
+    slot (head dim rounded up to 16, then m, l, padding) per query head; a
+    counter per group and one for the groups. The kernel's ``Scratch``
+    defines the layout; its entry point refuses sizes smaller than that."""
+    G = Hq // Hkv
+    per_block = min(G, BLOCK_HEADS) if bf16 else G
+    blocks = B * Hkv * -(-G // per_block)
+    groups = -(-splits // FAN_IN)
+    return (blocks * (splits + groups) * per_block * (-(-D // 16) * 16 + 4),
+            blocks * (1 + groups))
+
+
+# one zeroed counter buffer per (device, stream): the kernel's last block of
+# each (batch, KV head) sets its counter back to 0, and launches on one
+# stream never overlap
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    key = (dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -72,20 +95,25 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
     if D > MAX_HEAD_DIM:
         raise ValueError(f"decode_attention: head_dim {D} > {MAX_HEAD_DIM}")
-    splits, chunk = plan_splits(B, Hkv, Smax, _sm_count(dev.index or 0))
+    splits, chunk = plan_splits(Smax)
+    # the tensor maps' rule; no published config pads (it copies the caches)
+    q, k_cache, v_cache = (_build.tma_ready(x) for x in (q, k_cache, v_cache))
+    Dk = q.shape[2]
     out = torch.empty_like(q)
-    part_acc = part_ml = None
+    part = counters = None          # the merge's scratch, with splits > 1
+    n_part = n_counters = 0
     if splits > 1:
-        part_acc = torch.empty((B, Hq, splits, D), dtype=torch.float32,
-                               device=dev)
-        part_ml = torch.empty((B, Hq, splits, 2), dtype=torch.float32,
-                              device=dev)
+        n_part, n_counters = scratch_sizes(B, Hq, Hkv, Dk, splits,
+                                           q.dtype == torch.bfloat16)
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
+        counters = _counters(dev, n_counters)
+        n_counters = counters.numel()
     _build.launch("decode_attention", "memforest_decode_attention", dev,
                   q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   lengths.data_ptr(), out.data_ptr(),
-                  None if part_acc is None else part_acc.data_ptr(),
-                  None if part_ml is None else part_ml.data_ptr(),
-                  B, Smax, Hq, Hkv, D, chunk, splits,
+                  None if part is None else part.data_ptr(),
+                  None if counters is None else counters.data_ptr(),
+                  n_part, n_counters, B, Smax, Hq, Hkv, Dk, D, chunk, splits,
                   int(q.dtype == torch.bfloat16))
     COUNT.launches += 1
-    return out
+    return out if Dk == D else out[..., :D].contiguous()

@@ -5,8 +5,8 @@ Counterpart of the JAX package's ``kernels/flash_attention.py``. q (B, S,
 Hq, D), k and v (B, S, Hkv, D), bf16 or float32, causal or full -> (B, S,
 Hq, D) in q's type, with the softmax in float32. Unlike the Pallas wrapper
 it takes any S: the kernel masks the ragged tail itself. The kernel is
-``csrc/flash_attention.cu``; CPU tensors take the plain version in
-``ref.py``.
+``csrc/flash_attention.cu`` (bf16 on the tensor cores, float32 on the CUDA
+cores); CPU tensors take the plain version in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -39,10 +39,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, Hq, D = q.shape
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head_dim {D} > {MAX_HEAD_DIM}")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k, v = _build.tma_ready(q), _build.tma_ready(k), _build.tma_ready(v)
     out = torch.empty_like(q)
     _build.launch("flash_attention", "memforest_flash_attention", dev,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, S, Hq, k.shape[2], D, int(causal),
-                  int(q.dtype == torch.bfloat16))
+                  B, S, Hq, k.shape[2], q.shape[3], D, int(causal), int(bf16))
     COUNT.launches += 1
-    return out
+    return out if out.shape[3] == D else out[..., :D].contiguous()
