@@ -12,7 +12,8 @@ Phases, each printed on its own line; any failed check exits nonzero:
               the shapes the main paths give it and at stress and edge shapes,
               with the kernel's, the plain version's, the library call's and
               the bound's time in ms; two ``decode_attention`` calls must give
-              equal bits, and one call must be one device launch.
+              equal bits, and one call must be one device launch, as must one
+              bf16 call of ``mamba2_ssd`` and of ``rwkv6_scan``.
   4. slice    the memory system's path through ``repro_torch.MemForestSystem``
               with its hashing encoder: ``ingest_batch`` of 500 sessions (about
               20k turns, 13k tree nodes) in batches of 16, then ``query_batch``
@@ -534,11 +535,11 @@ def check_kernels(torch, peaks, seed: int):
                   f"{what} {B}x{T}x{H}x{P}x{N} chunk={c} {ops_of[dt]}", nbytes,
                   ssd_flops(B, T, H, P, N, c), main, dt)
 
-    def rwkv_case(B, T, H, K, V, chunk, dt, main, what):
+    def rwkv_case(B, T, H, K, V, chunk, dt, main, what, w_mean=-0.5):
         r, k = (torch.randn(B, T, H, K, generator=g, device=dev).to(dt)
                 for _ in range(2))
         v = torch.randn(B, T, H, V, generator=g, device=dev).to(dt)
-        w = -0.5 + 0.5 * torch.randn(B, T, H, K, generator=g, device=dev)
+        w = w_mean + 0.5 * torch.randn(B, T, H, K, generator=g, device=dev)
         u = (0.1 * torch.randn(H, K, generator=g, device=dev)).to(dt)
         s0 = 0.1 * torch.randn(B, H, K, V, generator=g, device=dev)
         c = min(chunk, T)
@@ -560,6 +561,40 @@ def check_kernels(torch, peaks, seed: int):
     rwkv_case(8, 16, 32, 64, 64, 64, f32, False, "one chunk")
     rwkv_case(2, 96, 32, 64, 64, 32, f32, False, "ragged chunks")
     rwkv_case(1, 4096, 32, 64, 64, 64, bf16, False, "stress")
+    # bf16 edge rows, which only the tensor-core kernels reach: one chunk of
+    # 16 or of 40 rows in a 64-row tile, ragged chunks of 32, dims padded
+    # to 48 (and to a multiple of 8 by the wrapper for P = N = 40), and
+    # rwkv6's strong (w ~ N(1.5, 0.5)) and slow (N(-6, 0.5)) decays
+    ssd_case(8, 16, 112, 64, 64, 64, bf16, False, "one chunk")
+    ssd_case(2, 40, 112, 64, 64, 64, bf16, False, "T=40")
+    ssd_case(2, 96, 112, 64, 64, 32, bf16, False, "ragged chunks")
+    ssd_case(2, 128, 8, 40, 40, 64, bf16, False, "P=N=40")
+    rwkv_case(8, 16, 32, 64, 64, 64, bf16, False, "one chunk")
+    rwkv_case(2, 40, 32, 64, 64, 64, bf16, False, "T=40")
+    rwkv_case(2, 96, 32, 64, 64, 32, bf16, False, "ragged chunks")
+    rwkv_case(2, 128, 8, 40, 40, 64, bf16, False, "K=V=40")
+    rwkv_case(8, 128, 32, 64, 64, 64, bf16, False, "strong decay w~N(1.5,0.5)",
+              w_mean=1.5)
+    rwkv_case(8, 128, 32, 64, 64, 64, bf16, False, "slow decay w~N(-6,0.5)",
+              w_mean=-6.0)
+    # one call of each bf16 scan at its main shape is one device launch
+    x = torch.randn(8, 128, 112, 64, generator=g, device=dev).to(bf16)
+    dts = F.softplus(torch.randn(8, 128, 112, generator=g, device=dev))
+    A = -torch.linspace(1.0, 16.0, 112, device=dev)
+    bc = torch.randn(8, 128, 64, generator=g, device=dev).to(bf16)
+    s0 = torch.zeros(8, 112, 64, 64, device=dev)
+    r = torch.randn(8, 128, 32, 64, generator=g, device=dev).to(bf16)
+    w = -0.5 + 0.5 * torch.randn(8, 128, 32, 64, generator=g, device=dev)
+    u = torch.zeros(32, 64, device=dev).to(bf16)
+    s1 = torch.zeros(8, 32, 64, 64, device=dev)
+    for name, call, kern in (
+            ("mamba2_ssd", lambda: mamba2_ssd(x, dts, A, bc, bc, s0), "ssd_bf16"),
+            ("rwkv6_scan", lambda: rwkv6_scan(r, r, r, w, u, s1), "wkv_bf16")):
+        names = device_events(torch, call)
+        print(f"check: {name} bf16 main shape launches per call={len(names)} "
+              f"({', '.join(n[:60] for n in names)})", flush=True)
+        need(len(names) == 1 and kern in names[0],
+             f"{name}: one bf16 call made {len(names)} device launches")
     return results
 
 

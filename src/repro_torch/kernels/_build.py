@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("tree_refresh.cu", "topk_sim.cu", "browse_scores.cu",
            "flash_attention.cu", "decode_attention.cu", "mamba2_ssd.cu",
            "rwkv6_scan.cu")
-HEADERS = ("tma.cuh",)     # included by the sources: part of every hash
+HEADERS = ("tma.cuh", "mma.cuh")     # included by the sources: part of every hash
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,9 +50,9 @@ SIGNATURES: Dict[str, Tuple] = {
     "memforest_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _I, _P),
     "memforest_mamba2_ssd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _P),
+                             _I, _I, _I, _I, _P),
     "memforest_rwkv6_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _P),
+                             _I, _I, _I, _I, _P),
 }
 
 
@@ -193,11 +193,33 @@ def launch(name: str, entry: str, device: torch.device, *args) -> None:
 TMA_ALIGN = 8   # head dims the tensor maps take: 16-byte bf16 rows
 
 
-def tma_ready(x: torch.Tensor) -> torch.Tensor:
-    """``x`` with its head dim zero-padded to a multiple of ``TMA_ALIGN``
-    and its data 16-byte aligned, as the attention kernels' tensor maps
-    need (a copy only where ``x`` is not so already)."""
-    pad = -x.shape[-1] % TMA_ALIGN
-    if pad:
-        return F.pad(x, (0, pad))
+def tma_ready(x: torch.Tensor, axes: int = 1) -> torch.Tensor:
+    """``x`` with its last ``axes`` axes zero-padded to a multiple of
+    ``TMA_ALIGN`` and its data 16-byte aligned, as the attention kernels'
+    tensor maps and the bf16 scans' 16-byte copies need (a copy only where
+    ``x`` is not so already)."""
+    pad = []
+    for d in reversed(x.shape[-axes:]):
+        pad += [0, -d % TMA_ALIGN]
+    if any(pad):
+        return F.pad(x, pad)
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def scan_slice(pairs: int, dim: int, sms: int, widest: int = 64,
+               narrowest: int = 16) -> int:
+    """Columns of P (``mamba2_ssd``) or V (``rwkv6_scan``) that one block of
+    a bf16 scan owns: ``widest``, halved while the (batch, head) pairs times
+    the slices leave SMs without a block, never below ``narrowest`` and
+    never wider than ``dim`` rounded up to ``narrowest``. Columns are
+    independent given the chunk's G or A, which each slice recomputes."""
+    width = widest
+    while width > narrowest and pairs * -(-dim // width) < sms:
+        width //= 2
+    return min(width, -(-dim // narrowest) * narrowest)
+

@@ -8,6 +8,12 @@ or float32, one type for the three. ``T`` must be at most ``chunk`` or a
 multiple of it, as the reference requires. The kernel is
 ``csrc/mamba2_ssd.cu``; CPU tensors take the plain version,
 ``ref.mamba2_ssd_chunked``.
+
+On a card the wrapper dispatches on x's type: bf16 launches the
+tensor-core kernel (``mma.sync`` on three-term bf16 splits of the f32
+operands, a block per (head, slice of P, batch); P and N zero-padded to a
+multiple of 8 where they are not), float32 the CUDA-core kernel. Either
+launches or raises: nothing falls back.
 """
 from __future__ import annotations
 
@@ -52,12 +58,20 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"mamba2_ssd: the kernel takes chunk <= {SCAN_CHUNK} "
                          f"and P, N <= {MAX_DIM}, got chunk={chunk}, P={P}, "
                          f"N={N}")
+    bf16 = x.dtype == torch.bfloat16
+    width = 0                   # the float32 kernel takes no slice
+    if bf16:                    # 16-byte rows for the asynchronous copies
+        x, Bm, C = (_build.tma_ready(t) for t in (x, Bm, C))
+        state = _build.tma_ready(state, 2)
+        width = _build.scan_slice(B * H, x.shape[-1], _build.sm_count(dev))
     y = torch.empty_like(x)
     s_out = torch.empty_like(state)
     _build.launch("mamba2_ssd", "memforest_mamba2_ssd", dev,
                   x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                   C.data_ptr(), state.data_ptr(), y.data_ptr(),
-                  s_out.data_ptr(), B, T, H, P, N, chunk,
-                  int(x.dtype == torch.bfloat16))
+                  s_out.data_ptr(), B, T, H, x.shape[-1], Bm.shape[-1], chunk,
+                  int(bf16), width)
     COUNT.launches += 1
+    if y.shape[-1] != P or s_out.shape[-1] != N:
+        y, s_out = y[..., :P].contiguous(), s_out[..., :P, :N].contiguous()
     return y, s_out

@@ -8,6 +8,13 @@ H, V) in r's type, final state float32). r, k, v and u are bf16 or float32,
 one type for the four. ``T`` must be at most ``chunk`` or a multiple of it,
 as the reference requires. The kernel is ``csrc/rwkv6_scan.cu``; CPU tensors
 take the plain version, ``ref.rwkv6_chunked``.
+
+On a card the wrapper dispatches on r's type: bf16 launches the
+tensor-core kernel (``mma.sync`` on three-term bf16 splits of the f32
+operands, 16-token sub-chunks, a block per (head, slice of 32 or 64
+columns of V, batch), 64 only where K <= 64, as shared memory allows; K and
+V zero-padded to a multiple of 8 where they are not), float32 the
+CUDA-core kernel. Either launches or raises: nothing falls back.
 """
 from __future__ import annotations
 
@@ -51,12 +58,21 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"rwkv6_scan: the kernel takes chunk <= {SCAN_CHUNK} "
                          f"and K, V <= {MAX_DIM}, got chunk={chunk}, K={K}, "
                          f"V={V}")
-    o = r.new_empty((B, T, H, V))
+    bf16 = r.dtype == torch.bfloat16
+    width = 0                   # the float32 kernel takes no slice
+    if bf16:                    # 16-byte rows for the asynchronous copies
+        r, k, v, w, u = (_build.tma_ready(t) for t in (r, k, v, w, u))
+        state = _build.tma_ready(state, 2)
+        width = _build.scan_slice(B * H, v.shape[-1], _build.sm_count(dev),
+                                  widest=64 if K <= 64 else 32, narrowest=32)
+    o = r.new_empty(v.shape)
     s_out = torch.empty_like(state)
     _build.launch("rwkv6_scan", "memforest_rwkv6_scan", dev,
                   r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                   u.data_ptr(), state.data_ptr(), o.data_ptr(),
-                  s_out.data_ptr(), B, T, H, K, V, chunk,
-                  int(r.dtype == torch.bfloat16))
+                  s_out.data_ptr(), B, T, H, r.shape[-1], v.shape[-1], chunk,
+                  int(bf16), width)
     COUNT.launches += 1
+    if o.shape[-1] != V or s_out.shape[-2] != K:
+        o, s_out = o[..., :V].contiguous(), s_out[..., :K, :V].contiguous()
     return o, s_out

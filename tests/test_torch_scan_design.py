@@ -1,0 +1,402 @@
+"""The arithmetic of the two bf16 scan kernels, on the CPU.
+
+The CUDA kernels run only on a card (``chip_smoke.py`` holds them against
+their plain versions there). What their bf16 designs change is held here,
+in plain PyTorch that follows each kernel's schedule step by step:
+
+- every product runs on bf16 operands with f32 sums (``mma.sync``). An
+  operand that is a bf16 input (x, B, C; r, k, v) enters as it is; one
+  computed in f32 (G, the state, x*w, the rescaled r and k, A) enters as
+  three bf16 terms hi + mid + lo, and of two split sides only the terms
+  with i + j < 3 are kept;
+- ``mamba2_ssd``: C.B^T once per chunk, G masked and scaled on its
+  fragment, y = G.x + exp(cum) (C.S^T), S <- exp(total) S + (x w)^T.B;
+- ``rwkv6_scan``: the 64-token chunk cut into four sub-chunks of 16; the
+  gate's exponentials only in the diagonal 16 x 16 blocks, the blocks
+  below a sub-chunk's diagonal one product of r and k rescaled about the
+  last token before the sub-chunk (both factors <= 1), the column sums in
+  row order and ce = cum - ld as the reference forms them;
+- a block owns a slice of P (V) columns and recomputes G (A) for it;
+- chunks of 64, 40, 32 and 16 rows in a 64-row tile, P, N, K, V padded.
+
+Each emulation is held to ``chip_smoke.py``'s bf16 criterion against the
+port's plain version (``repro_torch.kernels.ref``): the output within one
+bf16 ulp of the plain value beyond 2e-4, the f32 state within 1e-2
+relative beyond 2e-4; at one shape also against the JAX package's own
+reference. Fewer bf16 terms fail that criterion, which is why the kernels
+take three. Inputs come from numpy with fixed seeds.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import ops as jax_ops
+from repro_torch.kernels import ref
+from repro_torch import kernels
+from repro_torch.kernels import ops
+from repro_torch.kernels._build import scan_slice, tma_ready
+
+BF16 = torch.bfloat16
+TILE = 64           # rows of a chunk's tiles in shared memory
+SUB = 16            # rwkv6's sub-chunk
+ATOL, RTOL = 2e-4, 1e-2
+
+
+def split(a, terms=3):
+    """``a`` (f32) as ``terms`` bf16 values (as f32) that sum to it."""
+    out = []
+    for _ in range(terms):
+        h = a.to(BF16).float()
+        out.append(h)
+        a = a - h
+    return out
+
+
+def mm(a_terms, b_terms):
+    """Sum of a_i @ b_j over i + j < 3: the products ``mma.sync`` runs."""
+    out = 0
+    for i, a in enumerate(a_terms):
+        for j, b in enumerate(b_terms):
+            if i + j < 3:
+                out = out + a @ b
+    return out
+
+
+def up(n, m):
+    return -(-n // m) * m
+
+
+def bf16_ulp(t):
+    mag = t.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def excess(out, want):
+    """How far ``out`` lies beyond chip_smoke.py's bf16 criterion (must be
+    <= 2e-4): one bf16 ulp of the plain value for a bf16 output, 1e-2
+    relative for the f32 state."""
+    o, w = out.float(), want.float()
+    slack = bf16_ulp(w) if out.dtype == BF16 else RTOL * w.abs()
+    return ((o - w).abs() - slack).max().item()
+
+
+# ---------------------------------------------------------------------------
+# mamba2_ssd
+# ---------------------------------------------------------------------------
+def ssd_schedule(x, dt, A, Bm, C, state, chunk=64, width=64, terms=3):
+    """The bf16 kernel's arithmetic, vectorised over (batch, head): x (B, T,
+    H, P), Bm and C (B, T, N) bf16; dt, A and the state f32."""
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    c = ref.scan_chunk("mamba2_ssd", T, chunk)
+    Np, Pp = up(N, 16), up(P, width)
+    xf = torch.nn.functional.pad(x.float(), (0, Pp - P))
+    Bf = torch.nn.functional.pad(Bm.float(), (0, Np - N))
+    Cf = torch.nn.functional.pad(C.float(), (0, Np - N))
+    s = torch.nn.functional.pad(state, (0, Np - N, 0, Pp - P))
+    y = torch.zeros(B, T, H, Pp)
+    idx = torch.arange(TILE)
+    lower = idx[:, None] >= idx[None, :]
+    for p0 in range(0, Pp, width):            # one block per slice
+        S = s[:, :, p0:p0 + width]
+        for t0 in range(0, T, c):
+            xs = torch.zeros(B, H, TILE, width)
+            xs[:, :, :c] = xf[:, t0:t0 + c, :, p0:p0 + width].permute(0, 2, 1, 3)
+            Bt, Ct = torch.zeros(B, 1, TILE, Np), torch.zeros(B, 1, TILE, Np)
+            Bt[:, 0, :c], Ct[:, 0, :c] = Bf[:, t0:t0 + c], Cf[:, t0:t0 + c]
+            dts = torch.zeros(B, H, TILE)
+            dts[:, :, :c] = dt[:, t0:t0 + c].permute(0, 2, 1)
+            cum = torch.cumsum(dts * A[:, None], -1)
+            total = cum[..., c - 1]
+            cb = Ct @ Bt.transpose(-1, -2)            # bf16 inputs: one term
+            G = torch.where(lower, cb * torch.exp(torch.clamp(
+                cum[..., :, None] - cum[..., None, :], max=0.0)) * dts[..., None, :],
+                torch.zeros(()))
+            St = [t.transpose(-1, -2) for t in split(S, terms)]
+            yt = mm(split(G, terms), [xs]) + torch.exp(cum)[..., None] * mm([Ct], St)
+            w = dts * torch.exp(torch.clamp(total[..., None] - cum, max=0.0))
+            xw = (xs * w[..., None]).transpose(-1, -2)
+            S = torch.exp(total)[..., None, None] * S + mm(split(xw, terms), [Bt])
+            y[:, t0:t0 + c, :, p0:p0 + width] = yt[:, :, :c].permute(0, 2, 1, 3)
+        s[:, :, p0:p0 + width] = S
+    return y[..., :P].to(x.dtype), s[:, :, :P, :N].contiguous()
+
+
+def ssd_inputs(seed, B, T, H, P, N):
+    """chip_smoke.py's inputs, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))  # noqa: E731
+    x = f(B, T, H, P).to(BF16)
+    dt = torch.nn.functional.softplus(f(B, T, H))
+    A = -torch.linspace(1.0, 16.0, H)
+    return x, dt, A, f(B, T, N).to(BF16), f(B, T, N).to(BF16), 0.1 * f(B, H, P, N)
+
+
+SSD_CASES = [
+    # B, T, H, P, N, chunk, slice: the chip row cut in heads, a sliced
+    # block, one chunk of 40 and of 16, ragged chunks of 32, P = N = 40
+    (2, 128, 8, 64, 64, 64, 64), (1, 128, 4, 64, 64, 64, 32),
+    (2, 40, 4, 64, 64, 64, 64), (2, 16, 4, 64, 64, 64, 16),
+    (1, 96, 4, 64, 64, 32, 64), (2, 128, 4, 40, 40, 64, 48),
+]
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk,width", SSD_CASES)
+def test_ssd_schedule_meets_the_card_criterion(B, T, H, P, N, chunk, width):
+    args = ssd_inputs(B * 1000 + T + P, B, T, H, P, N)
+    y, s = ssd_schedule(*args, chunk=chunk, width=width)
+    want_y, want_s = ref.mamba2_ssd_chunked(*args, chunk=chunk)
+    assert y.dtype == BF16 and y.shape == want_y.shape and s.shape == want_s.shape
+    assert excess(y, want_y) <= ATOL
+    assert excess(s, want_s) <= ATOL
+
+
+def test_ssd_schedule_against_the_jax_reference():
+    args = ssd_inputs(7, 1, 128, 4, 64, 64)
+    y, s = ssd_schedule(*args)
+    jy, js = jax_ops.mamba2_ssd(*(jnp.asarray(a.float().numpy(),
+                                              jnp.bfloat16 if a.dtype == BF16 else jnp.float32)
+                                  for a in args), impl="reference")
+    assert excess(y, torch.from_numpy(np.asarray(jy, np.float32)).to(BF16)) <= ATOL
+    assert excess(s, torch.from_numpy(np.array(js))) <= ATOL
+
+
+def test_ssd_slices_are_independent():
+    """A block owning 16, 32 or 64 columns of P gives the same bits."""
+    args = ssd_inputs(3, 1, 64, 2, 64, 48)
+    outs = [ssd_schedule(*args, width=w) for w in (16, 32, 64)]
+    for y, s in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(s, outs[0][1])
+
+
+# ---------------------------------------------------------------------------
+# rwkv6_scan
+# ---------------------------------------------------------------------------
+def rwkv_schedule(r, k, v, w, u, state, chunk=64, width=64, terms=3):
+    """The bf16 kernel's arithmetic, vectorised over (batch, head): r, k
+    (B, T, H, K), v (B, T, H, V), u (H, K) bf16; w and the state f32."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    c = ref.scan_chunk("rwkv6_scan", T, chunk)
+    Kp, Vp = up(K, 16), up(V, width)
+    pad = torch.nn.functional.pad
+    rf, kf, wf = (pad(a.float(), (0, Kp - K)) for a in (r, k, w))
+    vf = pad(v.float(), (0, Vp - V))
+    uf = pad(u.float(), (0, Kp - K))[None, :, None, :]
+    s = pad(state, (0, Vp - V, 0, Kp - K))
+    o = torch.zeros(B, T, H, Vp)
+    idx = torch.arange(SUB)
+    strict = (idx[:, None] > idx[None, :])[..., None]
+    eye = idx[:, None] == idx[None, :]
+
+    def tile(a, d):
+        out = torch.zeros(B, H, TILE, d)
+        out[:, :, :c] = a.permute(0, 2, 1, 3)
+        return out
+    for v0 in range(0, Vp, width):            # one block per slice
+        S = s[..., v0:v0 + width]
+        for t0 in range(0, T, c):
+            rs, ks, ws = (tile(a[:, t0:t0 + c], Kp) for a in (rf, kf, wf))
+            vs = tile(vf[:, t0:t0 + c, :, v0:v0 + width], width)
+            ld = -torch.exp(ws)                            # padded rows: w = 0
+            cum = torch.cumsum(ld, 2)
+            ce = cum - ld
+            total = cum[:, :, c - 1]
+            # A by sub-chunks, each warp's rows over half of the keys (the
+            # diagonal over the first and second half, the blocks below it
+            # over the even and odd 16-key steps), the halves then added
+            halves = (torch.arange(Kp) < Kp // 2, torch.arange(Kp) // 16 % 2 == 0)
+            Am = torch.zeros(2, B, H, TILE, TILE)
+            for hf in range(2):
+                dkeys = halves[0] if hf == 0 else ~halves[0]
+                okeys = halves[1] if hf == 0 else ~halves[1]
+                for i in range(TILE // SUB):
+                    ri = slice(SUB * i, SUB * (i + 1))
+                    gate = torch.exp(torch.clamp(ce[:, :, ri, None] - cum[:, :, None, ri], max=0.0))
+                    rd, kd = rs[:, :, ri] * dkeys, ks[:, :, ri] * dkeys
+                    blk = torch.einsum("bhtk,bhsk,bhtsk->bhts", rd, kd,
+                                       torch.where(strict, gate, torch.zeros(())))
+                    bonus = (rd * uf * kd).sum(-1)
+                    Am[hf, :, :, ri, ri] = blk + torch.where(eye, bonus[..., None], torch.zeros(()))
+                    if i:                            # below the diagonal: s <= b < t
+                        rj, b = slice(0, SUB * i), SUB * i - 1
+                        rp = rs[:, :, ri] * okeys * torch.exp(torch.clamp(
+                            ce[:, :, ri] - cum[:, :, b, None], max=0.0))
+                        kp = ks[:, :, rj] * okeys * torch.exp(torch.clamp(
+                            cum[:, :, b, None] - cum[:, :, rj], max=0.0))
+                        Am[hf, :, :, ri, rj] = mm(split(rp, terms),
+                                                  [t.transpose(-1, -2) for t in split(kp, terms)])
+            Am = Am[0] + Am[1]
+            re = rs * torch.exp(ce)
+            ot = mm(split(Am, terms), [vs]) + mm(split(re, terms), split(S, terms))
+            kw = ks * torch.exp(torch.clamp(total[:, :, None] - cum, max=0.0))
+            S = torch.exp(total)[..., None] * S + mm(split(kw.transpose(-1, -2), terms), [vs])
+            o[:, t0:t0 + c, :, v0:v0 + width] = ot[:, :, :c].permute(0, 2, 1, 3)
+        s[..., v0:v0 + width] = S
+    return o[..., :V].to(r.dtype), s[:, :, :K, :V].contiguous()
+
+
+def rwkv_inputs(seed, B, T, H, K, V, w_mean):
+    """chip_smoke.py's inputs, drawn with numpy; w ~ N(w_mean, 0.5)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))  # noqa: E731
+    r, k = f(B, T, H, K).to(BF16), f(B, T, H, K).to(BF16)
+    v = f(B, T, H, V).to(BF16)
+    w = w_mean + 0.5 * f(B, T, H, K)
+    return r, k, v, w, (0.1 * f(H, K)).to(BF16), 0.1 * f(B, H, K, V)
+
+
+# w ~ N(-0.5, 0.5): chip_smoke.py's; N(1.5, 0.5): strong decay; N(-6, 0.5):
+# decay close to 1, the long-memory channels of a trained RWKV6
+W_MEANS = [-0.5, 1.5, -6.0]
+RWKV_CASES = [
+    # B, T, H, K, V, chunk, slice
+    (1, 128, 4, 64, 64, 64, 64), (1, 128, 2, 64, 64, 64, 32),
+    (2, 40, 2, 64, 64, 64, 64), (2, 16, 2, 64, 64, 64, 32),
+    (1, 96, 2, 64, 64, 32, 64), (1, 128, 2, 40, 40, 64, 32),
+]
+
+
+@pytest.mark.parametrize("w_mean", W_MEANS)
+@pytest.mark.parametrize("B,T,H,K,V,chunk,width", RWKV_CASES)
+def test_rwkv_schedule_meets_the_card_criterion(B, T, H, K, V, chunk, width, w_mean):
+    args = rwkv_inputs(B * 1000 + T + K, B, T, H, K, V, w_mean)
+    o, s = rwkv_schedule(*args, chunk=chunk, width=width)
+    want_o, want_s = ref.rwkv6_chunked(*args, chunk=chunk)
+    assert o.dtype == BF16 and o.shape == want_o.shape and s.shape == want_s.shape
+    assert excess(o, want_o) <= ATOL
+    assert excess(s, want_s) <= ATOL
+
+
+def test_rwkv_schedule_against_the_jax_reference():
+    args = rwkv_inputs(8, 1, 128, 2, 64, 64, -0.5)
+    o, s = rwkv_schedule(*args)
+    jo, js = jax_ops.rwkv6_scan(*(jnp.asarray(a.float().numpy(),
+                                              jnp.bfloat16 if a.dtype == BF16 else jnp.float32)
+                                  for a in args), impl="reference")
+    assert excess(o, torch.from_numpy(np.asarray(jo, np.float32)).to(BF16)) <= ATOL
+    assert excess(s, torch.from_numpy(np.array(js))) <= ATOL
+
+
+def test_rwkv_slices_are_independent():
+    args = rwkv_inputs(4, 1, 64, 2, 48, 64, -0.5)
+    outs = [rwkv_schedule(*args, width=w) for w in (32, 64)]
+    for o, s in outs[1:]:
+        assert torch.equal(o, outs[0][0]) and torch.equal(s, outs[0][1])
+
+
+def test_rwkv_factors_never_exceed_one():
+    """Both factors of every gate below the diagonal are exp of a sum of
+    log-decays (<= 0, up to rounding where the kernel clamps), so <= 1
+    however strong the decay: nothing overflows, and a factor that
+    underflows to 0 stands for a product at least as small."""
+    for w_mean in W_MEANS:
+        w = w_mean + 0.5 * torch.from_numpy(
+            np.random.default_rng(5).standard_normal((TILE, 8)).astype(np.float32))
+        ld = -torch.exp(w)
+        cum = torch.cumsum(ld, 0)
+        ce = cum - ld
+        for i in range(1, TILE // SUB):
+            b = SUB * i - 1
+            # ce[16i] - cum[b] is 0 but for rounding (the kernel clamps it)
+            ulps = 4 * torch.finfo(torch.float32).eps * cum[b].abs()
+            assert (ce[SUB * i:SUB * (i + 1)] - cum[b] <= ulps).all()
+            assert (cum[b] - cum[:SUB * i] <= 0).all()
+
+
+# ---------------------------------------------------------------------------
+# why three terms: fewer fail the card's criterion
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kernel,terms", [("mamba2_ssd", 1), ("rwkv6_scan", 1),
+                                          ("rwkv6_scan", 2)])
+def test_fewer_terms_fail_the_criterion(kernel, terms):
+    if kernel == "mamba2_ssd":
+        args = ssd_inputs(11, 2, 128, 8, 64, 64)
+        out, _ = ssd_schedule(*args, terms=terms)
+        want, _ = ref.mamba2_ssd_chunked(*args)
+    else:     # two terms fail only where the decay is close to 1
+        args = rwkv_inputs(12, 1, 128, 4, 64, 64, -0.5 if terms == 1 else -6.0)
+        out, _ = rwkv_schedule(*args, terms=terms)
+        want, _ = ref.rwkv6_chunked(*args)
+    assert excess(out, want) > ATOL
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' plan and padding
+# ---------------------------------------------------------------------------
+def test_scan_slice_fills_the_card():
+    sms = 132
+    assert scan_slice(8 * 112, 64, sms) == 64      # zamba2 prefill: 896 blocks
+    assert scan_slice(112, 64, sms) == 32          # 1x4096 stress: 224 blocks
+    assert scan_slice(1, 40, sms) == 16
+    assert scan_slice(1000, 40, sms) == 48         # never wider than the dim
+    # rwkv6_scan: 32 or 64 columns (64 only where K <= 64)
+    assert scan_slice(8 * 32, 64, sms, narrowest=32) == 64   # prefill: 256 blocks
+    assert scan_slice(32, 64, sms, narrowest=32) == 32       # 1x4096: 64 blocks
+    assert scan_slice(1000, 40, sms, widest=32, narrowest=32) == 32
+    for pairs in (1, 7, 32, 112, 896):
+        for dim in (8, 40, 64, 128):
+            w = scan_slice(pairs, dim, sms)
+            assert w % 16 == 0 and 16 <= w <= 64
+            w = scan_slice(pairs, dim, sms, narrowest=32)
+            assert w in (32, 64)
+
+
+def test_padded_dims_leave_both_scans_unchanged():
+    """The wrappers zero-pad P, N, K and V to a multiple of 8 for the
+    kernels' 16-byte copies; the padded scan restricted to the true dims is
+    the scan."""
+    x, dt, A, Bm, C, s0 = ssd_inputs(21, 1, 64, 2, 20, 12)
+    y, s = ref.mamba2_ssd_chunked(x, dt, A, Bm, C, s0)
+    yp, sp = ref.mamba2_ssd_chunked(tma_ready(x), dt, A, tma_ready(Bm), tma_ready(C),
+                                    tma_ready(s0, 2))
+    assert yp.shape[-1] == 24 and sp.shape[-2:] == (24, 16)
+    torch.testing.assert_close(yp[..., :20], y, rtol=0, atol=0)
+    torch.testing.assert_close(sp[..., :20, :12], s, rtol=1e-6, atol=1e-6)
+    r, k, v, w, u, s0 = rwkv_inputs(22, 1, 64, 2, 20, 12, -0.5)
+    o, s = ref.rwkv6_chunked(r, k, v, w, u, s0)
+    op, sp = ref.rwkv6_chunked(*(tma_ready(t) for t in (r, k, v, w, u)), tma_ready(s0, 2))
+    torch.testing.assert_close(op[..., :12], o, rtol=0, atol=2e-6)
+    torch.testing.assert_close(sp[..., :20, :12], s, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("device", ["meta", "mixed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_wrappers_never_fall_back_off_the_cpu(device, dtype):
+    """A tensor anywhere but the CPU takes a kernel (by its type) or
+    raises; the plain version never runs for it."""
+    def make(*shape, dt=torch.float32):
+        return torch.zeros(*shape, dtype=dt, device="meta")
+    ssd = [make(1, 16, 2, 8, dt=dtype), make(1, 16, 2), make(2),
+           make(1, 16, 4, dt=dtype), make(1, 16, 4, dt=dtype), make(1, 2, 8, 4)]
+    wkv = [make(1, 16, 2, 8, dt=dtype), make(1, 16, 2, 8, dt=dtype),
+           make(1, 16, 2, 8, dt=dtype), make(1, 16, 2, 8), make(2, 8, dt=dtype),
+           make(1, 2, 8, 8)]
+    if device == "mixed":
+        ssd[1], wkv[3] = torch.zeros(1, 16, 2), torch.zeros(1, 16, 2, 8)
+    before = {k: kernels.COUNTS[k].plain_calls for k in ("mamba2_ssd", "rwkv6_scan")}
+    with pytest.raises(ValueError):
+        ops.mamba2_ssd(*ssd)
+    with pytest.raises(ValueError):
+        ops.rwkv6_scan(*wkv)
+    assert {k: kernels.COUNTS[k].plain_calls for k in before} == before
+
+
+if __name__ == "__main__":
+    # the table the kernels' notes cite: how far each schedule lies beyond
+    # the card's criterion with 1, 2 and 3 bf16 terms (output, state)
+    args = ssd_inputs(11, 2, 128, 8, 64, 64)
+    want = ref.mamba2_ssd_chunked(*args)
+    for terms in (1, 2, 3):
+        y, s = ssd_schedule(*args, terms=terms)
+        print(f"mamba2_ssd 2x128x8x64x64 terms={terms}: output {excess(y, want[0]):.2e} "
+              f"state {excess(s, want[1]):.2e}")
+    for w_mean in W_MEANS:
+        args = rwkv_inputs(12, 1, 128, 4, 64, 64, w_mean)
+        want = ref.rwkv6_chunked(*args)
+        for terms in (1, 2, 3):
+            o, s = rwkv_schedule(*args, terms=terms)
+            print(f"rwkv6_scan 1x128x4x64x64 w~N({w_mean}, 0.5) terms={terms}: output "
+                  f"{excess(o, want[0]):.2e} state {excess(s, want[1]):.2e}")
