@@ -13,7 +13,8 @@ Phases, each printed on its own line; any failed check exits nonzero:
               with the kernel's, the plain version's, the library call's and
               the bound's time in ms; two ``decode_attention`` calls must give
               equal bits, and one call must be one device launch, as must one
-              bf16 call of ``mamba2_ssd`` and of ``rwkv6_scan``.
+              bf16 call of ``mamba2_ssd`` and of ``rwkv6_scan`` and one call of
+              ``tree_refresh`` and of ``topk_sim`` at their main shapes.
   4. slice    the memory system's path through ``repro_torch.MemForestSystem``
               with its hashing encoder: ``ingest_batch`` of 500 sessions (about
               20k turns, 13k tree nodes) in batches of 16, then ``query_batch``
@@ -168,6 +169,9 @@ def check_kernels(torch, peaks, seed: int):
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
+    # rows added later draw from a generator of their own, so that adding a
+    # row leaves the inputs of every other row as they were
+    g_new = torch.Generator(device=dev).manual_seed(seed)
     results = {}
 
     def record(name, label, err, tol, fn, plain, nbytes, flops, main,
@@ -196,11 +200,17 @@ def check_kernels(torch, peaks, seed: int):
                 results[name]["other_main_rows"].append(row)
 
     # -- tree_refresh -------------------------------------------------------
-    for (P, K, D), main in (((128, 8, 256), True), ((128, 8, 4096), True),
-                            ((4096, 16, 256), False)):
-        emb = ref.normalize_rows(torch.randn(P * K, D, generator=g, device=dev)
-                                 ).reshape(P, K, D).contiguous()
-        cnt = torch.randint(0, K + 1, (P,), generator=g, device=dev)
+    # the slice's flush launches 128, 32, 16 (and fewer) parents at D = 256;
+    # D = 3072 (phi3-mini's width) is a cluster of 4 over slices of 768, and
+    # D = 36004 slices wider than one pass of a block, with D % 8 == 4
+    for (P, K, D), main, gen in (
+            ((128, 8, 256), True, g), ((128, 8, 4096), True, g),
+            ((32, 8, 256), True, g), ((16, 8, 256), True, g),
+            ((4096, 16, 256), False, g), ((128, 8, 3072), False, g_new),
+            ((8, 4, 36004), False, g_new)):
+        emb = ref.normalize_rows(torch.randn(
+            P * K, D, generator=gen, device=dev)).reshape(P, K, D).contiguous()
+        cnt = torch.randint(0, K + 1, (P,), generator=gen, device=dev)
         cnt[: P // 16] = 0                      # parents with no real child
         mask = (torch.arange(K, device=dev)[None, :] < cnt[:, None]).float()
         out = tree_refresh(emb, mask)
@@ -243,9 +253,10 @@ def check_kernels(torch, peaks, seed: int):
                library)
 
     # -- topk_sim -----------------------------------------------------------
-    def topk_case(Q, N, D, k, nv, *, main=False, plant=False, normalize=False):
-        keys = ref.normalize_rows(torch.randn(N, D, generator=g, device=dev))
-        q = ref.normalize_rows(torch.randn(Q, D, generator=g, device=dev))
+    def topk_case(Q, N, D, k, nv, *, main=False, plant=False, normalize=False,
+                  gen=g):
+        keys = ref.normalize_rows(torch.randn(N, D, generator=gen, device=dev))
+        q = ref.normalize_rows(torch.randn(Q, D, generator=gen, device=dev))
         ties = []
         if plant:
             # exact ties: two equal key rows equal to a query, the pair in
@@ -293,12 +304,20 @@ def check_kernels(torch, peaks, seed: int):
                lambda: topk_sim(qn, kn, k, normalize=normalize, num_valid=nv),
                lambda: ref.topk_sim_ref(qn, kn, k, normalize=normalize,
                                         num_valid=nv),
-               (N * D + Q * D) * 4 + Q * k * 8, 2 * Q * nv * D, main)
+               (nv * D + Q * D) * 4 + Q * k * 8, 2 * Q * nv * D, main)
 
     topk_case(64, 256, 256, 16, 256)
     topk_case(64, 1024, 256, 24, 1024, main=True)
     topk_case(32, 1024, 4096, 24, 1024, main=True)      # the serve phase's D
+    # the slice's own recall rows (roots, facts), with planted ties
+    topk_case(64, 1024, 256, 24, 675, main=True, plant=True)
+    topk_case(64, 256, 256, 16, 210, main=True, plant=True)
+    # D = 4096: the planted pair (17, 515) lies in two splits, so in two
+    # clusters, each adding its ranks' partial sums in rank order
+    topk_case(32, 1024, 4096, 24, 1000, plant=True)
     topk_case(64, 256, 256, 16, 5)                       # num_valid < k
+    # D % 8 == 4 goes in unpadded: a cluster of 8 over slices of 36 floats
+    topk_case(16, 2000, 260, 8, 1990, plant=True, gen=g_new)
     topk_case(8, 1000, 256, 7, 1000, normalize=True)
     big = 262144
     topk_case(64, big, 256, 16, big - 1, plant=True)
@@ -443,14 +462,14 @@ def check_kernels(torch, peaks, seed: int):
     # the C entry refuses a scratch smaller than its layout and a head dim
     # the tensor maps cannot take (the wrapper pads those)
     from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attention import _counters, scratch_sizes
+    from repro_torch.kernels.decode_attention import scratch_sizes
     q = torch.zeros(2, 8, 40, dtype=bf16, device=dev)
     kc = torch.zeros(2, 1024, 2, 40, dtype=bf16, device=dev)
     lens = torch.full((2,), 1000, dtype=torch.int32, device=dev)
     out = torch.empty_like(q)
     n_part, n_cnt = scratch_sizes(2, 8, 2, 40, 8, True)
     part = torch.empty(n_part, dtype=torch.float32, device=dev)
-    cnt = _counters(dev, n_cnt)
+    cnt = _build.counters(dev, n_cnt)
 
     def entry(n_floats, n_counters, D, scale_dim):
         try:
@@ -595,6 +614,27 @@ def check_kernels(torch, peaks, seed: int):
               f"({', '.join(n[:60] for n in names)})", flush=True)
         need(len(names) == 1 and kern in names[0],
              f"{name}: one bf16 call made {len(names)} device launches")
+
+    # one call of each forest kernel at its main shapes is one device launch
+    def unit(*shape):
+        return ref.normalize_rows(torch.randn(*shape, generator=g, device=dev))
+    mask8 = torch.ones(128, 8, device=dev)
+    for what, kern, args, kw in (
+            ("tree_refresh 128x8x256", "refresh",
+             (unit(128 * 8, 256).reshape(128, 8, 256), mask8), {}),
+            ("tree_refresh 128x8x4096", "refresh",
+             (unit(128 * 8, 4096).reshape(128, 8, 4096), mask8), {}),
+            ("topk_sim 64x1024x256 num_valid=675", "topk_sim",
+             (unit(64, 256), unit(1024, 256), 24),
+             dict(normalize=False, num_valid=675)),
+            ("topk_sim 32x1024x4096", "topk_sim",
+             (unit(32, 4096), unit(1024, 4096), 24), dict(normalize=False))):
+        fn = tree_refresh if kern == "refresh" else topk_sim
+        names = device_events(torch, lambda: fn(*args, **kw))
+        print(f"check: {what} launches per call={len(names)} "
+              f"({', '.join(n[:50] for n in names)})", flush=True)
+        need(len(names) == 1 and kern in names[0],
+             f"{what}: one call made {len(names)} device launches")
     return results
 
 

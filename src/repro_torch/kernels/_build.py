@@ -41,9 +41,9 @@ _L = ctypes.c_longlong
 # C entry point ``memforest_<kernel>``, defined in ``csrc/<kernel>.cu`` ->
 # argument types; every entry point returns a cudaError_t
 SIGNATURES: Dict[str, Tuple] = {
-    "memforest_tree_refresh": (_P, _P, _P, _I, _I, _I, _P),
-    "memforest_topk_sim": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _P),
+    "memforest_tree_refresh": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "memforest_topk_sim": (_P, _P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _P),
     "memforest_browse_scores": (_P, _P, _P, _P, _I, _I, _I, _P),
     "memforest_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _P),
@@ -193,17 +193,37 @@ def launch(name: str, entry: str, device: torch.device, *args) -> None:
 TMA_ALIGN = 8   # head dims the tensor maps take: 16-byte bf16 rows
 
 
-def tma_ready(x: torch.Tensor, axes: int = 1) -> torch.Tensor:
+def tma_ready(x: torch.Tensor, axes: int = 1,
+              align: int = TMA_ALIGN) -> torch.Tensor:
     """``x`` with its last ``axes`` axes zero-padded to a multiple of
-    ``TMA_ALIGN`` and its data 16-byte aligned, as the attention kernels'
-    tensor maps and the bf16 scans' 16-byte copies need (a copy only where
-    ``x`` is not so already)."""
+    ``align`` and its data 16-byte aligned, as the attention kernels'
+    tensor maps and the bf16 scans' 16-byte copies need (``TMA_ALIGN``), or
+    the f32 forest kernels' float4 loads (4); a copy only where ``x`` is not
+    so already."""
     pad = []
     for d in reversed(x.shape[-axes:]):
-        pad += [0, -d % TMA_ALIGN]
+        pad += [0, -d % align]
     if any(pad):
         return F.pad(x, pad)
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+# one zeroed counter buffer per (device, stream), shared by the kernels that
+# merge their splits inside the launch (``decode_attention``, ``topk_sim``):
+# the last block of each merge sets its counter back to 0, and launches on
+# one stream never overlap
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def counters(dev: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for launches on ``dev``'s current
+    stream."""
+    key = (dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _COUNTERS[key] = buf
+    return buf
 
 
 @functools.lru_cache(maxsize=None)

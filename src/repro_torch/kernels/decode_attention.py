@@ -10,8 +10,6 @@ plain version in ``ref.py``.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
-
 import torch
 
 from repro_torch.kernels import _build
@@ -49,21 +47,6 @@ def scratch_sizes(B: int, Hq: int, Hkv: int, D: int, splits: int,
     groups = -(-splits // FAN_IN)
     return (blocks * (splits + groups) * per_block * (-(-D // 16) * 16 + 4),
             blocks * (1 + groups))
-
-
-# one zeroed counter buffer per (device, stream): the kernel's last block of
-# each (batch, KV head) sets its counter back to 0, and launches on one
-# stream never overlap
-_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _counters(dev: torch.device, n: int) -> torch.Tensor:
-    key = (dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-        _COUNTERS[key] = buf
-    return buf
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -106,7 +89,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         n_part, n_counters = scratch_sizes(B, Hq, Hkv, Dk, splits,
                                            q.dtype == torch.bfloat16)
         part = torch.empty(n_part, dtype=torch.float32, device=dev)
-        counters = _counters(dev, n_counters)
+        counters = _build.counters(dev, n_counters)
         n_counters = counters.numel()
     _build.launch("decode_attention", "memforest_decode_attention", dev,
                   q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

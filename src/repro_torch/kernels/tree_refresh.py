@@ -3,7 +3,9 @@
 Counterpart of the JAX package's ``kernels/tree_refresh.py``. For every dirty
 parent of one tree level, the masked mean of its (<= K) children's
 embeddings, L2-normalized: (P, K, D) + (P, K) -> (P, D). The kernel is
-``csrc/tree_refresh.cu``; CPU tensors take the plain version in ``ref.py``.
+``csrc/tree_refresh.cu``, one launch per call: a warp per parent up to
+``WARP_MAX_D``, above it a cluster of blocks per parent over slices of D
+(``plan``). CPU tensors take the plain version in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -13,6 +15,24 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import tree_refresh_ref
 
 COUNT = _build.LaunchCount("tree_refresh")
+
+WARP_MAX_D = 256       # a warp covers a row up to this width (two float4 a lane)
+BLOCK_COLS = 1024      # floats one block of a cluster covers: a float4 a thread
+MAX_CLUSTER = 8        # blocks per cluster (the portable limit)
+
+
+def plan(D: int):
+    """(cluster, slice) for rows of D floats (a multiple of 4): a warp per
+    parent (1, D) up to ``WARP_MAX_D``; above it the least power of two of
+    blocks per parent that gives each at most ``BLOCK_COLS`` floats, at
+    most ``MAX_CLUSTER``, each a slice of D that is a multiple of 4 floats,
+    none empty. A wider slice the kernel walks in passes."""
+    if D <= WARP_MAX_D:
+        return 1, D
+    cluster = 1
+    while cluster < MAX_CLUSTER and cluster * BLOCK_COLS < D:
+        cluster *= 2
+    return cluster, -(-D // (4 * cluster)) * 4
 
 
 def tree_refresh(child_emb: torch.Tensor,
@@ -26,9 +46,14 @@ def tree_refresh(child_emb: torch.Tensor,
         return tree_refresh_ref(child_emb, child_mask)
     dev = _build.check_cuda_inputs("tree_refresh", child_emb, child_mask)
     P, K, D = child_emb.shape
-    out = torch.empty((P, D), dtype=torch.float32, device=dev)
+    # rows of whole 16-byte chunks (zero columns change neither the mean nor
+    # the norm)
+    child_emb = _build.tma_ready(child_emb, align=4)
+    Dp = child_emb.shape[2]
+    cluster, slice_ = plan(Dp)
+    out = torch.empty((P, Dp), dtype=torch.float32, device=dev)
     _build.launch("tree_refresh", "memforest_tree_refresh", dev,
                   child_emb.data_ptr(), child_mask.data_ptr(), out.data_ptr(),
-                  P, K, D)
+                  P, K, Dp, cluster, slice_)
     COUNT.launches += 1
-    return out
+    return out if Dp == D else out[:, :D].contiguous()

@@ -165,11 +165,14 @@ def test_wrappers_never_fall_back_off_the_cpu():
 
 @pytest.mark.parametrize("Q,N", [(64, 256), (64, 1024), (1, 262144),
                                  (200, 262144), (64, 0), (3, 65)])
-def test_plan_splits_cover_every_key(Q, N):
-    per_split, splits = plan_splits(Q, N, sm_count=132)
+@pytest.mark.parametrize("D", [256, 4096])
+def test_plan_splits_cover_every_key(Q, N, D):
+    per_split, splits, cluster, slice_, _ = plan_splits(Q, N, D, sm_count=132)
     assert per_split % KEY_TILE == 0 and 1 <= splits <= MAX_SPLITS
     assert per_split * splits >= N
     assert per_split * (splits - 1) < max(N, 1), "no empty trailing split"
+    assert cluster in (1, 2, 4, 8) and slice_ % 4 == 0
+    assert cluster * slice_ >= D > (cluster - 1) * slice_, "every rank a slice"
 
 
 # ---------------------------------------------------------------------------
