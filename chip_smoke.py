@@ -13,15 +13,26 @@ Phases, each printed on its own line; any failed check exits nonzero:
               with the kernel's, the plain version's, the library call's and
               the bound's time in ms; two ``decode_attention`` calls must give
               equal bits, and one call must be one device launch, as must one
-              bf16 call of ``mamba2_ssd`` and of ``rwkv6_scan`` and one call of
-              ``tree_refresh`` and of ``topk_sim`` at their main shapes.
+              bf16 call of ``mamba2_ssd`` and of ``rwkv6_scan``, one call of
+              ``tree_refresh`` and of ``topk_sim`` at their main shapes and
+              one call of each form of ``browse_scores``. ``browse_scores``'
+              gather form is checked at the slice's and the serve phase's
+              level shapes from a node arena, with padded slots exactly 0 and
+              one node in four slots bitwise equal. The bf16 scan outputs are
+              held to a float64 run of the plain version
+              (``bf16_scan_excess``), the draw of the ``mamba2_ssd`` stress
+              row on which the earlier criterion failed a correct kernel
+              included.
   4. slice    the memory system's path through ``repro_torch.MemForestSystem``
               with its hashing encoder: ``ingest_batch`` of 500 sessions (about
               20k turns, 13k tree nodes) in batches of 16, then ``query_batch``
               of 64 queries in each of the six browse modes. Launch counts are
               reset just before and read just after; every kernel of the path
-              must have launched and no plain version may have run. The same
-              run on the CPU must give the same facts, trees, answers and
+              must have launched and no plain version may have run. The
+              browse's spans are printed, and one browse level, replayed under
+              the profiler, must copy at most F*K*8 + F*4 + 64 bytes to the
+              card (no children, no query matrix) and launch one kernel. The
+              same run on the CPU must give the same facts, trees, answers and
               evidence, and embeddings within 1e-5.
   5. serve    the serve engine on llama3-8b at its published width and depth
               (bf16, random weights from a seeded generator on the card):
@@ -33,8 +44,8 @@ Phases, each printed on its own line; any failed check exits nonzero:
               through the decode lane. Launch counts are reset just before and
               read just after: all five kernels must have launched, no plain
               version may have run, the prefix cache must have been reused and
-              every query answered. A profiled repeat gives the device's idle
-              share.
+              every query answered. The browse's spans are printed. A profiled
+              repeat gives the device's idle share.
   6. parity   the same engine traffic at llama3-8b's full width but depth 2,
               in float32, on a few sessions, on the card and on the CPU: equal
               decoded tokens, facts, trees and answers; embeddings within 1e-4.
@@ -64,6 +75,7 @@ script exits nonzero before printing any result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import statistics
 import subprocess
@@ -92,6 +104,10 @@ REPLACES = {
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:125",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
+SCAN_C = 512      # the bf16 scans' float32 error, in units of 2^-24 T
+# the inputs whose signs a scan's terms carry: x, B, C, state; r, k, v, u,
+# state (bf16_scan_excess)
+SCAN_SIGNED = {"mamba2_ssd": (0, 3, 4, 5), "rwkv6_scan": (0, 1, 2, 4, 5)}
 SLICE_KERNELS = ("tree_refresh", "topk_sim", "browse_scores")
 SERVE_KERNELS = SLICE_KERNELS + ("flash_attention", "decode_attention")
 
@@ -127,16 +143,88 @@ def device_ms(torch, fn) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def device_events(torch, fn):
-    """Names of the device activities (kernels, copies, fills) of one call
-    of ``fn``, after a warm-up call."""
+PROFILE_TRIES = 3
+
+
+def profiled(torch, fn):
+    """A profile of one call of ``fn`` (device activity only), after a
+    warm-up call. The profiler has been seen to return no device activity at
+    all for a call that launched, after several profiles in one process
+    (hence ``device_events`` reads CUDA graphs first): such an empty capture
+    is taken again, up to ``PROFILE_TRIES`` times, so a call that launches
+    nothing still comes back empty."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if any(str(ev.device_type).endswith("CUDA") for ev in prof.events()):
+            break
+    return prof
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` of ``cuda.h`` (libcuda's graph API)."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_events(torch, fn):
+    """The device operations of one call of ``fn``, read from a CUDA graph
+    it is captured into: each kernel node by its function's name, any other
+    node by its type. A capture records every operation the call issues on
+    its stream, as the profiler does, and refuses a call that waits for the
+    device. Warm-up calls on the capture stream first."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    stream = torch.cuda.Stream()
+    fn()
+    with torch.cuda.stream(stream):
         fn()
-        torch.cuda.synchronize()
-    return [ev.name for ev in prof.events()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)   # its nodes stay readable
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    need(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
+         "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count))
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        name = ctypes.c_char_p()
+        if kind.value == 0:                  # CU_GRAPH_NODE_TYPE_KERNEL
+            p = _KernelNodeParams()
+            cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                             ctypes.byref(p))
+            if p.func:
+                cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func))
+            elif p.kern:
+                cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern))
+        names.append(name.value.decode() if name.value
+                     else f"graph node of type {kind.value}")
+    graph.reset()
+    return names
+
+
+def device_events(torch, fn):
+    """Names of the device operations (kernels, copies, fills) of one call
+    of ``fn``: the nodes of a CUDA graph it is captured into
+    (``graph_events``), or, where the capture fails or a node has no name,
+    the profiler's device activities."""
+    try:
+        names = graph_events(torch, fn)
+        if not any(n.startswith("graph node of type") for n in names):
+            return names
+    except (RuntimeError, OSError, AttributeError, TypeError, CheckFailed):
+        pass
+    return [ev.name for ev in profiled(torch, fn).events()
             if str(ev.device_type).endswith("CUDA")]
 
 
@@ -159,7 +247,8 @@ def bound_ms(nbytes: float, flops: float, peaks, op: str = "fp32"):
 # ---------------------------------------------------------------------------
 def check_kernels(torch, peaks, seed: int):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.browse_scores import browse_scores
+    from repro_torch.kernels.browse_scores import (browse_scores,
+                                                   browse_scores_rows)
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mamba2_ssd import mamba2_ssd
@@ -251,6 +340,82 @@ def check_kernels(torch, peaks, seed: int):
                lambda: ref.browse_scores_ref(child, q, mask),
                (F * K * D + F * D + 2 * F * K) * 4, 2 * F * K * D, main,
                library)
+    packed_call = (child, q, mask)
+
+    def rows_case(F, K, D, R, L, what, main=False, fill=None, plant=False,
+                  offset=0):
+        """The gather form, as the browse calls it: an arena of R unit rows,
+        L lane queries, (F, K) row ids with -1 in padded slots (entries of
+        ``fill`` children, else all K; the last sixteenth all padded). With
+        ``plant``, one arena row in three slots of three entries and a copy
+        of it at another row, all against one query: bitwise equal scores.
+        ``offset`` floats move the arena off 16-byte alignment."""
+        arena = ref.normalize_rows(torch.randn(R, D, generator=g_new,
+                                               device=dev))
+        if offset:
+            buf = torch.empty(R * D + offset, device=dev)
+            buf[offset:] = arena.flatten()
+            arena = buf[offset:].view(R, D)
+        q_rows = ref.normalize_rows(torch.randn(L, D, generator=g_new,
+                                                device=dev))
+        rows = torch.randint(0, R, (F, K), generator=g_new, device=dev,
+                             dtype=torch.int32)
+        if fill is not None:
+            cnt = torch.randint(fill[0], fill[1] + 1, (F, 1), generator=g_new,
+                                device=dev)
+            rows[torch.arange(K, device=dev)[None, :] >= cnt] = -1
+        rows[F - F // 16:] = -1
+        lane_of = torch.randint(0, L, (F,), generator=g_new, device=dev,
+                                dtype=torch.int32)
+        spots = [(0, 0), (F // 2, K - 1), (F // 3, K // 2), (1, 0)]
+        if plant:
+            r0 = (int(rows[0, 0]) + 1) % R
+            r1 = (r0 + R // 2) % R
+            arena[r1] = arena[r0]
+            for i, (f, k) in enumerate(spots):
+                rows[f, k] = r0 if i < 3 else r1
+                lane_of[f] = lane_of[0]
+        mask = (rows >= 0).float()
+        args = (arena, rows, q_rows, lane_of, mask)
+        out = browse_scores_rows(*args)
+        torch.cuda.synchronize()
+        want = ref.browse_scores_rows_ref(*args)
+        err = (out - want).abs().max().item()
+        label = f"gather {what} {F}x{K}x{D} arena={R} lanes={L}"
+        need(err <= 2e-5, f"browse_scores {label}: max err {err}")
+        need(bool((out[rows < 0] == 0).all()), f"browse_scores {label}: "
+             "padded slots must score exactly 0")
+        if plant:
+            got = [out[f, k].item() for f, k in spots]
+            need(len(set(got)) == 1, f"browse_scores {label}: one row in "
+                 f"four slots scored {got}")
+        # bytes: the distinct rows and lane queries this call's data needs,
+        # then 4 a slot each for the row id, the mask and the score, and the
+        # lane ids
+        real = rows >= 0
+        used = real.any(1)
+        nbytes = (torch.unique(rows[real]).numel() * D
+                  + torch.unique(lane_of[used]).numel() * D) * 4 \
+            + F * K * 12 + F * 4
+        record("browse_scores", label, err, 2e-5,
+               lambda: browse_scores_rows(*args),
+               lambda: ref.browse_scores_rows_ref(*args), nbytes,
+               2 * int(real.sum()) * D, main)
+        return args
+
+    # the slice's levels (an arena of its 13,382 nodes at D = 256, 64
+    # queries x 8 trees = 512 lanes, about 2.5 children an entry), the
+    # serve phase's at D = 4096 with every slot real, then stress rows
+    slice_call = rows_case(512, 8, 256, 13382, 512, "slice level", True,
+                           fill=(1, 4))
+    rows_case(1024, 8, 256, 13382, 512, "slice level", True, fill=(1, 4))
+    rows_case(512, 8, 4096, 13382, 512, "serve level", True)
+    rows_case(1024, 8, 4096, 13382, 512, "serve level", True, plant=True)
+    rows_case(4096, 16, 256, 13382, 512, "stress", plant=True)
+    rows_case(1024, 8, 260, 4000, 64, "stress", plant=True)
+    rows_case(256, 8, 250, 4000, 64, "single floats", plant=True)
+    rows_case(512, 8, 256, 13382, 512, "unaligned arena", fill=(1, 4),
+              offset=1)
 
     # -- topk_sim -----------------------------------------------------------
     def topk_case(Q, N, D, k, nv, *, main=False, plant=False, normalize=False,
@@ -507,30 +672,42 @@ def check_kernels(torch, peaks, seed: int):
 
     # -- mamba2_ssd and rwkv6_scan --------------------------------------------
     # f32 rows: 2e-4 beyond 1e-2 relative (tests/test_kernels.py; the sums
-    # run in another order). bf16 rows: the kernel and its plain version both
-    # compute in f32 from the same bf16 inputs and round the output once, so
-    # it may differ by one bf16 ulp of the plain value beyond that 2e-4. The
-    # final state is f32 in both and held to the f32 criterion. No single
+    # run in another order). bf16 rows: the kernel computes in f32 from the
+    # bf16 inputs and rounds the output once, so it is held to a float64 run
+    # of the plain version: one bf16 ulp of that value plus SCAN_C * 2^-24 *
+    # T, T the size of the terms summed into the output (bf16_scan_excess;
+    # tests/test_torch_scan_design.py pins SCAN_C). The final state is f32
+    # and held to the f32 criterion against the f32 plain version. No single
     # PyTorch call computes either scan: library_ms is none.
-    def bf16_ulp(t):
-        mag = t.abs().clamp_min(2.0 ** -126)
-        return torch.exp2(torch.floor(torch.log2(mag)) - 7)
-
     def scan_agree(out, want, what):
         o, w = out.float(), want.float()
-        slack = bf16_ulp(w) if out.dtype == bf16 else 1e-2 * w.abs()
-        excess = ((o - w).abs() - slack).max().item()
+        excess = ((o - w).abs() - 1e-2 * w.abs()).max().item()
         need(excess <= 2e-4, f"{what}: differs from the plain version by "
-             f"{excess:.3e} beyond {'one bf16 ulp' if out.dtype == bf16 else 'rtol 1e-2'} "
-             "(atol 2e-4)")
+             f"{excess:.3e} beyond rtol 1e-2 (atol 2e-4)")
         return (o - w).abs().max().item()
 
+    def scan_bf16_agree(out, want, plain, args, chunk, signed, what):
+        """The rule (bf16_scan_excess), and the earlier criterion's reading
+        (one bf16 ulp of the f32 plain value beyond 2e-4) beside it."""
+        excess = bf16_scan_excess(out, plain, args, signed, chunk)
+        w = want.float()
+        earlier = ((out.float() - w).abs() - bf16_ulp(w)).max().item()
+        print(f"check: {what}: excess over the rule {excess:.3e} (passes at "
+              f"<= 0); the earlier criterion's excess {earlier:.3e} (limit "
+              "2e-4)", flush=True)
+        need(excess <= 0, f"{what}: differs from a float64 run of the plain "
+             f"version by {excess:.3e} beyond one bf16 ulp + {SCAN_C} * "
+             "2^-24 * T")
+        return (out.float() - w).abs().max().item()
+
     def scan_case(name, kernel, plain, args, chunk, label, nbytes, flops,
-                  main, dt):
+                  main, dt, signed):
         out, state = kernel(*args, chunk=chunk)
         torch.cuda.synchronize()
         want, want_state = plain(*args, chunk=chunk)
-        err = max(scan_agree(out, want, f"{name} {label}: output"),
+        what = f"{name} {label}: output"
+        err = max(scan_bf16_agree(out, want, plain, args, chunk, signed, what)
+                  if out.dtype == bf16 else scan_agree(out, want, what),
                   scan_agree(state, want_state, f"{name} {label}: state"))
         need(bool(torch.isfinite(out.float()).all()
                   and torch.isfinite(state).all()), f"{name} {label}: not finite")
@@ -538,13 +715,13 @@ def check_kernels(torch, peaks, seed: int):
                lambda: plain(*args, chunk=chunk), nbytes, flops, main, None,
                ops_of[dt])
 
-    def ssd_case(B, T, H, P, N, chunk, dt, main, what):
-        x = torch.randn(B, T, H, P, generator=g, device=dev).to(dt)
-        dts = F.softplus(torch.randn(B, T, H, generator=g, device=dev))
+    def ssd_case(B, T, H, P, N, chunk, dt, main, what, gen=g):
+        x = torch.randn(B, T, H, P, generator=gen, device=dev).to(dt)
+        dts = F.softplus(torch.randn(B, T, H, generator=gen, device=dev))
         A = -torch.linspace(1.0, 16.0, H, device=dev)   # the model's init
-        Bm = torch.randn(B, T, N, generator=g, device=dev).to(dt)
-        C = torch.randn(B, T, N, generator=g, device=dev).to(dt)
-        s0 = 0.1 * torch.randn(B, H, P, N, generator=g, device=dev)
+        Bm = torch.randn(B, T, N, generator=gen, device=dev).to(dt)
+        C = torch.randn(B, T, N, generator=gen, device=dev).to(dt)
+        s0 = 0.1 * torch.randn(B, H, P, N, generator=gen, device=dev)
         c = min(chunk, T)
         elem = x.element_size()
         nbytes = (2 * B * T * H * P + 2 * B * T * N) * elem + B * T * H * 4 \
@@ -552,7 +729,8 @@ def check_kernels(torch, peaks, seed: int):
         scan_case("mamba2_ssd", mamba2_ssd, ref.mamba2_ssd_chunked,
                   (x, dts, A, Bm, C, s0), chunk,
                   f"{what} {B}x{T}x{H}x{P}x{N} chunk={c} {ops_of[dt]}", nbytes,
-                  ssd_flops(B, T, H, P, N, c), main, dt)
+                  ssd_flops(B, T, H, P, N, c), main, dt,
+                  SCAN_SIGNED["mamba2_ssd"])
 
     def rwkv_case(B, T, H, K, V, chunk, dt, main, what, w_mean=-0.5):
         r, k = (torch.randn(B, T, H, K, generator=g, device=dev).to(dt)
@@ -568,12 +746,33 @@ def check_kernels(torch, peaks, seed: int):
         scan_case("rwkv6_scan", rwkv6_scan, ref.rwkv6_chunked,
                   (r, k, v, w, u, s0), chunk,
                   f"{what} {B}x{T}x{H}x{K}x{V} chunk={c} {ops_of[dt]}", nbytes,
-                  rwkv_flops(B, T, H, K, V, c), main, dt)
+                  rwkv_flops(B, T, H, K, V, c), main, dt,
+                  SCAN_SIGNED["rwkv6_scan"])
 
     ssd_case(8, 128, 112, 64, 64, 64, bf16, True, "prefill")
     ssd_case(8, 128, 112, 64, 64, 64, f32, False, "parity prefill")
     ssd_case(8, 16, 112, 64, 64, 64, f32, False, "one chunk")
     ssd_case(2, 96, 112, 64, 64, 32, f32, False, "ragged chunks")
+    # the stress row's draw on which the earlier criterion (one bf16 ulp of
+    # the f32 plain value beyond 2e-4) failed this kernel by 2.480e-04: three
+    # rows then drew from g ahead of it (they draw from g_new now), moving g
+    # on by the Philox offset their draws take
+    ahead = torch.Generator(device=dev).manual_seed(seed)
+    if hasattr(ahead, "set_offset"):
+        start = ahead.get_offset()
+        for P_, K_, D_ in ((128, 8, 3072), (8, 4, 36004)):
+            torch.randn(P_ * K_, D_, generator=ahead, device=dev)
+            torch.randint(0, K_ + 1, (P_,), generator=ahead, device=dev)
+        torch.randn(2000, 260, generator=ahead, device=dev)
+        torch.randn(16, 260, generator=ahead, device=dev)
+        run21 = torch.Generator(device=dev).manual_seed(seed)
+        run21.set_offset(g.get_offset() + ahead.get_offset() - start)
+        ssd_case(1, 4096, 112, 64, 64, 64, bf16, False,
+                 "stress (the earlier criterion's failing draw)", gen=run21)
+    else:
+        print("check: mamba2_ssd the earlier criterion's failing draw: not "
+              "replayed (this torch's generator has no set_offset)",
+              flush=True)
     ssd_case(1, 4096, 112, 64, 64, 64, bf16, False, "stress")
     rwkv_case(8, 128, 32, 64, 64, 64, bf16, True, "prefill")
     rwkv_case(8, 128, 32, 64, 64, 64, f32, False, "parity prefill")
@@ -635,7 +834,38 @@ def check_kernels(torch, peaks, seed: int):
               f"({', '.join(n[:50] for n in names)})", flush=True)
         need(len(names) == 1 and kern in names[0],
              f"{what}: one call made {len(names)} device launches")
+    for what, call in (
+            ("browse_scores 1024x8x256 packed",
+             lambda: browse_scores(*packed_call)),
+            ("browse_scores gather slice level 512x8x256",
+             lambda: browse_scores_rows(*slice_call))):
+        names = device_events(torch, call)
+        print(f"check: {what} launches per call={len(names)} "
+              f"({', '.join(n[:50] for n in names)})", flush=True)
+        need(len(names) == 1 and "browse" in names[0],
+             f"{what}: one call made {len(names)} device launches")
     return results
+
+
+def bf16_ulp(t):
+    mag = t.abs().clamp_min(2.0 ** -126)
+    return (mag.log2().floor() - 7).exp2()
+
+
+def bf16_scan_excess(out, plain, args, signed, chunk=64) -> float:
+    """How far a bf16 scan output ``out`` of ``plain``'s scan on ``args``
+    lies beyond its criterion (it passes at <= 0): |out - w| - (one bf16 ulp
+    of w + SCAN_C * 2^-24 * T), w the plain version run in float64 on the
+    same inputs, T the same run on the absolute values of the inputs at
+    ``signed`` (the decays are positive already): the size of the terms each
+    output sums. The ulp covers the output's one rounding, SCAN_C * 2^-24 *
+    T the float32 evaluation's error (tests/test_torch_scan_design.py pins
+    SCAN_C)."""
+    want64, _ = plain(*(a.double() for a in args), chunk=chunk)
+    terms, _ = plain(*(a.double().abs() if i in signed else a.double()
+                       for i, a in enumerate(args)), chunk=chunk)
+    slack = bf16_ulp(want64) + SCAN_C * 2.0 ** -24 * terms
+    return ((out.double() - want64).abs() - slack).max().item()
 
 
 def ssd_flops(B, T, H, P, N, C) -> int:
@@ -722,6 +952,102 @@ def compare_systems(a, b, answers_a, answers_b) -> str:
              f"answers or evidence differ in mode {mode}")
     return (f"node_emb_err={emb_err:.3e} root_err={root_err:.3e} "
             f"trees={len(fa.trees)} modes={len(MODES)}")
+
+
+def browse_spans(phase, sink) -> None:
+    """The browse's spans of one phase: ``retrieve.browse`` (a browse,
+    arena sync and query upload included), ``forest.node_arena`` (the
+    arena's scatters) and ``retrieve.browse_scores`` (a level: its upload,
+    launch and read-back) by padded frontier size, with the mean frontier."""
+    recs = sink.spans()
+    for name in ("retrieve.browse", "forest.node_arena"):
+        got = [r["dur_s"] for r in recs if r["name"] == name]
+        print(f"{phase}: span {name} n={len(got)} total_s={sum(got):.6f}")
+    levels = {}
+    for r in recs:
+        if r["name"] == "retrieve.browse_scores":
+            a = r.get("attrs") or {}
+            levels.setdefault(a.get("padded"), []).append(
+                (r["dur_s"], a.get("frontier")))
+    total = sum(d for v in levels.values() for d, _ in v)
+    print(f"{phase}: span retrieve.browse_scores n="
+          f"{sum(map(len, levels.values()))} total_s={total:.6f} " + " ".join(
+              f"padded={p}: n={len(v)} mean_s={sum(d for d, _ in v) / len(v):.6f} "
+              f"mean_frontier={sum(f for _, f in v) / len(v):.1f}"
+              for p, v in sorted(levels.items())), flush=True)
+
+
+def check_level_upload(torch, mf, wl) -> None:
+    """One browse level of the slice moves neither children nor a query
+    matrix to the card: the largest level of an llm-mode query batch,
+    replayed under the profiler, makes host-to-device copies of at most
+    F*K*8 + F*4 + 64 bytes (row ids, mask, lane ids; F and K padded) and
+    one kernel launch."""
+    from repro_torch.core import retrieval
+    calls = []
+    real = retrieval.Retriever._score_frontier
+
+    def spy(self, frontier, *rest):
+        calls.append((self, frontier, rest))
+        return real(self, frontier, *rest)
+
+    retrieval.Retriever._score_frontier = spy
+    try:
+        mf.query_batch(wl.queries, mode="llm")
+    finally:
+        retrieval.Retriever._score_frontier = real
+    need(bool(calls), "the slice's browse scored no level")
+    r, frontier, rest = max(calls, key=lambda c: len(c[1]))
+    kmax = max(len(lane.tree.children[n]) for lane, n in frontier)
+    F, K = 8, 4
+    while F < len(frontier):
+        F *= 2
+    while K < kmax:
+        K *= 2
+    prof = profiled(torch, lambda: real(r, frontier, *rest))
+    path = ROOT / "build" / "chip_smoke_level.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    copies = [(e["name"], (e.get("args") or {}).get("bytes")) for e in events
+              if e.get("cat") == "gpu_memcpy"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    h2d = [b for n, b in copies if "HtoD" in n]
+    limit = F * K * 8 + F * 4 + 64
+    print(f"slice: one browse level F={len(frontier)} padded {F}x{K}: "
+          f"host-to-device copies {h2d} bytes (limit {limit}), all copies "
+          f"{copies}, kernels {[k[:40] for k in kernels]}", flush=True)
+    need(bool(h2d) and all(b is not None and b <= limit for b in h2d),
+         f"a browse level copied {h2d} bytes to the card (limit {limit})")
+    need(len(kernels) == 1 and "browse" in kernels[0],
+         f"a browse level made the device launches {kernels}")
+
+
+def browse_report(torch, seed) -> None:
+    """The slice and the serve phase's traffic (llama3-8b, bf16, full width
+    and depth), traced, and their browse spans: ``browse_spans`` of each.
+    Runs whichever ``repro_torch`` is first on ``sys.path``, so one call can
+    compare two checkouts (README)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import MemorySink, Observability, Tracer
+
+    wl = make_slice_workload(seed)
+    sink = MemorySink()
+    run_slice(torch, wl, "cuda", Observability(tracer=Tracer(sink=sink,
+                                                             enabled=True)))
+    browse_spans("slice", sink)
+    cfg = get_config("llama3_8b")
+    params = T.init_params(cfg, seed, device="cuda")
+    sink = MemorySink()
+    engine, tok = build_engine(cfg, params, "cuda", Observability(
+        tracer=Tracer(sink=sink, enabled=True)))
+    serve_traffic(torch, engine, decode_prompts(wl, tok, DECODE_PROMPTS),
+                  wl.sessions, wl.queries, NEW_TOKENS)
+    browse_spans("serve", sink)
+    del engine, params
+    torch.cuda.empty_cache()
 
 
 def span_totals(sink):
@@ -893,6 +1219,7 @@ def run_serve(torch, wl, seed):
     print("serve: metrics " + json.dumps(m, sort_keys=True))
     print("serve: span_s " + " ".join(
         f"{k}={v:.4f}" for k, v in sorted(totals.items())), flush=True)
+    browse_spans("serve", sink)
     print("serve: launches " + " ".join(
         f"{k}={n} plain={p}" for k, (n, p) in counts.items()))
     for k, (n, p) in counts.items():
@@ -1229,11 +1556,14 @@ def main() -> int:
     totals = span_totals(sink)
     print("slice: span_s " + " ".join(
         f"{k}={v:.4f}" for k, v in sorted(totals.items())), flush=True)
+    browse_spans("slice", sink)
     print("slice: launches " + " ".join(
         f"{k}={n} plain={p}" for k, (n, p) in counts.items()))
     for k, (n, p) in counts.items():
         need(n > 0, f"{k} never launched on the main path")
         need(p == 0, f"{k} ran its plain version {p} times on CUDA")
+
+    check_level_upload(torch, mf, wl)
 
     texts = [t.text for s in wl.sessions[:16] for t in s.turns]
     e1 = mf.encoder.encode(texts)

@@ -14,7 +14,10 @@ dirty level (= deepest affected tree path), not the number of touched paths.
 
 The port runs on one device, given as ``device``: the device-resident index
 caches are torch tensors there, and the kernels run there. Tree structure and
-node embeddings stay host numpy, as in the JAX package.
+node embeddings stay host numpy, as in the JAX package, and the host
+``tree.emb`` stays the source of truth; the node arena (``node_arena``) keeps
+a copy of every node embedding on the device, from which the browse's
+``browse_scores_rows`` gathers a level's children by row id.
 """
 from __future__ import annotations
 
@@ -68,6 +71,18 @@ class Forest:
         self._root_dev = None
         self._root_dev_rows = 0
         self._root_dev_dirty: Set[int] = set()
+        # device node arena (read path): one row per node of every tree, NOT
+        # normalized (the browse scores the raw tree.emb rows, as the JAX
+        # package does). Per tree, a map node id -> arena row and the count
+        # of nodes synced; node ids below that count whose embedding the
+        # host rewrote are dirty. Synced lazily by node_arena(): new rows in
+        # a block copy per tree, rewritten rows in one scatter, capacity
+        # grown geometrically on the device.
+        self._arena = None
+        self._arena_used = 0
+        self._arena_rows: Dict[int, np.ndarray] = {}
+        self._arena_synced: Dict[int, int] = {}
+        self._arena_dirty: Dict[int, Set[int]] = {}
         # counters
         self.summary_refreshes = 0
         self.flush_levels = 0
@@ -76,6 +91,7 @@ class Forest:
         self.index_row_updates = 0      # incremental scatter updates
         self.index_grows = 0            # device-side capacity grows
         self.index_releases = 0         # device-cache frees (demotion)
+        self.arena_syncs = 0            # node-arena syncs that moved rows
 
     # ------------------------------------------------------------------
     # persistent-state writes
@@ -123,6 +139,7 @@ class Forest:
         leaf = tree.insert_leaf(item_id if item_kind == "fact" else -item_id - 1, ts, emb, text)
         self.placement.setdefault((item_kind, item_id), []).append((scope_key, leaf))
         self.dirty_trees.add(scope_key)
+        self._arena_dirty.setdefault(tree.tree_id, set()).add(leaf)
         return leaf
 
     # ------------------------------------------------------------------
@@ -203,28 +220,31 @@ class Forest:
             for i, (tree, n) in enumerate(batch):
                 tree.emb[n] = out[i]
                 tree.refresh_text(n)
+                self._arena_dirty.setdefault(tree.tree_id, set()).add(n)
         return 1
 
     # ------------------------------------------------------------------
     # residency: device-cache detach + footprint
     # ------------------------------------------------------------------
     def device_bytes(self) -> int:
-        """Bytes held by the device-resident index caches (the
-        capacity-padded arenas). 0 when detached / never materialized."""
+        """Bytes held by the device-resident caches (the capacity-padded
+        fact and root indexes and the node arena). 0 when detached / never
+        materialized."""
         return sum(t.numel() * t.element_size()
-                   for t in (self._fact_dev, self._root_dev) if t is not None)
+                   for t in (self._fact_dev, self._root_dev, self._arena)
+                   if t is not None)
 
     def detach_device(self) -> int:
-        """Release both device index caches and return the bytes released
-        (``index_releases`` counts released arenas, mirroring
-        ``index_grows``).
+        """Release the device index caches and the node arena and return the
+        bytes released (``index_releases`` counts released tensors,
+        mirroring ``index_grows``).
 
         Reattachment is transparent — the next ``fact_index_device()`` /
-        ``root_index_device()`` call re-uploads from host state. Persistent
-        and host derived state are unaffected; results are identical across
-        a detach/reattach round-trip."""
+        ``root_index_device()`` / ``node_arena()`` call re-uploads from host
+        state. Persistent and host derived state are unaffected; results are
+        identical across a detach/reattach round-trip."""
         freed = self.device_bytes()
-        for arr in (self._fact_dev, self._root_dev):
+        for arr in (self._fact_dev, self._root_dev, self._arena):
             if arr is not None:
                 ops.release_rows(arr)
                 self.index_releases += 1
@@ -234,6 +254,11 @@ class Forest:
         self._root_dev = None
         self._root_dev_rows = 0
         self._root_dev_dirty.clear()
+        self._arena = None
+        self._arena_used = 0
+        self._arena_rows.clear()
+        self._arena_synced.clear()
+        self._arena_dirty.clear()
         return freed
 
     # ------------------------------------------------------------------
@@ -301,6 +326,70 @@ class Forest:
             self._root_matrix, n, self._root_dev, self._root_dev_rows,
             self._root_dev_dirty)
         return self._root_dev, n, list(self._tree_order)
+
+    def node_arena(self) -> Tuple[torch.Tensor, Dict[int, np.ndarray]]:
+        """(device node arena (rows_cap, D) float32, {tree_id: arena row of
+        each node id}) with every node of every tree at its host value.
+
+        Nodes past a tree's synced count get fresh rows, contiguous per tree,
+        copied block by block straight from ``tree.emb`` (concatenating
+        them on the host first costs more than the copies save); rows the
+        host rewrote since the last sync
+        (``insert_item``, ``_refresh_batch``) go in one scatter. An ingest
+        round so costs at most one upload of the rows it changed; capacity
+        grows geometrically on the device (``ops.grow_rows``). The rows are
+        the raw ``tree.emb`` rows, not normalized. The arena is written IN
+        PLACE."""
+        blocks: List[Tuple[int, np.ndarray]] = []   # (first row, new rows)
+        idx: List[np.ndarray] = []
+        upd: List[np.ndarray] = []
+        for tree in self.trees.values():
+            tid = tree.tree_id
+            n = tree._n
+            synced = self._arena_synced.get(tid, 0)
+            dirty = self._arena_dirty.pop(tid, ())
+            if n == synced and not dirty:
+                continue
+            rmap = self._arena_rows.get(tid)
+            if rmap is None or rmap.shape[0] < n:
+                grown = np.full(max(n, 2 * (0 if rmap is None else
+                                            rmap.shape[0]), 8), -1, np.int32)
+                if rmap is not None:
+                    grown[: rmap.shape[0]] = rmap
+                rmap = self._arena_rows[tid] = grown
+            old = sorted(d for d in dirty if d < synced)
+            if old:
+                idx.append(rmap[old])
+                upd.append(tree.emb[old])
+            if n > synced:
+                blocks.append((self._arena_used, tree.emb[synced:n]))
+                rmap[synced:n] = np.arange(self._arena_used,
+                                           self._arena_used + n - synced)
+                self._arena_used += n - synced
+            self._arena_synced[tid] = n
+        if self._arena is None or self._arena.shape[0] < self._arena_used:
+            cap = 0 if self._arena is None else self._arena.shape[0]
+            new_cap = max(self._arena_used, 2 * cap, 256)
+            if self._arena is None:
+                self._arena = torch.zeros((new_cap, self.config.embed_dim),
+                                          dtype=torch.float32,
+                                          device=self.device)
+            else:
+                self.index_grows += 1
+                self._arena = ops.grow_rows(self._arena, new_cap - cap)
+        if blocks or idx:
+            count = sum(b.shape[0] for _, b in blocks) + sum(map(len, idx))
+            with self.obs.span("forest.node_arena", rows=count):
+                self.arena_syncs += 1
+                for first, block in blocks:
+                    self._arena[first:first + block.shape[0]].copy_(
+                        torch.from_numpy(block))
+                if idx:
+                    ops.scatter_rows(
+                        self._arena,
+                        torch.from_numpy(np.concatenate(idx)).to(self.device),
+                        torch.from_numpy(np.concatenate(upd)).to(self.device))
+        return self._arena, self._arena_rows
 
     # ------------------------------------------------------------------
     # scene routing state

@@ -20,12 +20,15 @@ Browse modes (paper Table 7 ablation):
                   (anchor terms weighted, tree time-range aware)
 
 The tree browse is LEVEL-SYNCHRONOUS and batched: every (query, tree) pair is
-a browse *lane*, and each descent round packs all lanes' expandable beam
-nodes into one padded (F, K, D) child-embedding gather scored by a single
-``browse_scores`` kernel launch — the read-path twin of the flush kernel's
-cross-tree batch dimension. Intent/anchor bonuses stay on host as vectorized
-numpy over the packed frontier (with per-node content-word sets memoized on
-the TreeArena). ``retrieve`` and ``retrieve_batch`` share this engine, so
+a browse *lane*, and each descent round scores all lanes' expandable beam
+nodes in a single ``browse_scores_rows`` kernel launch — the read-path twin
+of the flush kernel's cross-tree batch dimension. The kernel gathers the
+children by row id from the Forest's node arena on the device, and the
+queries from one row per lane uploaded once per browse: a level uploads a
+padded (F, K) row-id matrix, its mask and (F,) lane ids, not the (F, K, D)
+children the JAX package packs. Intent/anchor bonuses stay on host as
+vectorized numpy over the frontier (with per-node content-word sets memoized
+on the TreeArena). ``retrieve`` and ``retrieve_batch`` share this engine, so
 batched results are identical to the single-query path by construction.
 
 The answerer is SHARED across all memory systems benchmarked (baselines
@@ -89,7 +92,7 @@ class _Lane:
     """One (query, tree) pair of the level-synchronous batched browse."""
 
     __slots__ = ("qi", "tree", "q", "intent", "q_words", "beam", "next_beam",
-                 "collected")
+                 "collected", "index")
 
     def __init__(self, qi: int, tree: TreeArena, q: np.ndarray,
                  intent: Optional[TemporalIntent], q_words):
@@ -101,6 +104,7 @@ class _Lane:
         self.beam: List[Tuple[int, float]] = []
         self.next_beam: List[Tuple[int, float]] = []
         self.collected: Dict[int, float] = {}
+        self.index = 0                # row of the browse's query matrix
 
 
 class Retriever:
@@ -284,14 +288,17 @@ class Retriever:
     # ------------------------------------------------------------------
     def _browse_lanes(self, lanes: List[_Lane]) -> None:
         """Level-synchronous coarse-to-fine descent over every lane at once.
-        Per round, all lanes' expandable beam nodes form ONE packed frontier
-        scored by a single ``browse_scores`` launch; leaf hits collect into
-        each lane's candidate set. Fills ``lane.collected``."""
+        Per round, all lanes' expandable beam nodes form ONE frontier scored
+        by a single ``browse_scores_rows`` launch; leaf hits collect into
+        each lane's candidate set. Fills ``lane.collected``. The node arena
+        is synced and the lanes' query rows uploaded once, at the first
+        frontier."""
         budget = self.config.browse_beam
         for lane in lanes:
             if lane.tree.root >= 0:
                 lane.beam = [(lane.tree.root, 1.0)]
         active = [lane for lane in lanes if lane.beam]
+        device_side = None
         while active:
             frontier: List[Tuple[_Lane, int]] = []
             for lane in active:
@@ -307,7 +314,15 @@ class Retriever:
                         frontier.append((lane, node))
             if not frontier:
                 break
-            sims_rows = self._score_frontier(frontier)
+            if device_side is None:
+                arena, row_maps = self.forest.node_arena()
+                for i, lane in enumerate(lanes):
+                    lane.index = i
+                q_rows = torch.from_numpy(np.stack(
+                    [lane.q for lane in lanes]).astype(np.float32)).to(
+                        arena.device)
+                device_side = (arena, row_maps, q_rows)
+            sims_rows = self._score_frontier(frontier, *device_side)
             for (lane, node), sims in zip(frontier, sims_rows):
                 kids = lane.tree.children[node]
                 if lane.intent is not None:
@@ -323,12 +338,14 @@ class Retriever:
                 lane.next_beam = []
             active = [lane for lane in active if lane.beam]
 
-    def _score_frontier(self, frontier: List[Tuple[_Lane, int]]) -> List[np.ndarray]:
-        """Pack the frontier's child embeddings into one padded (F, K, D)
-        tensor (one fancy-index gather per distinct tree) and score every
-        (entry, child) pair in a single kernel launch. Shapes are bucketed to
-        powers of two (F >= 8, K >= 4) as in the JAX package, so the kernel
-        sees the same shapes; padded rows and slots are masked."""
+    def _score_frontier(self, frontier: List[Tuple[_Lane, int]],
+                        arena: torch.Tensor, row_maps: Dict[int, np.ndarray],
+                        q_rows: torch.Tensor) -> List[np.ndarray]:
+        """Score every (entry, child) pair of the frontier in a single kernel
+        launch that gathers the children from the node arena. Shapes are
+        bucketed to powers of two (F >= 8, K >= 4) as in the JAX package;
+        padded slots carry row -1 (score 0). One host buffer holds the row
+        ids, the mask and the lane ids: one upload of F*K*8 + F*4 bytes."""
         F = len(frontier)
         kmax = max(len(lane.tree.children[n]) for lane, n in frontier)
         k_pad = 4
@@ -337,28 +354,25 @@ class Retriever:
         cap = 8
         while cap < F:
             cap *= 2
-        dim = self.config.embed_dim
-        child = np.zeros((cap, k_pad, dim), np.float32)
-        mask = np.zeros((cap, k_pad), np.float32)
-        qm = np.zeros((cap, dim), np.float32)
-        by_tree: Dict[int, Tuple[TreeArena, List[int], List[int]]] = {}
+        fk = cap * k_pad
+        buf = np.zeros(2 * fk + cap, np.int32)
+        rows = buf[:fk].reshape(cap, k_pad)
+        rows[:] = -1
+        mask = buf[fk:2 * fk].view(np.float32).reshape(cap, k_pad)
+        lane_of = buf[2 * fk:]
         for i, (lane, n) in enumerate(frontier):
-            qm[i] = lane.q
-            rows_nodes = by_tree.setdefault(
-                id(lane.tree), (lane.tree, [], []))
-            rows_nodes[1].append(i)
-            rows_nodes[2].append(n)
-        for tree, rows, nodes in by_tree.values():
-            _idx, m, emb = tree.pack_children(nodes, k_pad)
-            child[rows] = emb
-            mask[rows] = m
+            kids = lane.tree.children[n]
+            rows[i, :len(kids)] = row_maps[lane.tree.tree_id][kids]
+            mask[i, :len(kids)] = 1.0
+            lane_of[i] = lane.index
         self.browse_launches += 1
-        dev = self.forest.device
         with self.forest.obs.span("retrieve.browse_scores", frontier=F,
                                   padded=cap):
-            sims = ops.browse_scores(
-                torch.from_numpy(child).to(dev), torch.from_numpy(qm).to(dev),
-                torch.from_numpy(mask).to(dev)).cpu().numpy()
+            up = torch.from_numpy(buf).to(arena.device)
+            sims = ops.browse_scores_rows(
+                arena, up[:fk].view(cap, k_pad), q_rows, up[2 * fk:],
+                up[fk:2 * fk].view(torch.float32).view(cap, k_pad))
+            sims = sims.cpu().numpy()
         return [sims[i, : len(lane.tree.children[n])]
                 for i, (lane, n) in enumerate(frontier)]
 

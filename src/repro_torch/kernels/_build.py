@@ -44,7 +44,8 @@ SIGNATURES: Dict[str, Tuple] = {
     "memforest_tree_refresh": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "memforest_topk_sim": (_P, _P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _P),
-    "memforest_browse_scores": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "memforest_browse_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _P),
     "memforest_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _P),
     "memforest_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I,

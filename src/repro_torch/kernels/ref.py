@@ -48,6 +48,20 @@ def browse_scores_ref(child_emb: torch.Tensor, q_emb: torch.Tensor,
     return s * child_mask.to(torch.float32)
 
 
+def browse_scores_rows_ref(arena: torch.Tensor, rows: torch.Tensor,
+                           q_rows: torch.Tensor, lane_of: torch.Tensor,
+                           child_mask: torch.Tensor) -> torch.Tensor:
+    """The gather form: (R, D) node arena, (F, K) row ids, (L, D) lane
+    queries, (F,) lane ids, (F, K) mask -> (F, K) scores
+    ``arena[rows[f, k]] . q_rows[lane_of[f]]``, times the mask. A slot whose
+    row id is negative scores exactly 0. Gathers, then ``browse_scores_ref``:
+    the gathered rows equal the packed ones, and so do the scores."""
+    r = rows.long()
+    s = browse_scores_ref(arena[r.clamp(min=0)], q_rows[lane_of.long()],
+                          child_mask)
+    return torch.where(r >= 0, s, torch.zeros_like(s))
+
+
 def merge_topk(vals: torch.Tensor, idx: torch.Tensor, k: int):
     """Top-k of a (Q, C) candidate pool by (score desc, index asc). Dead
     candidates carry ``NEG_INF`` / -1 and sort last; dead slots that survive
@@ -94,6 +108,14 @@ def scatter_normalize_rows(arr: torch.Tensor, idx: torch.Tensor,
     filtered first."""
     keep = (idx >= 0) & (idx < arr.shape[0])
     arr.index_copy_(0, idx[keep].long(), normalize_rows(rows[keep]))
+    return arr
+
+
+def scatter_rows(arr: torch.Tensor, idx: torch.Tensor,
+                 rows: torch.Tensor) -> torch.Tensor:
+    """Write ``rows`` into ``arr`` at ``idx``, IN PLACE, unnormalized, and
+    return ``arr``: the node arena's update."""
+    arr.index_copy_(0, idx.long(), rows.to(arr.dtype))
     return arr
 
 
@@ -204,12 +226,13 @@ def rwkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per chunk, per-key cumulative log-decays, the carried state's term, the
     (C, C, K) log-difference gate with every exponent clamped to <= 0, the
     bonus ``u`` on the diagonal, then the state update. The plain version
-    of ``csrc/rwkv6_scan.cu``."""
+    of ``csrc/rwkv6_scan.cu``. It computes in float32, or in float64 for
+    float64 inputs (the reference its bf16 check holds the kernel to)."""
     B, T, H, K = r.shape
     V = v.shape[-1]
     chunk = scan_chunk("rwkv6_scan", T, chunk)
     nc = T // chunk
-    f32 = torch.float32
+    f32 = torch.promote_types(r.dtype, torch.float32)   # float64 stays so
     rf, kf, vf, wf = (x.to(f32) for x in (r, k, v, w))
     uf = u.to(f32)
 
@@ -277,12 +300,13 @@ def mamba2_ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (``mamba2_ssd_chunked``): per chunk, the cumulative log-decay dt.A, the
     decay mask with every exponent clamped to <= 0, G = (C.B^T) * mask * dt,
     y = G.x + exp(cum) (C.S^T), then the state update. The plain version of
-    ``csrc/mamba2_ssd.cu``."""
+    ``csrc/mamba2_ssd.cu``. It computes in float32, or in float64 for
+    float64 inputs (the reference its bf16 check holds the kernel to)."""
     B, T, H, P = x.shape
     N = Bm.shape[-1]
     chunk = scan_chunk("mamba2_ssd", T, chunk)
     nc = T // chunk
-    f32 = torch.float32
+    f32 = torch.promote_types(x.dtype, torch.float32)   # float64 stays so
     xf = x.to(f32).reshape(B, nc, chunk, H, P).permute(1, 0, 3, 2, 4)
     dtf = dt.to(f32).reshape(B, nc, chunk, H).permute(1, 0, 3, 2)
     Bf = Bm.to(f32).reshape(B, nc, chunk, N).permute(1, 0, 2, 3)

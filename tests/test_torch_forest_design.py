@@ -17,6 +17,12 @@ PyTorch that follows each kernel's schedule step by step:
 - ``tree_refresh``: the plan (``plan``), the masked sum over k, the division
   by cnt, each rank's sum of squares over its slice, the rank sums added in
   rank order, the division by (norm + 1e-6).
+- ``browse_scores``: the plan (a warp per entry up to ``WARP_MAX_D``, a team
+  of ``TEAM`` warps over slices of D above), each lane's chain of FMAs over
+  its columns lane + 32 j (float4s, or floats where D % 4 != 0), the 8
+  slots' partials reduced across the warp by the reduce-scatter butterfly
+  (lane l ends with slot bitrev3(l & 7)), the team's sums added in warp
+  order, padded rows exactly 0.
 
 Each schedule is held against the port's plain version
 (``repro_torch.kernels.ref``) and the JAX package (``impl="reference"`` and
@@ -34,6 +40,9 @@ torch = pytest.importorskip("torch")
 from repro.kernels import ops as jax_ops
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import tma_ready
+from repro_torch.kernels.browse_scores import SLOTS, TEAM
+from repro_torch.kernels.browse_scores import WARP_MAX_D as BROWSE_WARP_MAX_D
+from repro_torch.kernels.browse_scores import plan as browse_plan
 from repro_torch.kernels.topk_sim import (KEY_TILE, MAX_CLUSTER, MAX_SPLITS,
                                           QUERY_BLOCK, SLICE, plan_splits)
 from repro_torch.kernels.tree_refresh import BLOCK_COLS, WARP_MAX_D
@@ -468,3 +477,145 @@ def test_forest_rows_of_whole_float4s_go_in_uncopied():
     assert tma_ready(x, align=4) is x
     y = tma_ready(torch.ones(5, 38), align=4)
     assert y.shape == (5, 40) and bool((y[:, 38:] == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# browse_scores
+# ---------------------------------------------------------------------------
+LANE = np.arange(32)
+
+
+def bitrev3(x):
+    return ((x & 1) << 2) | (x & 2) | ((x >> 2) & 1)
+
+
+def reduce_scatter(acc):
+    """The warp's reduce-scatter of ``SLOTS`` partials a lane, acc (F, SLOTS,
+    32) f32 -> (F, SLOTS): steps 1, 2 and 4 lanes apart each keep half of the
+    slots (the upper half where the lane's bit is set) and add the partner's
+    value; then two sums 8 and 16 lanes apart. Lane l holds slot
+    bitrev3(l & 7), and so do lanes l + 8, l + 16 and l + 24."""
+    v = acc.transpose(0, 2, 1).copy()               # (F, lane, slot)
+    n, off = SLOTS // 2, 1
+    while n >= 1:
+        up = ((LANE & off) != 0)[None, :, None]
+        send = np.where(up, v[:, :, :n], v[:, :, n:2 * n])
+        keep = np.where(up, v[:, :, n:2 * n], v[:, :, :n])
+        v = v[:, :, :n].copy()
+        v[:] = keep + send[:, LANE ^ off]
+        n, off = n // 2, off * 2
+    r = v[:, :, 0]
+    r = r + r[:, LANE ^ 8]
+    r = r + r[:, LANE ^ 16]
+    assert (r[:, :8] == r[:, 8:16]).all() and (r[:, :8] == r[:, 24:]).all()
+    out = np.empty((acc.shape[0], SLOTS), np.float32)
+    out[:, bitrev3(LANE[:8])] = r[:, :8]
+    return out
+
+
+def browse_schedule(arena, rows, q_rows, lane_of, mask):
+    """The kernel's arithmetic, numpy f32 (one rounding per FMA, emulated in
+    float64): arena (R, D), rows (F, K) with -1 in padded slots, q_rows (L,
+    D), lane_of (F,), mask (F, K) -> (F, K)."""
+    F, K = rows.shape
+    D = arena.shape[1]
+    unit = 4 if D % 4 == 0 else 1                  # float4 or float columns
+    n = D // unit
+    team = browse_plan(D)
+    per = -(-n // team)
+    child = np.where(rows[..., None] >= 0, arena[np.maximum(rows, 0)],
+                     np.float32(0))                # a padded slot loads nothing
+    q = q_rows[lane_of].astype(np.float64)[:, None, :]
+    out = np.zeros((F, K), np.float32)
+    for k0 in range(0, K, SLOTS):
+        ks = [k for k in range(k0, k0 + SLOTS) if k < K]
+        c = np.zeros((F, SLOTS, D))
+        c[:, :len(ks)] = child[:, ks]
+        total = None
+        for w in range(team):
+            c0, c1 = w * per, min(w * per + per, n)
+            acc = np.zeros((F, SLOTS, 32), np.float32)
+            for i0 in range(c0, c1, 32):
+                cols = i0 + LANE                   # column lane + 32 j
+                live = cols < c1
+                for e in range(unit):
+                    d = np.minimum(cols * unit + e, D - 1)
+                    prod = np.where(live, c[:, :, d] * q[:, :, d], 0.0)
+                    acc = (acc + prod).astype(np.float32)
+            part = reduce_scatter(acc)
+            total = part if total is None else total + part
+        out[:, ks] = total[:, :len(ks)]
+    return np.where(rows >= 0, out * mask, np.float32(0))
+
+
+BROWSE_CASES = [
+    # F, K, D: K = 4, 8, 16 a warp an entry; D = 260 (65 float4: lanes
+    # uneven), 7 and 514 (floats), a team of 4 at 1028 (slices of 65
+    # float4), 4096 (the serve phase's width) with K = 8 and 16
+    (8, 4, 256), (16, 8, 256), (5, 16, 256), (6, 8, 260), (5, 4, 7),
+    (3, 8, 514), (4, 8, 1028), (3, 8, 4096), (3, 16, 4096),
+]
+
+
+def browse_inputs(seed, F, K, D):
+    rng = np.random.default_rng(seed)
+    R, L = 3 * F * K, 3
+    arena, q_rows = _unit(rng, R, D), _unit(rng, L, D)
+    rows = rng.integers(0, R, size=(F, K)).astype(np.int32)
+    rows[0, K // 2:] = -1
+    rows[-1] = -1                                  # an all-padded entry
+    lane_of = rng.integers(0, L, size=F).astype(np.int32)
+    mask = (rows >= 0).astype(np.float32)
+    return arena, rows, q_rows, lane_of, mask
+
+
+@pytest.mark.parametrize("F,K,D", BROWSE_CASES)
+def test_browse_schedule_matches_both_packages(F, K, D):
+    arena, rows, q_rows, lane_of, mask = browse_inputs(F * 13 + K + D, F, K, D)
+    out = browse_schedule(arena, rows, q_rows, lane_of, mask)
+    plain = ref.browse_scores_rows_ref(_t(arena), _t(rows), _t(q_rows),
+                                       _t(lane_of), _t(mask)).numpy()
+    np.testing.assert_allclose(out, plain, atol=2e-5)
+    child = np.where(rows[..., None] >= 0, arena[np.maximum(rows, 0)], 0.0)
+    args = (jnp.asarray(child, jnp.float32), jnp.asarray(q_rows[lane_of]),
+            jnp.asarray(mask))
+    for impl in ("reference", "pallas_interpret"):
+        want = np.asarray(jax_ops.browse_scores(*args, impl=impl))
+        np.testing.assert_allclose(out, want, atol=2e-5)
+    assert (out[rows < 0] == 0).all() and not out[-1].any()
+
+
+@pytest.mark.parametrize("K", [4, 8, 16])
+@pytest.mark.parametrize("D", [256, 260, 7, 4096])
+def test_browse_duplicates_score_bitwise_equal_wherever_they_fall(K, D):
+    """One node's row, gathered in every slot of several entries, and copies
+    of it at other arena rows: every slot scores the same bits, in the
+    gather form and in the packed form (an arena of F*K rows)."""
+    F = 5
+    arena, rows, q_rows, _, _ = browse_inputs(K + D, F, K, D)
+    arena[1:7] = arena[0]
+    rows[:] = np.arange(F * K).reshape(F, K) % 7   # rows 0-6: one node's row
+    lane_of = np.zeros(F, np.int32)
+    mask = np.ones((F, K), np.float32)
+    out = browse_schedule(arena, rows, q_rows, lane_of, mask)
+    assert (out == out[0, 0]).all()
+    packed = browse_schedule(arena[rows].reshape(F * K, D),
+                             np.arange(F * K, dtype=np.int32).reshape(F, K),
+                             q_rows[lane_of], np.arange(F, dtype=np.int32), mask)
+    assert (packed == out[0, 0]).all()
+
+
+def test_reduce_scatter_puts_slot_bitrev3_on_its_lanes():
+    """Partials of whole numbers sum exactly, so each slot's total shows which
+    slot a lane ended with."""
+    acc = (1000 * np.arange(SLOTS)[:, None] + LANE[None, :]).astype(np.float32)
+    out = reduce_scatter(acc[None])[0]
+    assert out.tolist() == [1000 * 32 * s + LANE.sum() for s in range(SLOTS)]
+
+
+@pytest.mark.parametrize("D,team", [(7, 1), (256, 1), (260, 1), (512, 1),
+                                    (514, TEAM), (4096, TEAM), (36004, TEAM)])
+def test_browse_plan_is_a_function_of_d(D, team):
+    assert browse_plan(D) == team
+    assert (team == 1) == (D <= BROWSE_WARP_MAX_D)
+

@@ -71,6 +71,77 @@ def test_browse_scores(F, K, D):
     assert np.all(out[mask == 0] == 0), "padded slots score exactly 0"
 
 
+def _browse_rows_inputs(rng, F, K, D, R, L):
+    """A gather-form call: padded slots (-1), an all-padded entry, a real row
+    masked, and one arena row in three slots of three entries."""
+    arena = _unit(rng, R, D)
+    q_rows = _unit(rng, L, D)
+    rows = rng.integers(0, R, size=(F, K)).astype(np.int32)
+    rows[1, K // 2:] = -1
+    rows[-1] = -1
+    rows[2, 0] = rows[3, 1] = rows[0, K - 1]
+    lane_of = rng.integers(0, L, size=F).astype(np.int32)
+    mask = (rows >= 0).astype(np.float32)
+    mask[4, 0] = 0.0
+    return arena, rows, q_rows, lane_of, mask
+
+
+@pytest.mark.parametrize("F,K,D", [(8, 4, 256), (16, 8, 256), (8, 16, 256),
+                                   (6, 8, 260), (9, 16, 260), (8, 4, 7)])
+def test_browse_scores_rows(F, K, D):
+    """The gather form against the JAX package's browse_scores (reference
+    and interpret mode) on the packed equivalent of the same call."""
+    rng = np.random.default_rng(F * 7 + K + D)
+    arena, rows, q_rows, lane_of, mask = _browse_rows_inputs(
+        rng, F, K, D, R=2 * F * K + 5, L=3)
+    before = kernels.COUNTS["browse_scores"].plain_calls
+    out = ops.browse_scores_rows(_t(arena), _t(rows), _t(q_rows), _t(lane_of),
+                                 _t(mask)).numpy()
+    assert kernels.COUNTS["browse_scores"].plain_calls == before + 1
+    child = np.where(rows[..., None] >= 0, arena[np.maximum(rows, 0)], 0.0)
+    args = (jnp.asarray(child), jnp.asarray(q_rows[lane_of]), jnp.asarray(mask))
+    for impl in ("reference", "pallas_interpret"):
+        want = np.asarray(jax_ops.browse_scores(*args, impl=impl))
+        np.testing.assert_allclose(out, want, atol=2e-5)
+    assert np.all(out[rows < 0] == 0) and not out[-1].any()
+    assert out[4, 0] == 0, "a masked real row scores 0"
+    packed = ops.browse_scores(_t(child.astype(np.float32)),
+                               _t(q_rows[lane_of]), _t(mask)).numpy()
+    np.testing.assert_allclose(out, packed, atol=2e-5)
+
+
+def test_browse_scores_rows_refuses_what_it_does_not_take():
+    arena, q = torch.zeros(10, 8), torch.zeros(3, 8)
+    rows = torch.zeros(4, 2, dtype=torch.int32)
+    lane_of, mask = torch.zeros(4, dtype=torch.int32), torch.zeros(4, 2)
+    assert ops.browse_scores_rows(arena, rows, q, lane_of, mask).shape == (4, 2)
+    before = kernels.COUNTS["browse_scores"].plain_calls
+    bad_shapes = [
+        (arena, rows, torch.zeros(3, 7), lane_of, mask),
+        (arena, rows, q, torch.zeros(3, dtype=torch.int32), mask),
+        (arena, rows, q, lane_of, torch.zeros(4, 3)),
+        (arena, rows[None], q, lane_of, mask),
+        (arena[0], rows, q, lane_of, mask),
+    ]
+    out_of_range = [
+        (arena, torch.full((4, 2), 10, dtype=torch.int32), q, lane_of, mask),
+        (arena, torch.full((4, 2), -2, dtype=torch.int32), q, lane_of, mask),
+        (arena, rows, q, torch.full((4,), 3, dtype=torch.int32), mask),
+        (arena, rows, q, torch.full((4,), -1, dtype=torch.int32), mask),
+    ]
+    off_the_cpu = [
+        (torch.zeros(10, 8, device="meta"), rows, q, lane_of, mask),
+        tuple(t.to("meta") for t in (arena, rows, q, lane_of, mask)),
+    ]
+    for args in bad_shapes + out_of_range + off_the_cpu:
+        with pytest.raises(ValueError):
+            ops.browse_scores_rows(*args)
+    for wrong in (rows.long(), rows.float()):
+        with pytest.raises(TypeError):
+            ops.browse_scores_rows(arena, wrong, q, lane_of, mask)
+    assert kernels.COUNTS["browse_scores"].plain_calls == before
+
+
 # ---------------------------------------------------------------------------
 # topk_sim
 # ---------------------------------------------------------------------------

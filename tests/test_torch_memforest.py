@@ -23,7 +23,6 @@ from repro_torch import MemForestConfig, MemForestSystem
 from repro_torch.core import forest as torch_forest
 from repro_torch.core import retrieval as torch_retrieval
 from repro_torch.core.encoder import EncoderStats
-from repro_torch.core.memtree import TreeArena
 from repro_torch.core.retrieval import Retriever, _Lane
 from repro_torch.data.synthetic import make_workload as torch_make_workload
 
@@ -150,10 +149,91 @@ def test_device_bytes_and_detach():
     before = [r.answer for r in mf.query_batch(wl.queries)]
     held = mf.device_bytes()
     dim = mf.config.embed_dim
+    # the node arena: every node of every tree, in the first capacity of
+    # 256 rows
+    assert sum(t._n for t in mf.forest.trees.values()) <= 256
     assert held == 4 * dim * (mf.forest.fact_emb.shape[0]
-                              + mf.forest._root_matrix.shape[0])
+                              + mf.forest._root_matrix.shape[0] + 256)
     assert mf.detach_device() == held and mf.device_bytes() == 0
     assert [r.answer for r in mf.query_batch(wl.queries)] == before
+
+
+# ---------------------------------------------------------------------------
+# the node arena the browse gathers from
+# ---------------------------------------------------------------------------
+def _arena_matches_trees(forest):
+    arena, row_maps = forest.node_arena()
+    for tree in forest.trees.values():
+        rows = row_maps[tree.tree_id][:tree._n]
+        assert (rows >= 0).all() and len(set(rows.tolist())) == tree._n
+        got = arena[torch.from_numpy(rows).long()].numpy()
+        assert got.tobytes() == tree.emb[:tree._n].tobytes(), tree.scope_key
+    return arena
+
+
+def test_arena_rows_equal_every_tree_row():
+    """After every ingest round, flush, and a detach followed by a query,
+    the arena's rows are every tree's emb rows, bitwise. Rounds after the
+    first refresh parents the arena already holds: a refreshed row the sync
+    missed would show here."""
+    wl = torch_make_workload(num_entities=5, num_sessions=12, num_queries=6,
+                             seed=11)
+    mf = MemForestSystem(device="cpu")
+    syncs = []
+    for i in range(0, len(wl.sessions), BATCH):
+        mf.ingest_batch(wl.sessions[i:i + BATCH])
+        _arena_matches_trees(mf.forest)
+        syncs.append(mf.forest.arena_syncs)
+        mf.query_batch(wl.queries, mode="emb")
+    # one scatter per ingest round, none for a query after it
+    assert syncs == list(range(1, len(syncs) + 1))
+    assert mf.forest.arena_syncs == len(syncs)
+    mf.ingest_batch(wl.sessions[:2], defer_flush=True)
+    mf.forest.flush()
+    _arena_matches_trees(mf.forest)
+    before = [(r.answer, r.evidence) for r in mf.query_batch(wl.queries)]
+    mf.detach_device()
+    assert mf.forest._arena is None
+    after = [(r.answer, r.evidence) for r in mf.query_batch(wl.queries)]
+    assert after == before
+    _arena_matches_trees(mf.forest)
+
+
+def test_score_frontier_uploads_no_children_and_no_query_matrix(monkeypatch):
+    """A level passes the kernel the arena, an (F, K) row-id matrix, its mask
+    and (F,) lane ids, one buffer of F*K*8 + F*4 bytes; the query rows are
+    one per lane, the same tensor at every level of a browse. No argument is
+    an (F, K, D) array."""
+    seen = _record_shapes(monkeypatch, torch_retrieval, "browse_scores_rows")
+    calls = []
+    spy = torch_retrieval.ops.browse_scores_rows
+
+    def record(arena, rows, q_rows, lane_of, mask):
+        calls.append((arena, rows, q_rows, lane_of, mask))
+        return spy(arena, rows, q_rows, lane_of, mask)
+
+    monkeypatch.setattr(torch_retrieval.ops, "browse_scores_rows", record)
+    wl = torch_make_workload(num_entities=5, num_sessions=10, num_queries=12,
+                             seed=11)
+    mf = _ingest(MemForestSystem(device="cpu"), wl.sessions, BATCH)
+    lanes = []
+    real = torch_retrieval.Retriever._browse_lanes
+    monkeypatch.setattr(torch_retrieval.Retriever, "_browse_lanes",
+                        lambda self, ls: (lanes.append(len(ls)),
+                                          real(self, ls))[1])
+    mf.query_batch(wl.queries, mode="llm")
+    assert len(lanes) == 1 and len(calls) >= 2, "expected a browse of levels"
+    D = mf.config.embed_dim
+    for shapes in seen:
+        assert all(len(sh) <= 2 for sh in shapes)
+    for arena, rows, q_rows, lane_of, mask in calls:
+        F, K = rows.shape
+        assert q_rows is calls[0][2] and q_rows.shape == (lanes[0], D)
+        assert arena is calls[0][0]
+        store = rows.untyped_storage()
+        assert store.nbytes() == F * K * 8 + F * 4
+        for t in (lane_of, mask):
+            assert t.untyped_storage().data_ptr() == store.data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -186,19 +266,20 @@ def test_refresh_batch_pads_parents_to_a_power_of_two(monkeypatch):
 
 
 def test_browse_frontier_pads_f_to_8_and_k_to_4(monkeypatch):
-    seen = _record_shapes(monkeypatch, torch_retrieval, "browse_scores")
+    seen = _record_shapes(monkeypatch, torch_retrieval, "browse_scores_rows")
     wl = torch_make_workload(num_entities=5, num_sessions=10, num_queries=12,
                              seed=11)
     mf = _ingest(MemForestSystem(device="cpu"), wl.sessions, BATCH)
     mf.query_batch(wl.queries, mode="emb")
     mf.query_batch(wl.queries[:1], mode="emb")    # frontiers under 8 entries
     assert seen
-    for child, q, mask in seen:
-        F, K, D = child
+    D = mf.config.embed_dim
+    for arena, rows, q, lane_of, mask in seen:
+        F, K = rows
         assert F >= 8 and F & (F - 1) == 0
         assert K >= 4 and K & (K - 1) == 0
-        assert q == (F, D) and mask == (F, K)
-    assert min(child[0] for child, _, _ in seen) == 8
+        assert arena[1] == q[1] == D and lane_of == (F,) and mask == (F, K)
+    assert min(rows[0] for _, rows, _, _, _ in seen) == 8
 
 
 def test_index_sync_scatters_with_the_drop_sentinel(monkeypatch):
@@ -233,7 +314,8 @@ def test_browse_beam_tie_break_prefers_lowest_child_index():
     """Equal browse scores resolve to the LOWEST child ids: the beam order is
     a stable argsort, as in the JAX package."""
     cfg = MemForestConfig()
-    tree = TreeArena(0, "t", "entity", 4, cfg.embed_dim)
+    forest = torch_forest.Forest(cfg, "cpu")
+    tree = forest.get_tree("t", "entity")
     v = np.zeros(cfg.embed_dim, np.float32)
     v[0] = 1.0
     leaves = [tree._alloc(0, (0.0, 1.0), text=f"leaf{i}", emb=v)
@@ -244,11 +326,7 @@ def test_browse_beam_tie_break_prefers_lowest_child_index():
         tree.parent[leaf] = root
     tree.root = root
 
-    class _FlatForest:
-        device = torch.device("cpu")
-        obs = MemForestSystem(device="cpu").obs
-
-    r = Retriever(_FlatForest(), encoder=None, config=cfg)
+    r = Retriever(forest, encoder=None, config=cfg)
     lane = _Lane(0, tree, v, None, q_words=set())
     r._browse_lanes([lane])
     assert set(lane.collected) == set(leaves[:cfg.browse_beam])

@@ -19,12 +19,19 @@ in plain PyTorch that follows each kernel's schedule step by step:
 - a block owns a slice of P (V) columns and recomputes G (A) for it;
 - chunks of 64, 40, 32 and 16 rows in a 64-row tile, P, N, K, V padded.
 
-Each emulation is held to ``chip_smoke.py``'s bf16 criterion against the
-port's plain version (``repro_torch.kernels.ref``): the output within one
-bf16 ulp of the plain value beyond 2e-4, the f32 state within 1e-2
-relative beyond 2e-4; at one shape also against the JAX package's own
-reference. Fewer bf16 terms fail that criterion, which is why the kernels
-take three. Inputs come from numpy with fixed seeds.
+Each emulation is held to the earlier bf16 criterion against the port's
+plain version (``repro_torch.kernels.ref``): the output within one bf16 ulp
+of the plain value beyond 2e-4, the f32 state within 1e-2 relative beyond
+2e-4; at one shape also against the JAX package's own reference. Fewer bf16
+terms fail that criterion, which is why the kernels take three.
+
+``chip_smoke.py`` now holds the bf16 outputs to a float64 run of the plain
+version instead (``chip_smoke.bf16_scan_excess``): one bf16 ulp plus
+``SCAN_C`` * 2^-24 * T, T the size of the terms each output sums. The last
+section pins ``SCAN_C`` and shows the rule passing the three-term schedule
+at the stress shape, where the earlier criterion is tighter than float32
+allows, and failing a one-term schedule. Inputs come from numpy with fixed
+seeds.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +44,8 @@ from repro_torch.kernels import ref
 from repro_torch import kernels
 from repro_torch.kernels import ops
 from repro_torch.kernels._build import scan_slice, tma_ready
+
+import chip_smoke
 
 BF16 = torch.bfloat16
 TILE = 64           # rows of a chunk's tiles in shared memory
@@ -324,6 +333,109 @@ def test_fewer_terms_fail_the_criterion(kernel, terms):
 
 
 # ---------------------------------------------------------------------------
+# the card's rule: a float64 run, one bf16 ulp + SCAN_C * 2^-24 * T
+# ---------------------------------------------------------------------------
+def rule_excess(kernel, args, out):
+    plain = ref.mamba2_ssd_chunked if kernel == "mamba2_ssd" else ref.rwkv6_chunked
+    return chip_smoke.bf16_scan_excess(out, plain, args, chip_smoke.SCAN_SIGNED[kernel])
+
+
+def rule_ratio(kernel, args, out):
+    """The least c for which ``out`` passes: max (|out - w| - ulp(w)) / (2^-24 T)."""
+    plain = ref.mamba2_ssd_chunked if kernel == "mamba2_ssd" else ref.rwkv6_chunked
+    signed = chip_smoke.SCAN_SIGNED[kernel]
+    w, _ = plain(*(a.double() for a in args))
+    terms, _ = plain(*(a.double().abs() if i in signed else a.double()
+                       for i, a in enumerate(args)))
+    e = (out.double() - w).abs() - chip_smoke.bf16_ulp(w)
+    return torch.where(terms > 0, e / (2.0 ** -24 * terms), torch.zeros(())).max().item()
+
+
+def test_the_rule_constant():
+    """SCAN_C = 512. The float32 evaluation's error in this order is set by
+    exp(cum_t - cum_s): cum is a float32 running sum of dt.A (of w's
+    log-decays), several hundred deep at A = -16, so its rounding, a few
+    units of 2^-24 |cum|, is a relative error of the term. Over eight draws
+    at the stress shape 1x4096x112x64x64 the three-term schedule and the
+    float32 plain version both reach c = 88-145 (rwkv6 at 1x4096x32: 7-14);
+    a one-term schedule needs c >= 8,500 at every shape tried. 512 lies 3.5x
+    above the first and 16x under the second. (The earlier criterion held
+    the kernel to the float32 plain version, whose own error is that size:
+    on the card it failed a correct kernel by 2.480e-04 beyond one bf16
+    ulp.)"""
+    assert chip_smoke.SCAN_C == 512
+    assert chip_smoke.SCAN_SIGNED == {"mamba2_ssd": (0, 3, 4, 5),
+                                      "rwkv6_scan": (0, 1, 2, 4, 5)}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 3])
+def test_three_terms_pass_the_rule_at_the_stress_shape(seed):
+    """mamba2_ssd 1x4096x112x64x64, chip_smoke.py's stress row (seed 3 is
+    the draw of the largest ratio found, 145)."""
+    args = ssd_inputs(seed, 1, 4096, 112, 64, 64)
+    y, _ = ssd_schedule(*args)
+    assert rule_excess("mamba2_ssd", args, y) <= 0
+    assert rule_ratio("mamba2_ssd", args, y) <= chip_smoke.SCAN_C / 3
+
+
+@pytest.mark.parametrize("seed", [0, 4])
+def test_three_terms_pass_the_rule_at_the_rwkv_stress_length(seed):
+    """rwkv6_scan 1x4096 at 8 of the stress row's 32 heads."""
+    args = rwkv_inputs(seed, 1, 4096, 8, 64, 64, -0.5)
+    o, _ = rwkv_schedule(*args)
+    assert rule_excess("rwkv6_scan", args, o) <= 0
+
+
+@pytest.mark.parametrize("w_mean", W_MEANS)
+@pytest.mark.parametrize("case", range(len(RWKV_CASES)))
+def test_three_terms_pass_the_rule_at_every_rwkv_shape(case, w_mean):
+    B, T, H, K, V, chunk, width = RWKV_CASES[case]
+    args = rwkv_inputs(B * 1000 + T + K, B, T, H, K, V, w_mean)
+    o, _ = rwkv_schedule(*args, chunk=chunk, width=width)
+    plain = ref.rwkv6_chunked
+    signed = chip_smoke.SCAN_SIGNED["rwkv6_scan"]
+    assert chip_smoke.bf16_scan_excess(o, plain, args, signed, chunk) <= 0
+
+
+@pytest.mark.parametrize("case", range(len(SSD_CASES)))
+def test_three_terms_pass_the_rule_at_every_ssd_shape(case):
+    B, T, H, P, N, chunk, width = SSD_CASES[case]
+    args = ssd_inputs(B * 1000 + T + P, B, T, H, P, N)
+    y, _ = ssd_schedule(*args, chunk=chunk, width=width)
+    plain = ref.mamba2_ssd_chunked
+    signed = chip_smoke.SCAN_SIGNED["mamba2_ssd"]
+    assert chip_smoke.bf16_scan_excess(y, plain, args, signed, chunk) <= 0
+
+
+@pytest.mark.parametrize("kernel,w_mean", [("mamba2_ssd", None), ("rwkv6_scan", -0.5),
+                                           ("rwkv6_scan", -6.0)])
+def test_one_term_fails_the_rule(kernel, w_mean):
+    """The error the rule exists to catch: f32 operands cut to one bf16 term
+    (about 2^-9 relative) fail it at the main shape."""
+    if kernel == "mamba2_ssd":
+        args = ssd_inputs(11, 2, 128, 8, 64, 64)
+        out, _ = ssd_schedule(*args, terms=1)
+    else:
+        args = rwkv_inputs(12, 1, 128, 4, 64, 64, w_mean)
+        out, _ = rwkv_schedule(*args, terms=1)
+    assert rule_excess(kernel, args, out) > 0
+    assert rule_ratio(kernel, args, out) > 8 * chip_smoke.SCAN_C
+
+
+def test_the_plain_version_runs_in_float64_for_float64_inputs():
+    """The rule's reference: float64 inputs keep float64 through the chunked
+    scans (float32 and bf16 inputs compute in float32, as before)."""
+    x, dt, A, Bm, C, s0 = ssd_inputs(2, 1, 64, 2, 16, 16)
+    y64, s64 = ref.mamba2_ssd_chunked(*(a.double() for a in (x, dt, A, Bm, C, s0)))
+    y32, _ = ref.mamba2_ssd_chunked(x.float(), dt, A, Bm.float(), C.float(), s0)
+    assert y64.dtype == s64.dtype == torch.float64
+    assert 0 < (y64 - y32.double()).abs().max() < 1e-4
+    r, k, v, w, u, s1 = rwkv_inputs(3, 1, 64, 2, 16, 16, -0.5)
+    o64, _ = ref.rwkv6_chunked(*(a.double() for a in (r, k, v, w, u, s1)))
+    assert o64.dtype == torch.float64
+
+
+# ---------------------------------------------------------------------------
 # the wrappers' plan and padding
 # ---------------------------------------------------------------------------
 def test_scan_slice_fills_the_card():
@@ -400,3 +512,24 @@ if __name__ == "__main__":
             o, s = rwkv_schedule(*args, terms=terms)
             print(f"rwkv6_scan 1x128x4x64x64 w~N({w_mean}, 0.5) terms={terms}: output "
                   f"{excess(o, want[0]):.2e} state {excess(s, want[1]):.2e}")
+    # the ratios test_the_rule_constant cites: the least c each schedule and
+    # the float32 plain version pass the rule with, over eight draws at the
+    # stress shapes, and one-term schedules at the main shapes
+    for seed in range(8):
+        args = ssd_inputs(seed, 1, 4096, 112, 64, 64)
+        y, _ = ssd_schedule(*args)
+        print(f"mamba2_ssd 1x4096x112x64x64 seed {seed}: three terms "
+              f"c >= {rule_ratio('mamba2_ssd', args, y):.1f}, float32 plain version "
+              f"c >= {rule_ratio('mamba2_ssd', args, ref.mamba2_ssd_chunked(*args)[0]):.1f}")
+    for seed in range(8):
+        args = rwkv_inputs(seed, 1, 4096, 32, 64, 64, -0.5)
+        o, _ = rwkv_schedule(*args)
+        print(f"rwkv6_scan 1x4096x32x64x64 seed {seed}: three terms "
+              f"c >= {rule_ratio('rwkv6_scan', args, o):.1f}")
+    args = ssd_inputs(11, 2, 128, 8, 64, 64)
+    print(f"mamba2_ssd 2x128x8x64x64 one term: c >= "
+          f"{rule_ratio('mamba2_ssd', args, ssd_schedule(*args, terms=1)[0]):.1f}")
+    for w_mean in W_MEANS:
+        args = rwkv_inputs(12, 1, 128, 4, 64, 64, w_mean)
+        print(f"rwkv6_scan 1x128x4x64x64 w~N({w_mean}, 0.5) one term: c >= "
+              f"{rule_ratio('rwkv6_scan', args, rwkv_schedule(*args, terms=1)[0]):.1f}")
