@@ -66,7 +66,31 @@ Phases, each printed on its own line; any failed check exits nonzero:
               a few sessions, on the card and on the CPU with the same
               weights: equal decoded tokens, facts, trees and answers; the
               final ssd / wkv state within 1e-4.
-  10. kernels one line per kernel, and the JSON summary of all of them.
+  10. durable MemForest's lifecycle on the card, on the slice's workload
+              with the hashing encoder: a ``DurableMemForest`` (fsync on) with
+              a ``MaintenancePlane`` on its worker thread. 500 sessions in
+              journaled batches of 64 (one delivered twice: it applies once),
+              the 64 queries in the six browse modes under the plane's lock, a
+              checkpoint, 16 deletions, the compaction of every tree at least
+              30% dead, and a journaled merge of a second seed's 64 sessions.
+              Launch counts are reset before and read after: the three forest
+              kernels must have launched, ``tree_refresh`` from the worker too.
+              Then: the store reopened (snapshot + journal tail) gives the
+              same digest and answers; the same run crashed in the journal
+              tail and recovered by the client's retries gives them too; a
+              crash sweep at 64 sessions kills the run at every durability
+              event and every recovery reaches that size's digest; the run on
+              the CPU (the plane drained after each step) gives the same
+              facts, trees, placement and answers, embeddings within 1e-5;
+              and a snapshot written on the card answers on the CPU as the
+              card does, and the reverse.
+  11. maintenance_lane  the engine's maintenance lane on rwkv6-1.6b (the rwkv6
+              phase's weights): ``ServeEngine(maintenance=plane,
+              maintenance_budget=2)`` and the rwkv6 phase's traffic. No ingest
+              drain may flush; the lane must run; the decoded tokens, the
+              memory's digest and its answers in the six modes must equal the
+              rwkv6 phase's, which had no plane.
+  12. kernels one line per kernel, and the JSON summary of all of them.
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a
 visible CUDA device, or without the rest of the repository beside it, the
@@ -77,6 +101,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -939,7 +964,9 @@ def compare_systems(a, b, answers_a, answers_b) -> str:
         need(ta.children == tb.children and ta.level == tb.level
              and ta.root == tb.root, f"tree {key} differs")
         n = len(ta.level)
-        emb_err = max(emb_err, float(np.abs(ta.emb[:n] - tb.emb[:n]).max()))
+        if n:           # a tree compacted to no nodes has no rows
+            emb_err = max(emb_err,
+                          float(np.abs(ta.emb[:n] - tb.emb[:n]).max()))
     need(emb_err <= 1e-5, f"node embeddings differ by {emb_err}")
     nt = len(fa._tree_order)
     root_err = float(np.abs(fa._root_matrix[:nt] - fb._root_matrix[:nt]).max())
@@ -1123,13 +1150,17 @@ def to_cpu(tree):
     return tree.cpu()
 
 
+def engine_tokens(engine):
+    """Every finished request's id and decoded tokens, in id order."""
+    return sorted((r.req_id, r.out_tokens) for r in engine.finished)
+
+
 def same_engines(label, ge, ce, gres, cres) -> None:
     """The card's engine ``ge`` and the CPU's ``ce`` after the same traffic:
     equal decoded tokens, facts, trees, placement and answers; a prefix
     hit."""
-    tokens = lambda e: sorted((r.req_id, r.out_tokens)    # noqa: E731
-                              for r in e.finished)
-    need(tokens(ge) == tokens(ce), f"{label}: decoded tokens differ")
+    need(engine_tokens(ge) == engine_tokens(ce),
+         f"{label}: decoded tokens differ")
     need(len(ge.finished) == 8, f"{label}: a decode request did not finish")
     fa, fb = ge.memory.forest, ce.memory.forest
     need([(f.fact_id, f.text, f.value) for f in fa.facts]
@@ -1201,7 +1232,7 @@ def run_serve(torch, wl, seed):
     kernels.reset_counts()
     ingest_s, query_s, results = serve_traffic(
         torch, engine, prompts, wl.sessions, wl.queries, NEW_TOKENS)
-    counts = read_counts(SERVE_KERNELS)
+    counts = read_counts(REPLACES)
 
     m = engine.metrics()
     totals = span_totals(sink)
@@ -1223,7 +1254,8 @@ def run_serve(torch, wl, seed):
     print("serve: launches " + " ".join(
         f"{k}={n} plain={p}" for k, (n, p) in counts.items()))
     for k, (n, p) in counts.items():
-        need(n > 0, f"{k} never launched on the serve path")
+        need(n > 0 or k not in SERVE_KERNELS,
+             f"{k} never launched on the serve path")
         need(p == 0, f"{k} ran its plain version {p} times on CUDA")
     need(m["prefills_reused"] >= 1, "the prefix cache was never reused")
     need(len(results) == len(wl.queries)
@@ -1300,18 +1332,25 @@ SSM_ARCHS = {"zamba2": ("zamba2_7b", "mamba2_ssd"),
              "rwkv6": ("rwkv6_1b6", "rwkv6_scan")}
 
 
-def build_hashing_engine(cfg, params, device, obs=None):
+def build_hashing_engine(cfg, params, device, obs=None, maintenance_budget=0):
     """ServeEngine on ``cfg`` whose memory is a MemForestSystem with the
     hashing encoder at the paper's defaults (``launch/serve.py --encoder
-    hashing``): neither family has the dense trunk a ModelEncoder needs."""
+    hashing``): neither family has the dense trunk a ModelEncoder needs.
+    ``maintenance_budget`` > 0 attaches a MaintenancePlane to the memory and
+    drains that many units of it a step (the maintenance lane)."""
     from repro_torch import MemForestSystem
+    from repro_torch.core.maintenance_plane import MaintenancePlane
     from repro_torch.data.tokenizer import HashTokenizer
     from repro_torch.models import get_model
     from repro_torch.serving.engine import ServeEngine
 
     memory = MemForestSystem(device=device, obs=obs)
+    plane = MaintenancePlane(memory.forest, obs=obs) \
+        if maintenance_budget > 0 else None
     engine = ServeEngine(get_model(cfg), params, max_batch=8, max_len=512,
-                         memory=memory, max_ingest_batch=16, obs=obs)
+                         memory=memory, max_ingest_batch=16, obs=obs,
+                         maintenance=plane,
+                         maintenance_budget=maintenance_budget)
     return engine, HashTokenizer(cfg.vocab_size)
 
 
@@ -1330,9 +1369,11 @@ def param_count(tree) -> int:
     return tree.numel()
 
 
-def run_ssm_serve(torch, wl, seed, phase):
+def run_ssm_serve(torch, wl, seed, phase, keep=False):
     """Phase 7 (zamba2-7b) or 8 (rwkv6-1.6b): bf16, published width and
-    depth, the engine traffic of phase 5 with 128-token prompts."""
+    depth, the engine traffic of phase 5 with 128-token prompts. Returns the
+    launch counts and, with ``keep``, what the maintenance_lane phase holds
+    its run against: (counts, (params, decoded tokens, the memory))."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
@@ -1404,6 +1445,7 @@ def run_ssm_serve(torch, wl, seed, phase):
     state = engine.cache["ssd" if cfg.family == "hybrid" else "wkv"]
     need(bool(torch.isfinite(state).all()), "the recurrent state is not "
          "finite")
+    kept = (engine_tokens(engine), engine.memory)
     del engine
 
     # device busy time over a profiled repeat of the same traffic; device
@@ -1414,7 +1456,10 @@ def run_ssm_serve(torch, wl, seed, phase):
     profiled_repeat(torch, phase, lambda: serve_traffic(
         torch, engine, prompts, wl.sessions, wl.queries, NEW_TOKENS),
         ingest_s + query_s, [ProfilerActivity.CUDA])
-    del engine, params
+    del engine
+    if keep:
+        return counts, (params, *kept)
+    del params, kept
     torch.cuda.empty_cache()
     return counts
 
@@ -1461,6 +1506,474 @@ def run_ssm_parity(torch, seed):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 10 and 11: durability and maintenance
+# ---------------------------------------------------------------------------
+DURABLE_BATCH = 64        # sessions a journaled delivery carries
+DURABLE_DELETES = 16      # sessions deleted after the checkpoint
+SWEEP_SESSIONS = 64       # the crash sweep's size, in batches of 32, with 2
+                          # deletions and a 16-session merge (45 events)
+DELIVERY_GAP_S = 0.02     # between deliveries the plane's worker takes the lock
+IDLE_TIMEOUT_S = 300.0
+
+
+def merge_source(seed, sessions, device):
+    """The system the durable phase merges in: a second seed's workload,
+    ingested on ``device``."""
+    from repro_torch import MemForestSystem
+    from repro_torch.data.synthetic import make_workload
+    wl = make_workload(num_entities=16, num_sessions=sessions,
+                       transitions_per_entity=4, distractor_turns=20,
+                       num_queries=1, seed=seed + 1)
+    mf = MemForestSystem(device=device)
+    mf.ingest_batch(wl.sessions)
+    return mf
+
+
+def lifecycle_steps(wl, src, batch, deletes, queries=True):
+    """The durable phase's client operations in order, each (kind, key,
+    argument): journaled deliveries of ``batch`` sessions (the second batch's
+    webhook fires twice), the queries, a checkpoint, ``deletes`` deletions,
+    the compaction of every tree the deletions left 30% dead, and a merge of
+    ``src``. Compaction comes before the merge and waits for its units to
+    finish, so a client retry after a crash compacts the trees the
+    uninterrupted run compacts."""
+    steps = []
+    for i in range(0, len(wl.sessions), batch):
+        steps.append(("ingest", f"ingest:{i}", wl.sessions[i:i + batch]))
+        if i == batch:
+            steps.append(("ingest", f"ingest:{i}", wl.sessions[i:i + batch]))
+    if queries:
+        steps.append(("queries", None, wl.queries))
+    steps.append(("checkpoint", None, None))
+    stride = len(wl.sessions) // deletes
+    steps += [("delete", f"delete:{s.session_id}", s.session_id)
+              for s in wl.sessions[stride // 2::stride][:deletes]]
+    steps.append(("compact", None, None))
+    steps.append(("merge", "merge:second-seed", src))
+    return steps
+
+
+def settle(plane, background) -> None:
+    """Until the plane has no work: the worker drains it (background), or
+    this thread does (cooperative)."""
+    if not background:
+        plane.drain()
+        return
+    t0 = time.perf_counter()
+    while plane.pending():
+        if not plane._thread.is_alive():
+            plane.stop_background()         # raises the worker's error
+        need(time.perf_counter() - t0 < IDLE_TIMEOUT_S,
+             "the maintenance plane did not go idle")
+        time.sleep(0.005)
+
+
+def memory_answers(mf, queries):
+    return {m: [(r.answer, r.evidence)
+                for r in mf.query_batch(queries, mode=m)] for m in MODES}
+
+
+def gap(log) -> None:
+    """The pause after a delivery or a query mode in background mode, in
+    which the plane's worker takes the lock; its time is kept apart."""
+    t0 = time.perf_counter()
+    time.sleep(DELIVERY_GAP_S)
+    log["gap_s"] += time.perf_counter() - t0
+
+
+def apply_step(store, plane, step, background, log):
+    """One client operation on the store, under the plane's lock where it
+    touches the forest."""
+    kind, key, arg = step
+    if kind == "ingest":
+        with plane.lock:
+            out = store.ingest_batch(arg, idempotency_key=key,
+                                     defer_flush=True)
+        log["deliveries"] += 1
+        log["duplicates"] += out is None
+        if background:
+            gap(log)
+    elif kind == "queries":
+        for mode in MODES:
+            with plane.lock:
+                res = store.query_batch(arg, mode=mode)
+            need(len(res) == len(arg), f"a {mode} query went unanswered")
+            if background:
+                gap(log)
+    elif kind == "checkpoint":
+        with plane.lock:
+            t0 = time.perf_counter()
+            store.checkpoint()
+            log["checkpoint_s"] = time.perf_counter() - t0
+    elif kind == "delete":
+        with plane.lock:
+            store.delete_session(arg, idempotency_key=key, flush=False)
+    elif kind == "compact":
+        log["compactions_scheduled"] = plane.schedule_compaction()
+        settle(plane, background)
+    else:
+        plane.schedule_merge(arg, idempotency_key=key)
+        settle(plane, background)
+
+
+def run_lifecycle(root, steps, device, *, background, crash=None, obs=None,
+                  encoder=None):
+    """``steps`` on a durable store in ``root`` with a maintenance plane
+    (its worker thread when ``background``). On a simulated crash the
+    process's state is dropped, the store is reopened from disk and the
+    client retries the step. ``encoder``: the stores' encoder (the crash
+    sweep shares one across its runs), by default a new HashingEncoder.
+    Returns (store, plane, log)."""
+    from repro_torch.core.journal import DurableMemForest
+    from repro_torch.core.maintenance_plane import MaintenancePlane
+    from repro_torch.runtime.fault_tolerance import SimulatedCrash
+
+    def start(store):
+        plane = MaintenancePlane(store.forest, durable=store, obs=obs)
+        if background:
+            plane.start_background()
+        return plane
+
+    log = {"deliveries": 0, "duplicates": 0, "recoveries": [], "gap_s": 0.0}
+    store = DurableMemForest.open(root, device=device, fsync=True,
+                                  crash=crash, obs=obs, encoder=encoder)
+    plane = start(store)
+    for step in steps:
+        while True:
+            try:
+                apply_step(store, plane, step, background, log)
+                break
+            except SimulatedCrash:
+                plane.stop_background(drain_first=False)   # process death
+                store.close()
+                t0 = time.perf_counter()
+                store = DurableMemForest.open(root, device=device,
+                                              fsync=True, obs=obs,
+                                              encoder=encoder)
+                log["recoveries"].append(
+                    (time.perf_counter() - t0, store.ops_replayed))
+                plane = start(store)
+    plane.stop_background(drain_first=True)
+    return store, plane, log
+
+
+def same_structure(label, a, b) -> None:
+    """Two memories on one device hold one state: facts, trees, placement,
+    registry and applied keys exactly."""
+    fa, fb = a.forest, b.forest
+    need([(f.fact_id, f.text, f.sources) for f in fa.facts]
+         == [(f.fact_id, f.text, f.sources) for f in fb.facts],
+         f"{label}: facts differ")
+    need(list(fa.trees) == list(fb.trees) and all(
+        (ta.children, ta.level, ta.root, ta.payload)
+        == (fb.trees[k].children, fb.trees[k].level, fb.trees[k].root,
+            fb.trees[k].payload) for k, ta in fa.trees.items()),
+        f"{label}: trees differ")
+    need(fa.placement == fb.placement, f"{label}: placement differs")
+    need(fa.session_registry == fb.session_registry,
+         f"{label}: session registry differs")
+    need(fa.applied_ops == fb.applied_ops, f"{label}: applied keys differ")
+
+
+def run_durable(torch, wl, seed):
+    """Phase 10: the durable store and the maintenance plane on the card."""
+    import shutil
+    import tempfile
+
+    from repro_torch import MemForestSystem, kernels
+    from repro_torch.core.encoder import HashingEncoder
+    from repro_torch.core.maintenance_plane import WORKER_NAME
+    from repro_torch.data.synthetic import make_workload
+    from repro_torch.kernels import COUNTS
+    from repro_torch.obs import MemorySink, Observability, Tracer
+    from repro_torch.runtime.fault_tolerance import CrashInjector
+
+    base = tempfile.mkdtemp(prefix="memforest_durable_")
+    try:
+        t0 = time.perf_counter()
+        src = merge_source(seed, 64, "cuda")
+        src_s = time.perf_counter() - t0
+        steps = lifecycle_steps(wl, src, DURABLE_BATCH, DURABLE_DELETES)
+
+        # 1-4. the lifecycle on the card, the plane on its worker thread --
+        sink = MemorySink()
+        obs = Observability(tracer=Tracer(sink=sink, enabled=True))
+        probe = CrashInjector(None)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        store, plane, log = run_lifecycle(
+            os.path.join(base, "main"), steps, "cuda", background=True,
+            crash=probe, obs=obs)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts(REPLACES)
+        worker = {k: COUNTS[k].by_thread.get(WORKER_NAME, 0)
+                  for k in REPLACES}
+        digest = store.state_digest()
+        answers = memory_answers(store, wl.queries)
+        reg = store.obs.registry
+        totals = span_totals(sink)
+        m = plane.metrics()
+        print(f"durable: card {card_line()} (one run)")
+        print(f"durable: sessions={len(wl.sessions)} deliveries="
+              f"{log['deliveries']} duplicates_skipped={store.duplicates_skipped}"
+              f" deletions={DURABLE_DELETES} compactions_scheduled="
+              f"{log['compactions_scheduled']} merge_source_sessions=64 "
+              f"(built in {src_s:.3f} s) run_s={run_s:.4f} of which "
+              f"delivery_gaps_s={log['gap_s']:.4f} (sleeps that let the "
+              f"worker take the lock) run_s_less_gaps="
+              f"{run_s - log['gap_s']:.4f} stats={store.scale_stats()}")
+        print(f"durable: journal appends={reg.counter('journal/appends').value}"
+              f" bytes={reg.counter('journal/appended_bytes').value} "
+              f"fsync_s={totals.get('journal.fsync', 0.0):.6f} append_s="
+              f"{totals.get('journal.append', 0.0):.6f} checkpoint_s="
+              f"{log['checkpoint_s']:.4f} durability_events={probe.events}")
+        slices = sum(r["name"] == "maintenance.flush_slice"
+                     for r in sink.spans())
+        print("durable: plane " + json.dumps(m, sort_keys=True)
+              + f" flush_slices={slices}")
+        print("durable: span_s " + " ".join(
+            f"{k}={v:.4f}" for k, v in sorted(totals.items())
+            if k.startswith(("maintenance.", "forest.", "retrieve.browse",
+                             "journal.", "persistence."))), flush=True)
+        print("durable: launches " + " ".join(
+            f"{k}={n} plain={p} worker={worker[k]}"
+            for k, (n, p) in counts.items()))
+        need(log["duplicates"] == 1 and store.duplicates_skipped == 1,
+             "the duplicated delivery did not apply exactly once")
+        need(m["maintenance_merges"] == 1 and m["maintenance_compactions"]
+             == log["compactions_scheduled"] > 0, "the plane's merge or "
+             "compactions did not run")
+        need(m["maintenance_slots_reclaimed"] > 0, "compaction reclaimed "
+             "no slot")
+        for k, (n, p) in counts.items():
+            need(n > 0 or k not in SLICE_KERNELS,
+                 f"{k} never launched on the durable path")
+            need(p == 0, f"{k} ran its plain version {p} times on CUDA")
+        need(worker["tree_refresh"] > 0, "the plane's worker launched no "
+             "tree_refresh")
+        for tree in store.forest.trees.values():
+            tree.check_invariants()
+        f = store.forest
+        print(f"durable: live store after the lifecycle: device_bytes="
+              f"{store.device_bytes()} estimated={f.estimated_device_bytes()}"
+              f" arena_rows_used={f._arena_used} arena_rows_cap="
+              f"{f._arena.shape[0]} nodes={sum(t._n for t in f.trees.values())}"
+              " (a compacted tree reuses its rows)")
+        store.close()
+
+        # 5a. reopen: the snapshot plus the journal tail -------------------
+        from repro_torch.core.journal import DurableMemForest
+        t0 = time.perf_counter()
+        rec = DurableMemForest.open(os.path.join(base, "main"),
+                                    device="cuda")
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t0
+        need(rec.state_digest() == digest, "the reopened store's digest "
+             "differs")
+        need(memory_answers(rec, wl.queries) == answers,
+             "the reopened store answers otherwise")
+        same_structure("reopen", rec, store)
+        held, est = rec.device_bytes(), rec.forest.estimated_device_bytes()
+        _name, freed = rec.demote()
+        after, est_after = rec.device_bytes(), \
+            rec.forest.estimated_device_bytes()
+        print(f"durable: reopen open_s={open_s:.4f} records_replayed="
+              f"{rec.ops_replayed} digest equal, answers equal in "
+              f"{len(MODES)} modes; device_bytes={held} estimated={est} "
+              f"demote freed={freed} device_bytes_after={after} "
+              f"estimated_after={est_after}")
+        need(freed == held and after == 0 and est_after == est,
+             "demotion did not free the device caches")
+        rec.close()
+
+        # 5b. the same run crashed in the journal tail, then retried --------
+        tail = [i for i, ev in enumerate(probe.trace, 1)
+                if ev == "apply"][-(DURABLE_DELETES // 2) - 2]
+        need(probe.trace.index("journal:rotate") < tail,
+             "the crash point is not in the journal tail")
+        crashed, _, clog = run_lifecycle(
+            os.path.join(base, "crash"), steps, "cuda", background=True,
+            crash=CrashInjector(tail))
+        need(len(clog["recoveries"]) == 1, "the injected crash did not fire")
+        need(crashed.state_digest() == digest, "the recovered run's digest "
+             "differs")
+        need(memory_answers(crashed, wl.queries) == answers,
+             "the recovered run answers otherwise")
+        same_structure("crash", crashed, store)
+        (c_open_s, c_replayed), = clog["recoveries"]
+        print(f"durable: crash at durability event {tail} of {probe.events} "
+              f"({probe.trace[tail - 1]}): open_s={c_open_s:.4f} "
+              f"records_replayed={c_replayed}, then the client's retries: "
+              "digest equal, answers equal, structure equal", flush=True)
+        crashed.close()
+
+        # 6. the crash sweep at 64 sessions, cooperative -------------------
+        swl = make_workload(num_entities=16, num_sessions=SWEEP_SESSIONS,
+                            transitions_per_entity=4, distractor_turns=20,
+                            num_queries=1, seed=seed)
+        ssrc = merge_source(seed, 16, "cuda")
+        ssteps = lifecycle_steps(swl, ssrc, 32, 2, queries=False)
+        enc = HashingEncoder(device="cuda")     # one table for every run
+        sprobe = CrashInjector(None)
+        ref, _, _ = run_lifecycle(os.path.join(base, "sweep_ref"), ssteps,
+                                  "cuda", background=False, crash=sprobe,
+                                  encoder=enc)
+        want = ref.state_digest()
+        ref.close()
+        t0 = time.perf_counter()
+        for k in range(1, sprobe.events + 1):
+            root = os.path.join(base, f"sweep_{k:03d}")
+            got, _, slog = run_lifecycle(root, ssteps, "cuda",
+                                         background=False,
+                                         crash=CrashInjector(k), encoder=enc)
+            need(len(slog["recoveries"]) == 1,
+                 f"sweep: kill point {k} never fired")
+            need(got.state_digest() == want, f"sweep: state diverged after "
+                 f"a crash at event {k} ({sprobe.trace[k - 1]})")
+            got.close()
+            shutil.rmtree(root)
+        print(f"durable: crash sweep at {SWEEP_SESSIONS} sessions: "
+              f"{sprobe.events} kill points, every recovery at the "
+              f"uninterrupted digest ({time.perf_counter() - t0:.2f} s)",
+              flush=True)
+
+        # 7. the same lifecycle on the CPU, cooperatively ------------------
+        cpu_steps = lifecycle_steps(wl, merge_source(seed, 64, "cpu"),
+                                    DURABLE_BATCH, DURABLE_DELETES)
+        t0 = time.perf_counter()
+        cpu, _, _ = run_lifecycle(os.path.join(base, "cpu"), cpu_steps,
+                                  "cpu", background=False)
+        cpu_answers = memory_answers(cpu, wl.queries)
+        cpu_s = time.perf_counter() - t0
+        need(cpu.forest.applied_ops == store.forest.applied_ops,
+             "applied keys differ between the card and the CPU")
+        print(f"durable: cpu run {cpu_s:.3f} s matches: "
+              + compare_systems(store.system, cpu.system, answers,
+                                cpu_answers), flush=True)
+
+        # 8. snapshots across devices --------------------------------------
+        card_snap = os.path.join(base, "card.mfz")
+        store.system.save(card_snap)
+        on_cpu = MemForestSystem.load(card_snap, device="cpu")
+        need(on_cpu.state_digest() == digest, "the card's snapshot loads on "
+             "the CPU with another digest")
+        need(memory_answers(on_cpu, wl.queries) == answers,
+             "the card's snapshot answers otherwise on the CPU")
+        cpu_snap = os.path.join(base, "cpu.mfz")
+        cpu.system.save(cpu_snap)
+        on_card = MemForestSystem.load(cpu_snap, device="cuda")
+        need(on_card.state_digest() == cpu.state_digest(), "the CPU's "
+             "snapshot loads on the card with another digest")
+        need(memory_answers(on_card, wl.queries) == cpu_answers,
+             "the CPU's snapshot answers otherwise on the card")
+        cpu.close()
+        print("durable: the card's snapshot on the CPU and the CPU's on the "
+              "card: digests equal, answers equal in "
+              f"{len(MODES)} modes", flush=True)
+        return counts
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def flushed_in_ingest_drains(sink) -> int:
+    """``forest.flush`` spans inside an ``engine.drain.ingest`` span."""
+    recs = {r["span"]: r for r in sink.spans()}
+    hits = 0
+    for r in recs.values():
+        if r["name"] != "forest.flush":
+            continue
+        p = r["parent"]
+        while p is not None and recs[p]["name"] != "engine.drain.ingest":
+            p = recs[p]["parent"]
+        hits += p is not None
+    return hits
+
+
+def run_maintenance_lane(torch, wl, rwkv6_run):
+    """Phase 11: the rwkv6 phase's traffic through an engine whose memory
+    has a MaintenancePlane drained two units a step, on the rwkv6 phase's
+    weights; its tokens, digest and answers against the rwkv6 phase's."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.obs import MemorySink, Observability, Tracer
+
+    params, ref_tokens, ref_memory = rwkv6_run
+    cfg = get_config(SSM_ARCHS["rwkv6"][0])
+    sink = MemorySink()
+    obs = Observability(tracer=Tracer(sink=sink, enabled=True))
+    engine, tok = build_hashing_engine(cfg, params, "cuda", obs,
+                                       maintenance_budget=2)
+    prompts = ssm_prompts(wl, tok, DECODE_PROMPTS)
+    kernels.reset_counts()
+    ingest_s, query_s, results = serve_traffic(
+        torch, engine, prompts, wl.sessions, wl.queries, NEW_TOKENS)
+    counts = read_counts(REPLACES)
+
+    m = engine.metrics()
+    totals = span_totals(sink)
+    decode_s = totals.get("engine.decode", 0.0)
+    inline = flushed_in_ingest_drains(sink)
+    print(f"maintenance_lane: card {card_line()}")
+    print(f"maintenance_lane: model={cfg.name} layers={cfg.num_layers} "
+          f"dtype={cfg.dtype} sessions={len(wl.sessions)} round1_s="
+          f"{ingest_s:.4f} sessions_per_s={len(wl.sessions) / ingest_s:.2f} "
+          f"queries_served={m['queries_served']} round2_s={query_s:.4f} "
+          f"decoded_tokens={m['decoded_tokens']} decode_span_s="
+          f"{decode_s:.4f} decoded_tokens_per_s="
+          f"{m['decoded_tokens'] / decode_s:.1f} (decode spans) "
+          f"{m['decoded_tokens'] / (ingest_s + query_s):.1f} (wall) "
+          "(one run)")
+    print("maintenance_lane: metrics " + json.dumps(m, sort_keys=True))
+    print("maintenance_lane: span_s " + " ".join(
+        f"{k}={v:.4f}" for k, v in sorted(totals.items())), flush=True)
+    print("maintenance_lane: launches " + " ".join(
+        f"{k}={n} plain={p}" for k, (n, p) in counts.items()))
+    need(inline == 0, f"{inline} ingest drains flushed inline")
+    need(m["maintenance_turns"] > 0, "the maintenance lane never ran")
+    for k, (n, p) in counts.items():
+        need(p == 0, f"{k} ran its plain version {p} times on CUDA")
+    for k in SLICE_KERNELS:
+        need(counts[k][0] > 0, f"{k} never launched on the lane's path")
+    need(counts["rwkv6_scan"][0] >= cfg.num_layers, "rwkv6_scan launched "
+         f"{counts['rwkv6_scan'][0]} times, fewer than the layers of one "
+         "prefill")
+    need(len(results) == len(wl.queries)
+         and all(r is not None for r in results), "a query went unanswered")
+    need(engine_tokens(engine) == ref_tokens,
+         "the decoded tokens differ from the rwkv6 phase's")
+    engine.maintenance.drain()
+    mem = engine.memory
+    need(mem.state_digest() == ref_memory.state_digest(),
+         "the memory's digest differs from the rwkv6 phase's")
+    need(memory_answers(mem, wl.queries)
+         == memory_answers(ref_memory, wl.queries),
+         "the memory answers otherwise than the rwkv6 phase's")
+    same_structure("maintenance_lane", mem, ref_memory)
+    print(f"maintenance_lane: no ingest drain flushed; maintenance_turns="
+          f"{m['maintenance_turns']}; decoded tokens, digest and answers in "
+          f"{len(MODES)} modes equal to the rwkv6 phase's (no plane)")
+    del engine, mem
+
+    from torch.profiler import ProfilerActivity
+    engine, _ = build_hashing_engine(cfg, params, "cuda",
+                                     maintenance_budget=2)
+    profiled_repeat(torch, "maintenance_lane", lambda: serve_traffic(
+        torch, engine, prompts, wl.sessions, wl.queries, NEW_TOKENS),
+        ingest_s + query_s, [ProfilerActivity.CUDA])
+    del engine
+    return counts
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def device_busy(prof):
     """(device busy seconds, the eight largest device items in us)."""
     by_name = {}
@@ -1504,10 +2017,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. device -------------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    smi_line = smi.stdout.strip().splitlines()[0]
+    smi_line = card_line()
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     peaks = peaks_for(name)
@@ -1543,7 +2053,7 @@ def main() -> int:
 
     kernels.reset_counts()
     mf, answers, ingest_s, query_s = run_slice(torch, wl, "cuda", obs)
-    counts = read_counts(SLICE_KERNELS)
+    counts = read_counts(REPLACES)
 
     turns = sum(len(s.turns) for s in wl.sessions)
     print(f"slice: sessions={len(wl.sessions)} turns={turns} "
@@ -1560,7 +2070,8 @@ def main() -> int:
     print("slice: launches " + " ".join(
         f"{k}={n} plain={p}" for k, (n, p) in counts.items()))
     for k, (n, p) in counts.items():
-        need(n > 0, f"{k} never launched on the main path")
+        need(n > 0 or k not in SLICE_KERNELS,
+             f"{k} never launched on the main path")
         need(p == 0, f"{k} ran its plain version {p} times on CUDA")
 
     check_level_upload(torch, mf, wl)
@@ -1595,20 +2106,35 @@ def main() -> int:
     # 7-8. the serve engine on zamba2-7b and rwkv6-1.6b ----------------------
     ssm_counts = {}
     for phase in SSM_ARCHS:
-        ssm_counts[phase] = run_ssm_serve(torch, wl, args.seed, phase)
+        if phase == "rwkv6":
+            ssm_counts[phase], rwkv6_run = run_ssm_serve(
+                torch, wl, args.seed, phase, keep=True)
+        else:
+            ssm_counts[phase] = run_ssm_serve(torch, wl, args.seed, phase)
         stamp(phase)
 
     # 9. both on the card and on the CPU --------------------------------------
     run_ssm_parity(torch, args.seed)
     stamp("ssm_parity")
 
-    # 10. kernels -----------------------------------------------------------
+    # 10. durability and maintenance of the memory on the card ---------------
+    durable_counts = run_durable(torch, wl, args.seed)
+    stamp("durable")
+
+    # 11. the engine's maintenance lane on rwkv6-1.6b -------------------------
+    lane_counts = run_maintenance_lane(torch, wl, rwkv6_run)
+    del rwkv6_run
+    torch.cuda.empty_cache()
+    stamp("maintenance_lane")
+
+    # 12. kernels -----------------------------------------------------------
     summary = []
     for k in REPLACES:
         r = results[k]
-        by_path = {"slice": counts[k][0] if k in counts else 0,
-                   "serve": serve_counts[k][0] if k in serve_counts else 0,
-                   **{phase: c[k][0] for phase, c in ssm_counts.items()}}
+        by_path = {"slice": counts[k][0], "serve": serve_counts[k][0],
+                   **{phase: c[k][0] for phase, c in ssm_counts.items()},
+                   "durable": durable_counts[k][0],
+                   "maintenance_lane": lane_counts[k][0]}
         print(f"kernels: {k} launches={sum(by_path.values())} ("
               + ", ".join(f"{p} {n}" for p, n in by_path.items())
               + f") check=ok main_shape={r['shape']}")

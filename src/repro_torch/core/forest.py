@@ -53,6 +53,11 @@ class Forest:
         # placement: ("fact"|"cell", item_id) -> [(scope_key, node_id)]
         self.placement: Dict[Tuple[str, int], List[Tuple[str, int]]] = {}
         self.session_registry: Dict[str, Dict[str, List[int]]] = {}
+        # exactly-once bookkeeping: idempotency keys of applied lifecycle
+        # ops (journaled ingest/delete/merge/compaction). Persisted in
+        # snapshots, so a snapshot + journal-tail replay never double-applies
+        # an op.
+        self.applied_ops: Set[str] = set()
         # scene clustering state
         self.scene_centroids = np.zeros((0, config.embed_dim), np.float32)
         self.scene_counts: List[int] = []
@@ -127,6 +132,12 @@ class Forest:
         self.session_registry.setdefault(sid, {"facts": [], "cells": []})["facts"].append(fact.fact_id)
         return fact.fact_id
 
+    def kill_fact(self, fact_id: int) -> None:
+        """Mark a fact dead and inert its index row (host + device)."""
+        self.fact_alive[fact_id] = False
+        self.fact_emb[fact_id] = 0.0
+        self._fact_dev_dirty.add(fact_id)
+
     def add_cell(self, cell: DialogueCell) -> int:
         cell.cell_id = len(self.cells)
         self.cells.append(cell)
@@ -142,15 +153,37 @@ class Forest:
         self._arena_dirty.setdefault(tree.tree_id, set()).add(leaf)
         return leaf
 
+    def replace_tree(self, scope_key: str, tree: TreeArena) -> None:
+        """Put ``tree`` under ``scope_key`` in place of the tree there, with
+        the same ``tree_id`` (compaction, a verbatim copy into an emptied
+        tree). Its node ids are not the old tree's, so the node arena forgets
+        what the old tree's rows hold and ``node_arena()`` writes every node
+        of the new tree again: node id i takes the row that the old tree's node i
+        had, and the ids past the old tree's count take fresh rows. The old
+        tree's rows past the new tree's count stay reserved for the tree's
+        growth, so replacing a tree again and again (compaction under churn)
+        keeps the arena at the most nodes the tree has ever had."""
+        self.trees[scope_key] = tree
+        tid = tree.tree_id
+        self._arena_synced.pop(tid, None)
+        self._arena_dirty.pop(tid, None)
+
     # ------------------------------------------------------------------
     # lazy refresh (Algorithm 1) — level-parallel, batched across trees
     # ------------------------------------------------------------------
-    def flush(self) -> Dict[str, int]:
+    def flush(self, *, only: Optional[Set[str]] = None) -> Dict[str, int]:
         """Refresh all dirty derived artifacts. Returns counters for this
         flush: {"refreshes": distinct dirty nodes, "levels": dependent depth,
-        "kernel_calls": batched refresh invocations}."""
+        "kernel_calls": batched refresh invocations}.
+
+        ``only`` restricts the flush to a subset of the dirty trees — the
+        maintenance plane uses this to drain refresh work in bounded chunks
+        between serve steps. Because dirty paths never cross trees, flushing
+        the dirty set in any chunking yields the same final derived state as
+        one full flush."""
         self.flush_calls += 1
-        targets = set(self.dirty_trees)
+        targets = set(self.dirty_trees) if only is None else \
+            self.dirty_trees & set(only)
         with self.obs.span("forest.flush", trees=len(targets)) as sp:
             out = self._flush(targets)
             sp.set(refreshes=out["refreshes"], levels=out["levels"],
@@ -223,6 +256,12 @@ class Forest:
                 self._arena_dirty.setdefault(tree.tree_id, set()).add(n)
         return 1
 
+    def set_root_row(self, tree: TreeArena) -> None:
+        """Write a tree's root-index row (host + device invalidation) — the
+        one sanctioned way to edit ``_root_matrix`` outside flush()."""
+        self._root_matrix[tree.tree_id] = tree.root_emb()
+        self._root_dev_dirty.add(tree.tree_id)
+
     # ------------------------------------------------------------------
     # residency: device-cache detach + footprint
     # ------------------------------------------------------------------
@@ -233,6 +272,18 @@ class Forest:
         return sum(t.numel() * t.element_size()
                    for t in (self._fact_dev, self._root_dev, self._arena)
                    if t is not None)
+
+    def estimated_device_bytes(self) -> int:
+        """What the device caches would hold once materialized from host
+        state: the capacity-padded fact and root indexes and a freshly
+        synced node arena (one row per node of every tree, at least 256), in
+        float32. After ``detach_device`` and one query it equals
+        ``device_bytes``; before that, the arena may also hold rows of trees
+        that ``replace_tree`` keeps for a shrunk tree's growth."""
+        arena_rows = max(sum(t._n for t in self.trees.values()), 256)
+        return 4 * self.config.embed_dim * (
+            int(self.fact_emb.shape[0]) + int(self._root_matrix.shape[0])
+            + arena_rows)
 
     def detach_device(self) -> int:
         """Release the device index caches and the node arena and return the
@@ -331,7 +382,8 @@ class Forest:
         """(device node arena (rows_cap, D) float32, {tree_id: arena row of
         each node id}) with every node of every tree at its host value.
 
-        Nodes past a tree's synced count get fresh rows, contiguous per tree,
+        Nodes past a tree's synced count take the rows that a replaced tree
+        left to its id (``replace_tree``), then fresh rows, contiguous per tree,
         copied block by block straight from ``tree.emb`` (concatenating
         them on the host first costs more than the copies save); rows the
         host rewrote since the last sync
@@ -361,11 +413,17 @@ class Forest:
             if old:
                 idx.append(rmap[old])
                 upd.append(tree.emb[old])
-            if n > synced:
-                blocks.append((self._arena_used, tree.emb[synced:n]))
-                rmap[synced:n] = np.arange(self._arena_used,
-                                           self._arena_used + n - synced)
-                self._arena_used += n - synced
+            # rows a replaced tree left to this tree id come first, in one
+            # scatter; they are a prefix of the ids past ``synced``
+            kept = synced + int((rmap[synced:n] >= 0).sum())
+            if kept > synced:
+                idx.append(rmap[synced:kept])
+                upd.append(tree.emb[synced:kept])
+            if n > kept:
+                blocks.append((self._arena_used, tree.emb[kept:n]))
+                rmap[kept:n] = np.arange(self._arena_used,
+                                         self._arena_used + n - kept)
+                self._arena_used += n - kept
             self._arena_synced[tid] = n
         if self._arena is None or self._arena.shape[0] < self._arena_used:
             cap = 0 if self._arena is None else self._arena.shape[0]

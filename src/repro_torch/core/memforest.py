@@ -5,6 +5,9 @@
                                          # -> route -> materialize -> flush
     mf.query_batch(queries)              # read path: forest recall -> tree
                                          # browse -> rerank -> answer
+    mf.merge_from(other)                 # migration merge (no session replay)
+    mf.delete_session(sid)               # targeted deletion, dirty-path refresh
+    mf.save(path); MemForestSystem.load(path, device=...)
 
 ``device`` takes the place of the JAX package's ``kernel_impl``: on a CUDA
 device the main path runs the hand-written kernels, on ``"cpu"`` their plain
@@ -17,7 +20,7 @@ import time
 from typing import Dict, List, Optional
 
 from repro_torch.config import MemForestConfig
-from repro_torch.core import canonical, extraction, routing
+from repro_torch.core import canonical, extraction, maintenance, routing
 from repro_torch.core.encoder import HashingEncoder
 from repro_torch.core.forest import Forest
 from repro_torch.core.ingest import IngestBatcher
@@ -93,7 +96,9 @@ class MemForestSystem:
         ingest_session on each session in order.
 
         ``defer_flush=True`` skips the flush and leaves the dirty trees for
-        the next reader."""
+        the maintenance plane (core/maintenance_plane.py) or the next
+        reader — the serve engine uses this so ingest drains never block on
+        refresh kernels."""
         stats = self.batcher.ingest(
             sessions,
             flush=not (defer_flush or self.config.read_triggered_refresh))
@@ -160,3 +165,60 @@ class MemForestSystem:
         """Release the device index caches; the next query transparently
         re-uploads. Returns bytes freed."""
         return self.forest.detach_device()
+
+    def state_digest(self) -> str:
+        """Content hash of persistent state (persistence.forest_state_digest)
+        — the state-identity relation recovery tests compare against. The
+        fact and cell embeddings are part of it: a digest taken on the card
+        compares with another taken on the card (the CPU's encoder agrees
+        within 1e-6, not bitwise)."""
+        from repro_torch.core import persistence
+        return persistence.forest_state_digest(self.forest)
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+    def merge_from(self, other: "MemForestSystem", *,
+                   idempotency_key: Optional[str] = None) -> Dict[str, int]:
+        # in-memory facade: DurableMemForest overrides this with the
+        # journaled op; callers holding a durable handle never reach here
+        # memlint: ignore[journaled-mutation]
+        return maintenance.migrate_merge(self.forest, other.forest,
+                                         idempotency_key=idempotency_key)
+
+    def delete_session(self, session_id: str) -> Dict[str, int]:
+        # in-memory facade: journaled counterpart lives on DurableMemForest
+        # memlint: ignore[journaled-mutation]
+        return maintenance.delete_session(self.forest, session_id)
+
+    # ------------------------------------------------------------------
+    # durability
+    # ------------------------------------------------------------------
+    def save(self, path: str, *, with_derived: bool = True) -> str:
+        from repro_torch.core import persistence
+        return persistence.save_forest(self.forest, path,
+                                       with_derived=with_derived)
+
+    @classmethod
+    def load(cls, path: str, config=None, encoder=None, *,
+             rematerialize_derived: bool = False,
+             device=None) -> "MemForestSystem":
+        """A system on ``device`` (None: the CUDA card) from a snapshot
+        written by either package."""
+        from repro_torch.core import persistence
+        dev = resolve_device(device)
+        forest = persistence.load_forest(
+            path, config, rematerialize_derived=rematerialize_derived,
+            device=dev)
+        sys_ = cls(forest.config, encoder, device=dev)
+        sys_.adopt(forest)
+        return sys_
+
+    def adopt(self, forest: Forest) -> None:
+        """Serve ``forest`` (restored from a document with this system's
+        config) in place of this system's own; it reports to this system's
+        registry."""
+        forest.obs = self.obs
+        self.forest = forest
+        self.retriever.forest = forest
+        self.batcher.forest = forest

@@ -18,10 +18,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,20 +59,33 @@ SIGNATURES: Dict[str, Tuple] = {
 
 
 class LaunchCount:
-    """Calls of one kernel wrapper: ``launches`` counts CUDA kernel launches,
-    ``plain_calls`` counts calls served by the plain PyTorch version (CPU
-    tensors only)."""
+    """Calls of one kernel wrapper: ``launches`` counts CUDA kernel launches
+    (``by_thread`` splits them by the launching thread's name: the
+    maintenance plane's worker launches ``tree_refresh`` beside the serve
+    thread), ``plain_calls`` counts calls served by the plain PyTorch
+    version (CPU tensors only)."""
 
-    __slots__ = ("name", "launches", "plain_calls")
+    __slots__ = ("name", "launches", "by_thread", "plain_calls", "_lock")
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        self.by_thread: Dict[str, int] = {}
         self.plain_calls = 0
+        self._lock = threading.Lock()
+
+    def launched(self) -> None:
+        """Count one launch of the kernel, from the calling thread."""
+        thread = threading.current_thread().name
+        with self._lock:
+            self.launches += 1
+            self.by_thread[thread] = self.by_thread.get(thread, 0) + 1
 
     def reset(self) -> None:
-        self.launches = 0
-        self.plain_calls = 0
+        with self._lock:
+            self.launches = 0
+            self.by_thread = {}
+            self.plain_calls = 0
 
 
 @dataclass
@@ -128,10 +142,24 @@ def _compile(outs: Dict[str, Path]) -> str:
     return "\n".join(reports)
 
 
-@functools.lru_cache(maxsize=1)
+_LIBRARY: Optional[KernelLibrary] = None
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> KernelLibrary:
     """The loaded kernel libraries, built first where no up-to-date one
-    exists."""
+    exists. Thread-safe: the first caller builds and loads them, a caller
+    that arrives meanwhile (the maintenance plane's worker beside the serve
+    thread) waits for that one build."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        with _LIBRARY_LOCK:
+            if _LIBRARY is None:
+                _LIBRARY = _load()
+    return _LIBRARY
+
+
+def _load() -> KernelLibrary:
     tag = source_hash()
     outs = {name: BUILD_DIR / f"lib{Path(name).stem}_{tag}.so"
             for name in SOURCES}

@@ -43,7 +43,7 @@ def _launch(dev, arena, rows, q, lane_of, mask, F, K, D, R, L):
         _build.launch("browse_scores", "memforest_browse_scores", dev,
                       arena.data_ptr(), ptr(rows), q.data_ptr(), ptr(lane_of),
                       mask.data_ptr(), out.data_ptr(), F, K, D, R, L, plan(D))
-        COUNT.launches += 1
+        COUNT.launched()
     return out
 
 

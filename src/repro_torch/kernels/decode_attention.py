@@ -98,5 +98,5 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                   None if counters is None else counters.data_ptr(),
                   n_part, n_counters, B, Smax, Hq, Hkv, Dk, D, chunk, splits,
                   int(q.dtype == torch.bfloat16))
-    COUNT.launches += 1
+    COUNT.launched()
     return out if Dk == D else out[..., :D].contiguous()

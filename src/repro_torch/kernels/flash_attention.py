@@ -46,5 +46,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.launch("flash_attention", "memforest_flash_attention", dev,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   B, S, Hq, k.shape[2], q.shape[3], D, int(causal), int(bf16))
-    COUNT.launches += 1
+    COUNT.launched()
     return out if out.shape[3] == D else out[..., :D].contiguous()

@@ -71,7 +71,7 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   C.data_ptr(), state.data_ptr(), y.data_ptr(),
                   s_out.data_ptr(), B, T, H, x.shape[-1], Bm.shape[-1], chunk,
                   int(bf16), width)
-    COUNT.launches += 1
+    COUNT.launched()
     if y.shape[-1] != P or s_out.shape[-1] != N:
         y, s_out = y[..., :P].contiguous(), s_out[..., :P, :N].contiguous()
     return y, s_out

@@ -72,7 +72,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   u.data_ptr(), state.data_ptr(), o.data_ptr(),
                   s_out.data_ptr(), B, T, H, r.shape[-1], v.shape[-1], chunk,
                   int(bf16), width)
-    COUNT.launches += 1
+    COUNT.launched()
     if o.shape[-1] != V or s_out.shape[-2] != K:
         o, s_out = o[..., :V].contiguous(), s_out[..., :K, :V].contiguous()
     return o, s_out

@@ -101,5 +101,5 @@ def topk_sim(queries: torch.Tensor, keys: torch.Tensor, k: int, *,
                   ptr(cand_i), ptr(counters), n_counters, vals.data_ptr(),
                   idx.data_ptr(), Q, N, D, nv, k, per_split, splits, cluster,
                   slice_, int(split_k))
-    COUNT.launches += 1
+    COUNT.launched()
     return vals, idx

@@ -55,5 +55,5 @@ def tree_refresh(child_emb: torch.Tensor,
     _build.launch("tree_refresh", "memforest_tree_refresh", dev,
                   child_emb.data_ptr(), child_mask.data_ptr(), out.data_ptr(),
                   P, K, Dp, cluster, slice_)
-    COUNT.launches += 1
+    COUNT.launched()
     return out if Dp == D else out[:, :D].contiguous()

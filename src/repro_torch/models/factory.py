@@ -9,7 +9,7 @@
 Counterpart of the JAX package's ``models/factory.py``. The dense, ``ssm``
 (rwkv6) and ``hybrid`` (zamba2) families run; training (``loss``) and the
 shape-only ``cache_specs`` of the dry-run tooling are not ported yet
-(ROADMAP.md, queue 1 items 1 and 9). Every other family raises
+(ROADMAP.md, queue 1, item 7). Every other family raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
@@ -22,9 +22,9 @@ from repro_torch.models import rwkv6, transformer, zamba2
 
 # family -> the ROADMAP.md queue-1 item that ports it
 _NOT_PORTED = {
-    "moe": "queue 1, item 1 (the MoE block of models/layers.py)",
-    "vlm": "queue 1, item 1 (the VLM patch-embedding stub)",
-    "encdec": "queue 1, item 1 (whisper and cross-attention)",
+    "moe": "queue 1, item 6 (the MoE block of models/layers.py)",
+    "vlm": "queue 1, item 6 (the VLM patch-embedding stub)",
+    "encdec": "queue 1, item 6 (whisper and cross-attention)",
 }
 
 

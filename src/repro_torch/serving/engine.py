@@ -12,8 +12,16 @@ decode steps as ONE ``ingest_batch`` per engine iteration. Query lane:
 retrieval requests queued with ``submit_query`` drain as ONE ``query_batch``
 per iteration. Decode, ingest and query traffic share the loop.
 
-Not ported yet (ROADMAP.md): the maintenance and residency lanes, the
-multi-device ``sharded`` serve path and the ``tenant=`` routing.
+Maintenance lane: when built with a ``maintenance`` plane
+(core/maintenance_plane.py), ingest drains stop flushing inline
+(``defer_flush=True``) and the engine instead runs ``maintenance_budget``
+units of maintenance work — summary refresh, compaction, queued merges — per
+step. Every access of the ingest and query lanes to the memory holds the
+plane's lock (``_memory_lock``): the plane's background thread, when
+started, writes the forest and its device caches in place.
+
+Not ported yet (ROADMAP.md): the residency lane and ``tenant=`` routing
+(queue 1, item 3) and the multi-device ``sharded`` serve path (item 5).
 
 KV cache and prefill reuse. The model writes each decode step's K/V rows
 (and, for rwkv6 and zamba2, its recurrent state) into the live cache IN
@@ -26,10 +34,12 @@ entry and a later prefix hit replays the prefill as it was computed.
 Observability: the same ``serve/*`` counters and histograms as the JAX
 engine, and the same spans (``engine.step``, ``engine.admit``,
 ``engine.prefill``, ``engine.decode``, ``engine.drain.ingest``,
-``engine.drain.query``) through ``repro_torch.obs``.
+``engine.drain.query``, ``engine.drain.maintenance``) through
+``repro_torch.obs``.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -87,6 +97,7 @@ class ServeEngine:
                  max_len: int = 512, eos_id: int = 2,
                  memory=None, max_ingest_batch: int = 16,
                  max_query_batch: int = 32,
+                 maintenance=None, maintenance_budget: int = 1,
                  obs: Optional[Observability] = None):
         self.model = model
         self.params = params
@@ -112,6 +123,7 @@ class ServeEngine:
         self._m_ingest_sessions = reg.counter("serve/ingest_sessions")
         self._m_query_batches = reg.counter("serve/query_batches")
         self._m_queries_served = reg.counter("serve/queries_served")
+        self._m_maintenance_turns = reg.counter("serve/maintenance_turns")
         self._h_ingest_wait = reg.histogram("serve/ingest_wait_s")
         self._h_query_wait = reg.histogram("serve/query_wait_s")
         self._h_decode_request = reg.histogram("serve/decode_request_s")
@@ -121,6 +133,11 @@ class ServeEngine:
         self.max_query_batch = max_query_batch
         self.query_queue: List = []
         self.query_results: Dict[int, object] = {}
+        # maintenance lane: with a plane attached, ingest drains defer their
+        # flush and the engine drains `maintenance_budget` units of refresh/
+        # compaction/merge work per step instead
+        self.maintenance = maintenance
+        self.maintenance_budget = maintenance_budget
 
     # ------------------------------------------------------------------
     # registry-backed counters (attribute access)
@@ -161,6 +178,10 @@ class ServeEngine:
     def queries_served(self) -> int:
         return self._m_queries_served.value
 
+    @property
+    def maintenance_turns(self) -> int:
+        return self._m_maintenance_turns.value
+
     # ------------------------------------------------------------------
     def submit(self, prompt_tokens: List[int], max_new_tokens: int = 8,
                prefix_key: Optional[str] = None) -> int:
@@ -176,15 +197,29 @@ class ServeEngine:
             raise RuntimeError("ServeEngine was built without a memory system")
         self.ingest_queue.append((session, time.perf_counter()))
 
+    def _memory_lock(self):
+        """Forest-access guard: the maintenance plane's lock when one is
+        attached (its background worker may be writing the forest), a no-op
+        otherwise."""
+        if self.maintenance is not None:
+            return self.maintenance.lock
+        return contextlib.nullcontext()
+
     def _drain_ingest(self) -> int:
         """One ingest-lane turn: everything queued (capped) goes through a
-        single ``ingest_batch``. Returns sessions ingested."""
+        single ``ingest_batch``; with a maintenance plane attached its flush
+        is deferred to the plane. Returns sessions ingested."""
         if not self.ingest_queue:
             return 0
         batch = self.ingest_queue[: self.max_ingest_batch]
         del self.ingest_queue[: len(batch)]
         with self.obs.span("engine.drain.ingest", sessions=len(batch)):
-            self.memory.ingest_batch([s for s, _t in batch])
+            sessions = [s for s, _t in batch]
+            with self._memory_lock():
+                if self.maintenance is not None:
+                    self.memory.ingest_batch(sessions, defer_flush=True)
+                else:
+                    self.memory.ingest_batch(sessions)
             self._m_ingest_batches.inc()
         now = time.perf_counter()
         for _session, t in batch:
@@ -221,8 +256,9 @@ class ServeEngine:
             for rid, q, mode, topk, _t in batch:
                 groups.setdefault((mode, topk), []).append((rid, q))
             for (mode, topk), items in groups.items():
-                res = self.memory.query_batch([q for _, q in items],
-                                              mode=mode, final_topk=topk)
+                with self._memory_lock():
+                    res = self.memory.query_batch([q for _, q in items],
+                                                  mode=mode, final_topk=topk)
                 for (rid, _q), r in zip(items, res):
                     self.query_results[rid] = r
                 self._m_query_batches.inc()
@@ -308,8 +344,9 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def step(self) -> int:
         """One engine iteration: admit + one decode step for all active,
-        then one ingest-lane and one query-lane drain. Returns the number
-        of finished decode requests. Every phase runs under its own span."""
+        then one ingest-lane, one query-lane and one maintenance-lane drain.
+        Returns the number of finished decode requests. Every phase runs
+        under its own span."""
         with self.obs.span("engine.step"):
             with self.obs.span("engine.admit"):
                 self._admit()
@@ -317,6 +354,7 @@ class ServeEngine:
             if not act:
                 self._drain_ingest()
                 self._drain_queries()
+                self._drain_maintenance()
                 return 0
             self._m_occupancy.inc(len(act) / self.max_batch)
             self._m_steps.inc()
@@ -347,7 +385,22 @@ class ServeEngine:
                     finished += 1
             self._drain_ingest()
             self._drain_queries()
+            self._drain_maintenance()
             return finished
+
+    def _drain_maintenance(self) -> int:
+        """One maintenance-lane turn: a bounded slice of refresh/compaction/
+        merge work (no-op when no plane is attached, or when its budget is
+        0 because the plane runs its own background thread)."""
+        if self.maintenance is None or self.maintenance_budget <= 0:
+            return 0
+        if self.maintenance.pending() == 0:
+            return 0
+        with self.obs.span("engine.drain.maintenance"):
+            done = self.maintenance.run_some(self.maintenance_budget)["units"]
+        if done:
+            self._m_maintenance_turns.inc()
+        return done
 
     # ------------------------------------------------------------------
     def run_until_drained(self, max_steps: int = 10000) -> List[Request]:
@@ -355,7 +408,11 @@ class ServeEngine:
             if not self.queue and not self.ingest_queue \
                     and not self.query_queue \
                     and all(a is None for a in self.active):
-                break
+                # cooperative maintenance keeps stepping until its backlog
+                # (deferred flushes, compactions, merges) is drained too
+                if self.maintenance is None or self.maintenance_budget <= 0 \
+                        or self.maintenance.pending() == 0:
+                    break
             self.step()
         return self.finished
 
@@ -384,6 +441,8 @@ class ServeEngine:
             "ingest_wait_p99_s": self._h_ingest_wait.quantile(0.99),
             "query_wait_p50_s": self._h_query_wait.quantile(0.5),
             "query_wait_p99_s": self._h_query_wait.quantile(0.99),
+            "maintenance_turns": self._m_maintenance_turns.value,
+            **(self.maintenance.metrics() if self.maintenance is not None else {}),
         }
 
     def latency_summary(self) -> Dict[str, Dict[str, float]]:

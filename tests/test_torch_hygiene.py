@@ -1,5 +1,6 @@
 """Package boundary of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and nothing hides a missing card."""
+neither JAX nor the JAX package nor msgpack (the port has its own codec), and
+nothing hides a missing card."""
 import ast
 import os
 import subprocess
@@ -25,7 +26,7 @@ def _port_files():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "msgpack")
 
 
 def test_import_leaves_jax_and_repro_out():
@@ -34,9 +35,14 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.serving.engine, repro_torch.models, "
             "repro_torch.configs.llama3_8b, repro_torch.data.tokenizer, "
             "repro_torch.models.zamba2, repro_torch.models.rwkv6, "
-            "repro_torch.configs.zamba2_7b, repro_torch.configs.rwkv6_1b6; "
+            "repro_torch.configs.zamba2_7b, repro_torch.configs.rwkv6_1b6, "
+            "repro_torch.core.journal, repro_torch.core.maintenance_plane, "
+            "repro_torch.core.persistence, repro_torch.core.codec, "
+            "repro_torch.compression, repro_torch.runtime.checkpoint, "
+            "repro_torch.runtime.fault_tolerance; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
+            "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); "
+            "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

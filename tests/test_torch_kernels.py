@@ -287,3 +287,83 @@ def test_release_rows():
     assert ops.release_rows(None) is None
     kept = ops.release_rows(arr, keep=2)
     assert torch.equal(kept, arr[:2]) and kept.data_ptr() != arr.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# the kernels' first build, from several threads
+# ---------------------------------------------------------------------------
+def test_first_build_runs_once_across_threads(monkeypatch, tmp_path):
+    """The maintenance plane's worker and the serve thread can reach the
+    first kernel launch together: ``_build.library()`` compiles and loads
+    the libraries once, and every caller gets that one library."""
+    import ctypes
+    import threading
+    import time
+    import types
+
+    from repro_torch.kernels import _build
+
+    compiles = []
+
+    def fake_compile(outs):
+        compiles.append(sorted(outs))
+        time.sleep(0.05)              # a build takes a while: callers pile up
+        return "ptxas report"
+
+    class FakeLib:
+        def __getattr__(self, name):
+            return types.SimpleNamespace()     # takes argtypes and restype
+
+    monkeypatch.setattr(_build, "_LIBRARY", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_compile", fake_compile)
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: FakeLib())
+    start = threading.Barrier(8)
+    got = []
+
+    def first_launch():
+        start.wait(timeout=10)
+        got.append(_build.library())
+
+    threads = [threading.Thread(target=first_launch) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert len(compiles) == 1 and compiles[0] == sorted(_build.SOURCES)
+    assert len(got) == 8 and all(lib is got[0] for lib in got)
+    assert set(got[0].entries) == set(_build.SIGNATURES)
+    assert _build.library() is got[0]
+
+
+def test_launch_counts_split_by_thread_under_contention():
+    """``LaunchCount.launched`` counts every launch once, under the calling
+    thread's name, when the serve thread and the maintenance plane's
+    worker launch at once (a short switch interval interleaves them)."""
+    import sys
+    import threading
+
+    from repro_torch.core.maintenance_plane import WORKER_NAME
+    from repro_torch.kernels._build import LaunchCount
+
+    count = LaunchCount("probe")
+    n = 20000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [count.launched()
+                                                    for _ in range(n)],
+                                    name=name)
+                   for name in (WORKER_NAME, "serve", "serve-2")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert count.launches == 3 * n
+    assert count.by_thread == {WORKER_NAME: n, "serve": n, "serve-2": n}
+    count.reset()
+    assert (count.launches, count.by_thread, count.plain_calls) == (0, {}, 0)
