@@ -14,8 +14,9 @@ Phases, each printed on its own line; any failed check exits nonzero:
               the bound's time in ms; two ``decode_attention`` calls must give
               equal bits, and one call must be one device launch, as must one
               bf16 call of ``mamba2_ssd`` and of ``rwkv6_scan``, one call of
-              ``tree_refresh`` and of ``topk_sim`` at their main shapes and
-              one call of each form of ``browse_scores``. ``browse_scores``'
+              ``tree_refresh`` and of ``topk_sim`` at their main shapes (the
+              baselines' one-query shape too) and one call of each form of
+              ``browse_scores``. ``browse_scores``'
               gather form is checked at the slice's and the serve phase's
               level shapes from a node arena, with padded slots exactly 0 and
               one node in four slots bitwise equal. The bf16 scan outputs are
@@ -90,7 +91,39 @@ Phases, each printed on its own line; any failed check exits nonzero:
               drain may flush; the lane must run; the decoded tokens, the
               memory's digest and its answers in the six modes must equal the
               rwkv6 phase's, which had no plane.
-  12. kernels one line per kernel, and the JSON summary of all of them.
+  12. baselines  MemForest and the paper's five baselines (``repro_torch.core.
+              baselines``) at the paper's defaults with the hashing encoder:
+              the 500 sessions one at a time through ``ingest_session``
+              (``benchmarks/bench_write_path.py``'s loop), then the 64
+              queries; per system sessions/s, encoder calls, sequential
+              calls, tokens, mean dependency depth, facts written, queries/s,
+              answers equal to gold and ``topk_sim`` launches. ``topk_sim``
+              must launch for every system and no plain version may run;
+              MemForest must answer at least as many as each baseline; the
+              same run on the CPU must give the same fact texts and ids,
+              write counts, answers and evidence. Then MemForest and EverMem
+              on a ModelEncoder over the serve phase's llama3-8b weights, on
+              16 sessions: ``flash_attention`` and ``topk_sim`` must launch,
+              no plain version may run; the construction ratio is printed.
+              (The serve phase's weights, drawn again from the same seed.)
+  13. residency  32 tenants at a hot budget of 4, each a 50-session history
+              ingested in journaled deliveries (fsync on), then a Zipf (s =
+              1.5) schedule of 256 queries in events of 4, digest threshold
+              0.45, through a ``ResidencyManager`` on the card and the same
+              calls on the CPU (given the card encoder's outputs): every tier
+              decision, answer, evidence and state digest equal. An explicit
+              demotion must lower ``torch.cuda.memory_allocated`` by the
+              tenant's ``device_bytes`` (within 512 bytes a tensor); a
+              rehydration and one query must upload that tenant's rows only;
+              a restarted manager holds every tenant cold with no device
+              bytes. Then the engine's residency lane on the rwkv6 phase's
+              weights, ``ServeEngine(residency=, residency_budget=1)``, with
+              the tenants' sessions and queries beside the rwkv6 phase's
+              decode traffic: at most 4 tenants hot after the drain, the lane
+              run, the decoded tokens equal to the rwkv6 phase's,
+              ``rwkv6_scan`` and the three forest kernels launched and no
+              plain version run.
+  14. kernels one line per kernel, and the JSON summary of all of them.
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a
 visible CUDA device, or without the rest of the repository beside it, the
@@ -134,6 +167,9 @@ SCAN_C = 512      # the bf16 scans' float32 error, in units of 2^-24 T
 # state (bf16_scan_excess)
 SCAN_SIGNED = {"mamba2_ssd": (0, 3, 4, 5), "rwkv6_scan": (0, 1, 2, 4, 5)}
 SLICE_KERNELS = ("tree_refresh", "topk_sim", "browse_scores")
+# (capacity, valid rows) of the largest baseline fact store at D = 256 (the
+# hashing encoder) and at D = 4096 (llama3-8b), seed 0
+BASELINE_TOPK = ((16384, 10210), (128, 86))
 SERVE_KERNELS = SLICE_KERNELS + ("flash_attention", "decode_attention")
 
 
@@ -444,14 +480,14 @@ def check_kernels(torch, peaks, seed: int):
 
     # -- topk_sim -----------------------------------------------------------
     def topk_case(Q, N, D, k, nv, *, main=False, plant=False, normalize=False,
-                  gen=g):
+                  gen=g, pairs=None):
         keys = ref.normalize_rows(torch.randn(N, D, generator=gen, device=dev))
         q = ref.normalize_rows(torch.randn(Q, D, generator=gen, device=dev))
         ties = []
         if plant:
             # exact ties: two equal key rows equal to a query, the pair in
             # one tile, in two splits, and one copy past num_valid
-            spots = [(0, 5, 6), (1, 17, N // 2 + 3), (2, 100, nv - 1)]
+            spots = pairs or [(0, 5, 6), (1, 17, N // 2 + 3), (2, 100, nv - 1)]
             for qi, a, b in spots[: min(Q, 3)]:
                 keys[a] = q[qi]
                 keys[b] = q[qi]
@@ -495,6 +531,7 @@ def check_kernels(torch, peaks, seed: int):
                lambda: ref.topk_sim_ref(qn, kn, k, normalize=normalize,
                                         num_valid=nv),
                (nv * D + Q * D) * 4 + Q * k * 8, 2 * Q * nv * D, main)
+        return qn, kn, k, nv
 
     topk_case(64, 256, 256, 16, 256)
     topk_case(64, 1024, 256, 24, 1024, main=True)
@@ -513,6 +550,18 @@ def check_kernels(torch, peaks, seed: int):
     topk_case(64, big, 256, 16, big - 1, plant=True)
     topk_case(1, big, 256, 32, big - 1, plant=True)
     topk_case(200, big, 256, 32, big - 1, plant=True)
+    # the baselines' fact stores: one query over a capacity-padded store
+    # (64 * 2^j rows), k = 10, at the largest (capacity, size) the baselines
+    # phase reaches on seed 0 (MemPalace's chunk store; on llama3-8b,
+    # EverMem's cell store),
+    # a planted pair of equal rows at the first and the last valid row
+    baseline_call = topk_case(1, BASELINE_TOPK[0][0], 256, 10,
+                              BASELINE_TOPK[0][1], main=True, plant=True,
+                              gen=g_new,
+                              pairs=[(0, 5, BASELINE_TOPK[0][1] - 1)])
+    topk_case(1, BASELINE_TOPK[1][0], 4096, 10, BASELINE_TOPK[1][1],
+              main=True, plant=True, gen=g_new,
+              pairs=[(0, 5, BASELINE_TOPK[1][1] - 1)])
 
     # -- flash_attention ----------------------------------------------------
     # bf16 rows: tests/test_kernels.py's bf16 criterion, |err| <= 2e-2 +
@@ -869,6 +918,14 @@ def check_kernels(torch, peaks, seed: int):
               f"({', '.join(n[:50] for n in names)})", flush=True)
         need(len(names) == 1 and "browse" in names[0],
              f"{what}: one call made {len(names)} device launches")
+    q, keys, k, nv = baseline_call
+    what = f"topk_sim baselines 1x{keys.shape[0]}x256 num_valid={nv}"
+    names = device_events(torch, lambda: topk_sim(q, keys, k, normalize=False,
+                                                  num_valid=nv))
+    print(f"check: {what} launches per call={len(names)} "
+          f"({', '.join(n[:50] for n in names)})", flush=True)
+    need(len(names) == 1 and "topk_sim" in names[0],
+         f"{what}: one call made {len(names)} device launches")
     return results
 
 
@@ -1966,6 +2023,548 @@ def run_maintenance_lane(torch, wl, rwkv6_run):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the paper's baselines beside MemForest
+# ---------------------------------------------------------------------------
+WRITE_SYSTEMS = ("memforest", "mem0", "memoryos", "evermem", "lightmem",
+                 "mempalace")
+MODEL_SYSTEMS = ("memforest", "evermem")
+MODEL_SESSIONS = 16       # the llama3-8b encoder's share of the sessions
+FACT_STORES = ("store", "cell_store", "recent_store")
+
+
+def write_path_system(name, encoder, device):
+    """MemForest at the paper's defaults (its width the encoder's), or one
+    of the five baselines, on ``device`` with ``encoder``."""
+    from repro_torch import MemForestConfig, MemForestSystem
+    from repro_torch.core.baselines import ALL_BASELINES
+    if name == "memforest":
+        return MemForestSystem(MemForestConfig(embed_dim=encoder.dim),
+                               encoder, device=device)
+    return ALL_BASELINES[name](encoder, device=device)
+
+
+def fact_stores(system):
+    """{store: [(fact id, text)]} of a system's fact stores, and the largest
+    (capacity, valid rows) among the baselines' ones."""
+    if hasattr(system, "forest"):
+        return {"forest": [(f.fact_id, f.text)
+                           for f in system.forest.facts]}, (0, 0)
+    stores = {n: getattr(system, n) for n in FACT_STORES
+              if hasattr(system, n)}
+    return ({n: [(f.fact_id, f.text) for f in st.facts]
+             for n, st in stores.items()},
+            max((st.emb.shape[0], len(st.facts)) for st in stores.values()))
+
+
+def run_write_path(torch, system, sessions, queries, device):
+    """``bench_write_path.py``'s loop: the sessions one at a time through
+    ``ingest_session``, then one ``query`` each. Launch counts are reset
+    before and read after; each wall clock ends in a sync."""
+    from repro_torch import kernels
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    stats = system.encoder.stats
+    calls0, seq0, tok0 = stats.calls, stats.sequential_calls, stats.tokens
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    writes = [system.ingest_session(s) for s in sessions]
+    sync()
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = [system.query(q) for q in queries]
+    sync()
+    query_s = time.perf_counter() - t0
+    stores, largest = fact_stores(system)
+    return {
+        "ingest_s": ingest_s, "query_s": query_s,
+        "writes": [(w.encoder_calls, w.encoder_tokens, w.llm_dependency_depth,
+                    w.facts_written) for w in writes],
+        "calls": stats.calls - calls0, "tokens": stats.tokens - tok0,
+        "sequential": stats.sequential_calls - seq0,
+        "answers": [(r.answer, r.evidence) for r in results],
+        "gold": sum(r.answer.strip().lower() == q.gold.strip().lower()
+                    for r, q in zip(results, queries)),
+        "counts": read_counts(REPLACES), "stores": stores,
+        "largest": largest,
+    }
+
+
+def write_path_line(phase, name, r, sessions, queries) -> str:
+    w = r["writes"]
+    return (f"{phase}: {name} sessions_per_s={sessions / r['ingest_s']:.2f} "
+            f"ingest_s={r['ingest_s']:.4f} encoder_calls={r['calls']} "
+            f"sequential_calls={r['sequential']} tokens={r['tokens']} "
+            f"mean_depth={sum(x[2] for x in w) / len(w):.3f} "
+            f"facts_written={sum(x[3] for x in w)} "
+            f"queries_per_s={queries / r['query_s']:.2f} "
+            f"equal_to_gold={r['gold']}/{queries} "
+            f"topk_sim_launches={r['counts']['topk_sim'][0]} "
+            f"largest_store={r['largest']}")
+
+
+def run_baselines(torch, wl, seed):
+    """Phase 12: MemForest and the five baselines on the hashing encoder
+    (the slice's 500 sessions and 64 queries), on the card and on the CPU;
+    then MemForest and EverMem on llama3-8b's ModelEncoder, over the serve
+    phase's weights (drawn again from the same seed: bitwise the same)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.encoder import HashingEncoder, ModelEncoder
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.models import transformer as T
+
+    print(f"baselines: card {card_line()} (one run each)")
+    total = {k: 0 for k in REPLACES}
+    rows = {}
+    for name in WRITE_SYSTEMS:
+        system = write_path_system(name, HashingEncoder(dim=256,
+                                                        device="cuda"), "cuda")
+        rows[name] = r = run_write_path(torch, system, wl.sessions, wl.queries,
+                                        "cuda")
+        del system
+        print(write_path_line("baselines", name, r, len(wl.sessions),
+                              len(wl.queries)), flush=True)
+        for k, (n, p) in r["counts"].items():
+            total[k] += n
+            need(p == 0, f"{name}: {k} ran its plain version {p} times on "
+                 "CUDA")
+        need(r["counts"]["topk_sim"][0] > 0,
+             f"{name}: topk_sim never launched")
+    for name in WRITE_SYSTEMS[1:]:
+        need(rows["memforest"]["gold"] >= rows[name]["gold"],
+             f"{name} answers {rows[name]['gold']} queries right, MemForest "
+             f"{rows['memforest']['gold']}")
+    largest = max(r["largest"] for r in rows.values())
+    print(f"baselines: largest fact store (capacity, valid rows)={largest}; "
+          f"the check row's {BASELINE_TOPK[0]}")
+    if seed == 0:
+        need(largest == BASELINE_TOPK[0], "the largest fact store is not the "
+             "check row's shape")
+
+    t0 = time.perf_counter()
+    for name in WRITE_SYSTEMS:
+        cpu = run_write_path(torch, write_path_system(
+            name, HashingEncoder(dim=256, device="cpu"), "cpu"),
+            wl.sessions, wl.queries, "cpu")
+        r = rows[name]
+        for key in ("stores", "writes", "calls", "tokens", "sequential",
+                    "answers"):
+            need(cpu[key] == r[key], f"{name}: the CPU run's {key} differ "
+                 "from the card's")
+    print(f"baselines: cpu rerun of the six systems "
+          f"{time.perf_counter() - t0:.2f} s: fact texts and ids, write "
+          "counts per session, answers and evidence equal to the card's",
+          flush=True)
+
+    cfg = get_config("llama3_8b")
+    params = T.init_params(cfg, seed, device="cuda")
+    encoder = ModelEncoder(cfg, params, HashTokenizer(cfg.vocab_size),
+                           max_len=128)
+    sessions = wl.sessions[:MODEL_SESSIONS]
+    model_rows = {}
+    for name in MODEL_SYSTEMS:
+        system = write_path_system(name, encoder, "cuda")
+        model_rows[name] = r = run_write_path(torch, system, sessions,
+                                              wl.queries, "cuda")
+        del system
+        print(write_path_line(f"baselines: {cfg.name}", name, r,
+                              len(sessions), len(wl.queries))
+              + f" flash_attention_launches={r['counts']['flash_attention'][0]}",
+              flush=True)
+        for k, (n, p) in r["counts"].items():
+            total[k] += n
+            need(p == 0, f"{cfg.name} {name}: {k} ran its plain version {p} "
+                 "times on CUDA")
+        for k in ("flash_attention", "topk_sim"):
+            need(r["counts"][k][0] > 0, f"{cfg.name} {name}: {k} never "
+                 "launched")
+    ratio = model_rows["evermem"]["ingest_s"] / model_rows["memforest"]["ingest_s"]
+    print(f"baselines: {cfg.name} construction sessions/s MemForest / "
+          f"EverMem = {ratio:.2f} (the paper's comparison; gates nothing); "
+          f"largest EverMem store {model_rows['evermem']['largest']}, the "
+          f"check row's {BASELINE_TOPK[1]}")
+    if seed == 0:
+        need(model_rows["evermem"]["largest"] == BASELINE_TOPK[1],
+             "EverMem's store on llama3-8b is not the check row's shape")
+    del encoder, params
+    torch.cuda.empty_cache()
+    return {k: (n, 0) for k, n in total.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: tenant residency
+# ---------------------------------------------------------------------------
+TENANTS = 32
+HOT_BUDGET = 4            # bench_residency.py's; 8x as many tenants
+TENANT_SESSIONS = 50
+TENANT_DELIVERY = 25      # sessions a journaled delivery carries
+TENANT_QUERIES = 256
+QUERY_EVENT = 4           # queries of one tenant per traffic event
+ZIPF_S = 1.5
+DIGEST_THRESHOLD = 0.45
+
+
+def tenant_workloads():
+    """32 tenants, each about one LongMemEval-S history."""
+    from repro_torch.data.synthetic import make_workload
+    return [make_workload(num_entities=4, num_sessions=TENANT_SESSIONS,
+                          transitions_per_entity=4, distractor_turns=20,
+                          num_queries=16, seed=1000 + i)
+            for i in range(TENANTS)]
+
+
+def zipf_schedule(seed, nq):
+    """(tenant, query indices) events: Zipf-ranked tenants, rotating
+    queries (bench_residency.py's schedule)."""
+    rng = np.random.default_rng(7 + seed)
+    p = 1.0 / np.arange(1, TENANTS + 1, dtype=np.float64) ** ZIPF_S
+    p /= p.sum()
+    ranks = rng.choice(TENANTS, size=TENANT_QUERIES // QUERY_EVENT, p=p)
+    return [(int(r), [(e * QUERY_EVENT + j) % nq for j in range(QUERY_EVENT)])
+            for e, r in enumerate(ranks)]
+
+
+class RecordingEncoder:
+    """The card's encoder, keeping every call's texts and output so that the
+    CPU run can be given the same bits (``ReplayEncoder``)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.dim, self.device, self.stats = inner.dim, inner.device, inner.stats
+        self.calls = []
+
+    def encode(self, texts, *, sequential=False):
+        out = self.inner.encode(texts, sequential=sequential)
+        self.calls.append((list(texts), out))
+        return out
+
+    def encode_one(self, text):
+        return self.encode([text])[0]
+
+
+class ReplayEncoder:
+    """Hands the CPU run the card encoder's outputs, call by call; a call
+    with other texts than the card's means the runs diverged."""
+
+    def __init__(self, calls, dim):
+        from repro_torch.core.encoder import EncoderStats
+        self.calls, self.dim, self.stats = iter(calls), dim, EncoderStats()
+
+    def encode(self, texts, *, sequential=False):
+        want, out = next(self.calls, (None, None))
+        need(list(texts) == want, "the CPU run encoded other texts than the "
+             "card's at the same call: the runs diverged")
+        self.stats.calls += len(texts) if sequential else 1
+        self.stats.texts += len(texts)
+        return out
+
+    def encode_one(self, text):
+        return self.encode([text])[0]
+
+
+def residents(mgr):
+    return [t for t in mgr.tenant_ids() if mgr.is_resident(t)]
+
+
+def residency_calls(torch, mgr, wls, sched, device):
+    """(a)'s calls: every tenant ingested in journaled deliveries, then the
+    schedule's query events. Returns the log (per ingest: tenant and the
+    resident set; per event: tenant, the tier's decision, the resident set,
+    answers and evidence), the gate's best score of each event on a cold
+    tenant (None on a hot one) and the two wall clocks. The scores are kept
+    apart: the digest holds root embeddings, which the card's tree_refresh
+    and the CPU's plain version round differently."""
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    log, scores = [], []
+    t0 = time.perf_counter()
+    for i, w in enumerate(wls):
+        tid = f"t{i:03d}"
+        for b in range(0, len(w.sessions), TENANT_DELIVERY):
+            mgr.ingest(tid, w.sessions[b:b + TENANT_DELIVERY],
+                       idempotency_key=f"{tid}:{b}")
+        log.append(("ingest", tid, residents(mgr)))
+    sync()
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for rank, qi in sched:
+        tid = f"t{rank:03d}"
+        qs = [wls[rank].queries[j] for j in qi]
+        scores.append(mgr.best_digest_score(tid, qs))
+        d0, r0 = mgr.digest_answers, mgr.rehydrations
+        res = mgr.query_batch(tid, qs)
+        tier = "digest" if mgr.digest_answers > d0 else \
+            "rehydrated" if mgr.rehydrations > r0 else "hot"
+        log.append(("query", tid, tier, residents(mgr),
+                    [(r.answer, r.evidence) for r in res]))
+    sync()
+    return log, scores, ingest_s, time.perf_counter() - t0
+
+
+def first_difference(card, cpu) -> str:
+    """The first entry where the card's log and the CPU's differ, with the
+    gate's best scores of that event on both and their distances to the
+    threshold."""
+    (card_log, card_scores), (cpu_log, cpu_scores) = card, cpu
+    for i, (a, b) in enumerate(zip(card_log, cpu_log)):
+        if a != b:
+            text = f"entry {i}: card {a[:4]} cpu {b[:4]}"
+            e = i - TENANTS              # the query events follow the ingests
+            if e >= 0 and None not in (card_scores[e], cpu_scores[e]):
+                sa, sb = card_scores[e], cpu_scores[e]
+                text += (f"; best digest scores card {sa:.8f} cpu {sb:.8f}, "
+                         f"distances to the threshold "
+                         f"{sa - DIGEST_THRESHOLD:+.8f} "
+                         f"{sb - DIGEST_THRESHOLD:+.8f}")
+            return text
+    return f"lengths {len(card_log)} and {len(cpu_log)}"
+
+
+def run_residency(torch, wl, seed, rwkv6_run):
+    """Phase 13: (a) a standalone ResidencyManager on the card and on the
+    CPU with the same calls; (b) the engine's residency lane on rwkv6-1.6b
+    beside the rwkv6 phase's decode traffic."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.encoder import HashingEncoder
+    from repro_torch.core.residency import ResidencyConfig, ResidencyManager
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.models import get_model
+    from repro_torch.obs import MemorySink, Observability, Tracer
+    from repro_torch.serving.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    wls = tenant_workloads()
+    sched = zipf_schedule(seed, len(wls[0].queries))
+    gen_s = time.perf_counter() - t0
+    config = ResidencyConfig(hot_budget=HOT_BUDGET, fsync=True,
+                             digest_threshold=DIGEST_THRESHOLD)
+    base = tempfile.mkdtemp(prefix="memforest_residency_")
+    print(f"residency: card {card_line()} (one run)")
+    try:
+        # (a) the manager on the card ------------------------------------
+        sink = MemorySink()
+        obs = Observability(tracer=Tracer(sink=sink, enabled=True))
+        encoder = RecordingEncoder(HashingEncoder(device="cuda"))
+        mgr = ResidencyManager(os.path.join(base, "card"), config=config,
+                               encoder=encoder, device="cuda", obs=obs)
+        kernels.reset_counts()
+        log, scores, ingest_s, query_s = residency_calls(torch, mgr, wls,
+                                                         sched, "cuda")
+        counts_a = read_counts(REPLACES)
+        m = mgr.metrics()
+        totals = span_totals(sink)
+        tiers = [e[2] for e in log if e[0] == "query"]
+        margins = [abs(x - DIGEST_THRESHOLD) for x in scores
+                   if x is not None]
+        sessions = TENANTS * TENANT_SESSIONS
+        print(f"residency: tenants={TENANTS} hot_budget={HOT_BUDGET} "
+              f"sessions={sessions} queries={TENANT_QUERIES} in events of "
+              f"{QUERY_EVENT} (zipf s={ZIPF_S}) threshold={DIGEST_THRESHOLD} "
+              f"fsync=on gen_s={gen_s:.3f} ingest_s={ingest_s:.4f} "
+              f"sessions_per_s={sessions / ingest_s:.2f} query_s="
+              f"{query_s:.4f} queries_per_s={TENANT_QUERIES / query_s:.2f}")
+        print(f"residency: events hot={tiers.count('hot')} digest="
+              f"{tiers.count('digest')} rehydrated={tiers.count('rehydrated')}"
+              f" closest gate score to the threshold: "
+              f"{min(margins) if margins else float('nan'):.6f} away")
+        print("residency: metrics " + json.dumps(m, sort_keys=True))
+        n_dem, n_reh = m["evictions"], m["rehydrations"]
+        print(f"residency: demote_s={totals.get('residency.demote', 0.0):.4f}"
+              f" ({n_dem} demotions, "
+              f"{totals.get('residency.demote', 0.0) / max(n_dem, 1):.4f} s "
+              f"each) rehydrate_s={totals.get('residency.rehydrate', 0.0):.4f}"
+              f" ({n_reh} rehydrations, "
+              f"{totals.get('residency.rehydrate', 0.0) / max(n_reh, 1):.4f} "
+              f"s each) digest_answer_s="
+              f"{totals.get('residency.digest_answer', 0.0):.4f} "
+              f"checkpoint_s={totals.get('journal.checkpoint', 0.0):.4f}")
+        print("residency: launches " + " ".join(
+            f"{k}={n} plain={p}" for k, (n, p) in counts_a.items()),
+            flush=True)
+        for k, (n, p) in counts_a.items():
+            need(p == 0, f"residency: {k} ran its plain version {p} times on "
+                 "CUDA")
+        for k in SLICE_KERNELS:
+            need(counts_a[k][0] > 0, f"residency: {k} never launched")
+        need(n_dem > 0 and n_reh > 0 and m["digest_answers"] > 0,
+             "the schedule did not demote, rehydrate and answer from a "
+             "digest")
+
+        # an explicit demotion gives the card the tenant's bytes back
+        tid = residents(mgr)[-1]
+        mgr.query_batch(tid, wls[int(tid[1:])].queries[:QUERY_EVENT])
+        forest = mgr.acquire(tid).forest
+        held = [t for t in (forest._fact_dev, forest._root_dev,
+                            forest._arena) if t is not None]
+        n_tensors, device_bytes = len(held), forest.device_bytes()
+        del held
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        need(mgr.demote(tid), f"{tid} was not resident")
+        torch.cuda.synchronize()
+        demote_s = time.perf_counter() - t0
+        after = torch.cuda.memory_allocated()
+        print(f"residency: demote({tid}) {demote_s:.4f} s device_bytes="
+              f"{device_bytes} in {n_tensors} tensors; memory_allocated "
+              f"{before} -> {after} (fell {before - after}); memory_reserved "
+              f"{reserved} -> {torch.cuda.memory_reserved()}")
+        need(abs(before - after - device_bytes) <= 512 * n_tensors,
+             f"demote({tid}) freed {before - after} bytes on the card, its "
+             f"device_bytes were {device_bytes}")
+        need(forest.device_bytes() == 0, "the demoted forest holds bytes")
+        del forest
+
+        # a rehydration and one query upload that tenant's rows only
+        others = {t: mgr.acquire(t).forest for t in residents(mgr)}
+        seen = {t: (f.index_uploads, f.index_row_updates, f.arena_syncs)
+                for t, f in others.items()}
+        t0 = time.perf_counter()
+        store = mgr.acquire(tid)
+        torch.cuda.synchronize()
+        rehydrate_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store.query_batch(wls[int(tid[1:])].queries[:QUERY_EVENT])
+        torch.cuda.synchronize()
+        first_query_s = time.perf_counter() - t0
+        f = store.forest
+        print(f"residency: rehydrate({tid}) {rehydrate_s:.4f} s, first query "
+              f"{first_query_s:.4f} s: its uploads={f.index_uploads} "
+              f"arena_syncs={f.arena_syncs} device_bytes={f.device_bytes()}; "
+              f"{len(others)} other residents unchanged")
+        need(f.index_uploads == 2, f"{tid} uploaded {f.index_uploads} indexes")
+        for t, g in others.items():
+            need((g.index_uploads, g.index_row_updates, g.arena_syncs)
+                 == seen[t], f"rehydrating {tid} moved {t}'s device rows")
+        del others, store, f
+        digests = [mgr.state_digest(f"t{i:03d}") for i in range(TENANTS)]
+        mgr.close()
+        del mgr
+        gc.collect()
+
+        # the same calls on the CPU, given the card encoder's bits
+        probe = HashingEncoder(device="cpu")
+        texts, card_out = encoder.calls[0]
+        diff = float(np.abs(probe.encode(texts) - card_out).max())
+        print(f"residency: the CPU's own hashing encoder against the card's "
+              f"on {len(texts)} texts: max |diff|={diff:.3e} (the state "
+              "digest hashes the encoder's bits: the CPU run replays the "
+              "card's)")
+        t0 = time.perf_counter()
+        cpu = ResidencyManager(os.path.join(base, "cpu"), config=config,
+                               encoder=ReplayEncoder(encoder.calls,
+                                                     encoder.dim),
+                               device="cpu")
+        cpu_log, cpu_scores, _, _ = residency_calls(torch, cpu, wls, sched,
+                                                    "cpu")
+        cpu_digests = [cpu.state_digest(f"t{i:03d}") for i in range(TENANTS)]
+        cpu.close()
+        need(cpu_log == log, "card and CPU differ: " + first_difference(
+            (log, scores), (cpu_log, cpu_scores)))
+        score_err = max((abs(a - b) for a, b in zip(scores, cpu_scores)
+                         if a is not None), default=0.0)
+        need(cpu_digests == digests, "the tenants' state digests differ "
+             "between the card and the CPU")
+        print(f"residency: cpu run {time.perf_counter() - t0:.2f} s: every "
+              f"tier decision ({len(log)} entries), answer, evidence and the "
+              f"{TENANTS} state digests equal to the card's; the gate's "
+              f"scores within {score_err:.3e}", flush=True)
+
+        # a restarted manager: every tenant cold, no device bytes
+        mgr = ResidencyManager(os.path.join(base, "card"), config=config,
+                               device="cuda")
+        m = mgr.metrics()
+        need(m["tenants"] == TENANTS and m["hot_tenants"] == 0
+             and m["device_bytes"] == 0, f"the restarted manager: {m}")
+        print(f"residency: restarted manager: {m['tenants']} tenants, all "
+              f"cold, device_bytes=0, digest_bytes={m['digest_bytes']}")
+        mgr.close()
+        del mgr
+
+        # (b) the engine's residency lane on rwkv6-1.6b ------------------
+        params, ref_tokens, _ = rwkv6_run
+        cfg = get_config(SSM_ARCHS["rwkv6"][0])
+        mgr = ResidencyManager(os.path.join(base, "lane"), config=config,
+                               device="cuda")
+        sink = MemorySink()
+        obs = Observability(tracer=Tracer(sink=sink, enabled=True))
+        engine = ServeEngine(get_model(cfg), params, max_batch=8, max_len=512,
+                             max_ingest_batch=16, residency=mgr,
+                             residency_budget=1, obs=obs)
+        prompts = ssm_prompts(wl, HashTokenizer(cfg.vocab_size),
+                              DECODE_PROMPTS)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        for i, w in enumerate(wls):
+            for s in w.sessions:
+                engine.submit_session(s, tenant=f"t{i:03d}")
+        for p in prompts:
+            engine.submit(p, max_new_tokens=NEW_TOKENS, prefix_key="summarize")
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        round1_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rids = [engine.submit_query(wls[rank].queries[j],
+                                    tenant=f"t{rank:03d}")
+                for rank, qi in sched for j in qi]
+        for p in prompts:
+            engine.submit(p, max_new_tokens=NEW_TOKENS, prefix_key="summarize")
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        round2_s = time.perf_counter() - t0
+        counts_b = read_counts(REPLACES)
+        results = [engine.pop_query_result(r) for r in rids]
+        m = engine.metrics()
+        totals = span_totals(sink)
+        print(f"residency: lane model={cfg.name} sessions={sessions} round1_s="
+              f"{round1_s:.4f} sessions_per_s={sessions / round1_s:.2f} "
+              f"queries={len(rids)} round2_s={round2_s:.4f} decoded_tokens="
+              f"{m['decoded_tokens']} residency_turns={m['residency_turns']} "
+              f"hot_tenants={m['hot_tenants']} evictions={m['evictions']} "
+              f"rehydrations={m['rehydrations']} digest_answers="
+              f"{m['digest_answers']}")
+        print("residency: lane span_s " + " ".join(
+            f"{k}={v:.4f}" for k, v in sorted(totals.items())
+            if k.startswith(("engine.", "residency."))))
+        print("residency: lane launches " + " ".join(
+            f"{k}={n} plain={p}" for k, (n, p) in counts_b.items()),
+            flush=True)
+        need(m["hot_tenants"] <= HOT_BUDGET, f"{m['hot_tenants']} tenants "
+             f"hot after the drain, budget {HOT_BUDGET}")
+        need(m["residency_turns"] > 0, "the residency lane never ran")
+        need(all(r is not None for r in results), "a query went unanswered")
+        need([t for _, t in engine_tokens(engine)]
+             == [t for _, t in ref_tokens],
+             "the decoded tokens differ from the rwkv6 phase's")
+        for k, (n, p) in counts_b.items():
+            need(p == 0, f"residency lane: {k} ran its plain version {p} "
+                 "times on CUDA")
+        for k in SLICE_KERNELS:
+            need(counts_b[k][0] > 0, f"residency lane: {k} never launched")
+        need(counts_b["rwkv6_scan"][0] >= cfg.num_layers, "rwkv6_scan "
+             f"launched {counts_b['rwkv6_scan'][0]} times, fewer than the "
+             "layers of one prefill")
+        print(f"residency: lane hot_tenants={m['hot_tenants']} <= "
+              f"{HOT_BUDGET}, decoded tokens equal to the rwkv6 phase's")
+        del engine
+        mgr.close()
+        return {k: (counts_a[k][0] + counts_b[k][0], 0) for k in REPLACES}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -2123,18 +2722,28 @@ def main() -> int:
 
     # 11. the engine's maintenance lane on rwkv6-1.6b -------------------------
     lane_counts = run_maintenance_lane(torch, wl, rwkv6_run)
-    del rwkv6_run
-    torch.cuda.empty_cache()
     stamp("maintenance_lane")
 
-    # 12. kernels -----------------------------------------------------------
+    # 12. MemForest beside the paper's five baselines ------------------------
+    baseline_counts = run_baselines(torch, wl, args.seed)
+    stamp("baselines")
+
+    # 13. tenant residency: the manager, then the engine's lane on rwkv6 -----
+    residency_counts = run_residency(torch, wl, args.seed, rwkv6_run)
+    del rwkv6_run
+    torch.cuda.empty_cache()
+    stamp("residency")
+
+    # 14. kernels -----------------------------------------------------------
     summary = []
     for k in REPLACES:
         r = results[k]
         by_path = {"slice": counts[k][0], "serve": serve_counts[k][0],
                    **{phase: c[k][0] for phase, c in ssm_counts.items()},
                    "durable": durable_counts[k][0],
-                   "maintenance_lane": lane_counts[k][0]}
+                   "maintenance_lane": lane_counts[k][0],
+                   "baselines": baseline_counts[k][0],
+                   "residency": residency_counts[k][0]}
         print(f"kernels: {k} launches={sum(by_path.values())} ("
               + ", ".join(f"{p} {n}" for p, n in by_path.items())
               + f") check=ok main_shape={r['shape']}")

@@ -23,7 +23,8 @@ deletions tombstone leaves, merge requests queue — and the
 One work unit = one queued merge, or one tree compaction, or one bounded
 flush slice (``flush_trees_per_unit`` dirty trees through
 ``Forest.flush(only=...)``: one ``tree_refresh`` launch per tree level of
-the slice). Chunked flushing is state-equivalent to one full flush because
+the slice), or, with a ``ResidencyManager`` attached, one demotion of an
+over-budget tenant. Chunked flushing is state-equivalent to one full flush because
 dirty paths never cross trees.
 
 Correctness under laziness is unchanged: a reader that arrives before the
@@ -54,14 +55,14 @@ class MaintenancePlane:
         durable store they must be journaled for crash recovery to
         reproduce the pre-crash digest.
 
-        ``residency`` (tenant demotion as a work unit) is not ported yet
-        (ROADMAP.md, queue 1, item 3)."""
-        if residency is not None:
-            raise NotImplementedError(
-                "MaintenancePlane(residency=...) is not ported yet: it comes "
-                "with the ResidencyManager (ROADMAP.md, queue 1, item 3)")
+        ``residency``: a :class:`repro_torch.core.residency.ResidencyManager`.
+        When given, one over-budget tenant demotion counts as a work unit
+        (lowest priority — after merges, compaction and flush), so a worker
+        thread evicts off the serve thread. The manager has its own lock,
+        taken inside this plane's: plane, then manager, never the reverse."""
         self.forest = forest
         self.durable = durable
+        self.residency = residency
         self.flush_trees_per_unit = flush_trees_per_unit
         self.compact_min_dead_fraction = compact_min_dead_fraction
         self.lock = threading.RLock()
@@ -79,6 +80,7 @@ class MaintenancePlane:
         self._m_merges = reg.counter("maintenance/merges_done")
         self._m_compactions = reg.counter("maintenance/compactions_done")
         self._m_reclaimed = reg.counter("maintenance/slots_reclaimed")
+        self._m_demotions = reg.counter("maintenance/demotions_done")
 
     # ------------------------------------------------------------------
     # registry-backed counters
@@ -102,6 +104,10 @@ class MaintenancePlane:
     @property
     def slots_reclaimed(self) -> int:
         return self._m_reclaimed.value
+
+    @property
+    def demotions_done(self) -> int:
+        return self._m_demotions.value
 
     # ------------------------------------------------------------------
     # scheduling
@@ -129,7 +135,10 @@ class MaintenancePlane:
         with self.lock:
             flush_units = -(-len(self.forest.dirty_trees) //
                             max(self.flush_trees_per_unit, 1))
-            return len(self._merge_q) + len(self._compact_q) + flush_units
+            resid_units = self.residency.over_budget() \
+                if self.residency is not None else 0
+            return len(self._merge_q) + len(self._compact_q) + flush_units \
+                + resid_units
 
     # ------------------------------------------------------------------
     # draining
@@ -138,7 +147,7 @@ class MaintenancePlane:
         """One work unit; returns False when there was nothing to do.
         Priority: merges (they add dirty trees), then compactions, then a
         flush slice — so structural work lands before its summaries
-        regenerate."""
+        regenerate — and a tenant demotion last."""
         if self._merge_q:
             src, key = self._merge_q.popleft()
             with self.obs.span("maintenance.merge"):
@@ -170,6 +179,10 @@ class MaintenancePlane:
             with self.obs.span("maintenance.flush_slice", trees=len(chunk)):
                 self.forest.flush(only=chunk)
             self._m_flushed.inc(len(chunk))
+            return True
+        if self.residency is not None \
+                and self.residency.enforce_budget(1):
+            self._m_demotions.inc()
             return True
         return False
 
@@ -245,5 +258,6 @@ class MaintenancePlane:
             "maintenance_merges": self._m_merges.value,
             "maintenance_compactions": self._m_compactions.value,
             "maintenance_slots_reclaimed": self._m_reclaimed.value,
+            "maintenance_demotions": self._m_demotions.value,
             "maintenance_pending": self.pending(),
         }

@@ -15,3 +15,22 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be a CUDA device or 'cpu', got {dev}")
     return dev
+
+
+def _index(dev: torch.device) -> int:
+    if dev.type != "cuda":
+        return 0
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def check_encoder_device(encoder, device: torch.device, owner: str) -> None:
+    """Refuse an ``encoder`` whose tensors live on another device than the
+    memory ``owner`` that shares it. An encoder without a ``device``
+    attribute computes on the host and fits any device."""
+    enc = getattr(encoder, "device", None)
+    if enc is None:
+        return
+    enc = torch.device(enc)
+    if enc.type != device.type or _index(enc) != _index(device):
+        raise ValueError(f"{owner} runs on {device}, but its encoder runs on "
+                         f"{enc}: build the encoder on the same device")

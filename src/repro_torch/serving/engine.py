@@ -20,8 +20,19 @@ step. Every access of the ingest and query lanes to the memory holds the
 plane's lock (``_memory_lock``): the plane's background thread, when
 started, writes the forest and its device caches in place.
 
-Not ported yet (ROADMAP.md): the residency lane and ``tenant=`` routing
-(queue 1, item 3) and the multi-device ``sharded`` serve path (item 5).
+Residency lane: pass ``residency=ResidencyManager(...)``
+(core/residency.py) and ``submit_session``/``submit_query`` accept a
+``tenant=`` id routed through the hot/cold tier: cold tenants rehydrate
+inside the drains (queries may answer from the digest instead), and budget
+enforcement (demotion: snapshot + freeing the tenant's device caches) runs
+as its own bounded drain after the maintenance lane, so eviction never sits
+on a decode step. ``tenant=None`` requests use the engine's single
+``memory`` as before. The tenant drains hold the plane's lock too, when a
+plane is attached (its worker may flush or demote a tenant's forest): the
+plane's lock first, then the manager's.
+
+Not ported yet (ROADMAP.md): the multi-device ``sharded`` serve path (queue
+1, item 5).
 
 KV cache and prefill reuse. The model writes each decode step's K/V rows
 (and, for rwkv6 and zamba2, its recurrent state) into the live cache IN
@@ -34,8 +45,8 @@ entry and a later prefix hit replays the prefill as it was computed.
 Observability: the same ``serve/*`` counters and histograms as the JAX
 engine, and the same spans (``engine.step``, ``engine.admit``,
 ``engine.prefill``, ``engine.decode``, ``engine.drain.ingest``,
-``engine.drain.query``, ``engine.drain.maintenance``) through
-``repro_torch.obs``.
+``engine.drain.query``, ``engine.drain.maintenance``,
+``engine.drain.residency``) through ``repro_torch.obs``.
 """
 from __future__ import annotations
 
@@ -98,6 +109,7 @@ class ServeEngine:
                  memory=None, max_ingest_batch: int = 16,
                  max_query_batch: int = 32,
                  maintenance=None, maintenance_budget: int = 1,
+                 residency=None, residency_budget: int = 1,
                  obs: Optional[Observability] = None):
         self.model = model
         self.params = params
@@ -124,6 +136,7 @@ class ServeEngine:
         self._m_query_batches = reg.counter("serve/query_batches")
         self._m_queries_served = reg.counter("serve/queries_served")
         self._m_maintenance_turns = reg.counter("serve/maintenance_turns")
+        self._m_residency_turns = reg.counter("serve/residency_turns")
         self._h_ingest_wait = reg.histogram("serve/ingest_wait_s")
         self._h_query_wait = reg.histogram("serve/query_wait_s")
         self._h_decode_request = reg.histogram("serve/decode_request_s")
@@ -138,6 +151,13 @@ class ServeEngine:
         # compaction/merge work per step instead
         self.maintenance = maintenance
         self.maintenance_budget = maintenance_budget
+        # residency lane: the engine owns budget enforcement (auto_enforce
+        # off) and demotes at most `residency_budget` tenants a step, after
+        # the serve lanes
+        self.residency = residency
+        self.residency_budget = residency_budget
+        if residency is not None:
+            residency.auto_enforce = False
 
     # ------------------------------------------------------------------
     # registry-backed counters (attribute access)
@@ -182,6 +202,10 @@ class ServeEngine:
     def maintenance_turns(self) -> int:
         return self._m_maintenance_turns.value
 
+    @property
+    def residency_turns(self) -> int:
+        return self._m_residency_turns.value
+
     # ------------------------------------------------------------------
     def submit(self, prompt_tokens: List[int], max_new_tokens: int = 8,
                prefix_key: Optional[str] = None) -> int:
@@ -191,11 +215,20 @@ class ServeEngine:
         self.queue.append(r)
         return r.req_id
 
-    def submit_session(self, session) -> None:
-        """Queue a session for the ingest lane."""
-        if self.memory is None:
+    def _check_destination(self, tenant: Optional[str]) -> None:
+        if tenant is not None:
+            if self.residency is None:
+                raise RuntimeError(
+                    "tenant= requires a ResidencyManager (residency=)")
+        elif self.memory is None:
             raise RuntimeError("ServeEngine was built without a memory system")
-        self.ingest_queue.append((session, time.perf_counter()))
+
+    def submit_session(self, session, *, tenant: Optional[str] = None) -> None:
+        """Queue a session for the ingest lane. ``tenant`` routes the write
+        through the residency tier (rehydrating a cold tenant on drain);
+        None targets the engine's single memory system."""
+        self._check_destination(tenant)
+        self.ingest_queue.append((tenant, session, time.perf_counter()))
 
     def _memory_lock(self):
         """Forest-access guard: the maintenance plane's lock when one is
@@ -207,35 +240,45 @@ class ServeEngine:
 
     def _drain_ingest(self) -> int:
         """One ingest-lane turn: everything queued (capped) goes through a
-        single ``ingest_batch``; with a maintenance plane attached its flush
-        is deferred to the plane. Returns sessions ingested."""
+        single batched write per destination — the shared memory system, or
+        one ``ResidencyManager.ingest`` per tenant (cold tenants rehydrate
+        here, inside the drain). With a maintenance plane attached the
+        shared system's flush is deferred to the plane. Returns sessions
+        ingested."""
         if not self.ingest_queue:
             return 0
         batch = self.ingest_queue[: self.max_ingest_batch]
         del self.ingest_queue[: len(batch)]
         with self.obs.span("engine.drain.ingest", sessions=len(batch)):
-            sessions = [s for s, _t in batch]
-            with self._memory_lock():
-                if self.maintenance is not None:
-                    self.memory.ingest_batch(sessions, defer_flush=True)
-                else:
-                    self.memory.ingest_batch(sessions)
-            self._m_ingest_batches.inc()
+            groups: Dict[Optional[str], List] = {}
+            for tenant, session, _t in batch:
+                groups.setdefault(tenant, []).append(session)
+            for tenant, sessions in groups.items():
+                with self._memory_lock():
+                    if tenant is not None:
+                        self.residency.ingest(tenant, sessions)
+                    elif self.maintenance is not None:
+                        self.memory.ingest_batch(sessions, defer_flush=True)
+                    else:
+                        self.memory.ingest_batch(sessions)
+                self._m_ingest_batches.inc()
         now = time.perf_counter()
-        for _session, t in batch:
+        for _tenant, _session, t in batch:
             self._h_ingest_wait.record(now - t)
         self._m_ingest_sessions.inc(len(batch))
         return len(batch)
 
     def submit_query(self, query, *, mode: Optional[str] = None,
-                     final_topk: Optional[int] = None) -> int:
-        """Queue a retrieval request for the query lane. The result lands in
+                     final_topk: Optional[int] = None,
+                     tenant: Optional[str] = None) -> int:
+        """Queue a retrieval request for the query lane. ``tenant`` routes
+        through the residency tier (digest answer or rehydration on drain);
+        None targets the engine's single memory system. The result lands in
         ``query_results[req_id]`` after the engine step that drains it."""
-        if self.memory is None:
-            raise RuntimeError("ServeEngine was built without a memory system")
+        self._check_destination(tenant)
         rid = self._next_id
         self._next_id += 1
-        self.query_queue.append((rid, query, mode, final_topk,
+        self.query_queue.append((rid, tenant, query, mode, final_topk,
                                  time.perf_counter()))
         return rid
 
@@ -245,26 +288,33 @@ class ServeEngine:
 
     def _drain_queries(self) -> int:
         """One query-lane turn: everything queued (capped) goes through one
-        ``query_batch`` per distinct (mode, topk) group, usually exactly
-        one. Returns queries answered."""
+        ``query_batch`` per distinct (tenant, mode, topk) group, usually
+        exactly one. Tenant groups run through the residency tier (digest
+        gate or rehydration, here inside the drain). Returns queries
+        answered."""
         if not self.query_queue:
             return 0
         batch = self.query_queue[: self.max_query_batch]
         del self.query_queue[: len(batch)]
         with self.obs.span("engine.drain.query", queries=len(batch)):
             groups: Dict[Tuple, List] = {}
-            for rid, q, mode, topk, _t in batch:
-                groups.setdefault((mode, topk), []).append((rid, q))
-            for (mode, topk), items in groups.items():
+            for rid, tenant, q, mode, topk, _t in batch:
+                groups.setdefault((tenant, mode, topk), []).append((rid, q))
+            for (tenant, mode, topk), items in groups.items():
+                qs = [q for _, q in items]
                 with self._memory_lock():
-                    res = self.memory.query_batch([q for _, q in items],
-                                                  mode=mode, final_topk=topk)
+                    if tenant is not None:
+                        res = self.residency.query_batch(
+                            tenant, qs, mode=mode, final_topk=topk)
+                    else:
+                        res = self.memory.query_batch(qs, mode=mode,
+                                                      final_topk=topk)
                 for (rid, _q), r in zip(items, res):
                     self.query_results[rid] = r
                 self._m_query_batches.inc()
         now = time.perf_counter()
         for rec in batch:
-            self._h_query_wait.record(now - rec[4])
+            self._h_query_wait.record(now - rec[5])
         self._m_queries_served.inc(len(batch))
         return len(batch)
 
@@ -344,7 +394,8 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def step(self) -> int:
         """One engine iteration: admit + one decode step for all active,
-        then one ingest-lane, one query-lane and one maintenance-lane drain.
+        then one ingest-lane, one query-lane, one maintenance-lane and one
+        residency-lane drain.
         Returns the number of finished decode requests. Every phase runs
         under its own span."""
         with self.obs.span("engine.step"):
@@ -355,6 +406,7 @@ class ServeEngine:
                 self._drain_ingest()
                 self._drain_queries()
                 self._drain_maintenance()
+                self._drain_residency()
                 return 0
             self._m_occupancy.inc(len(act) / self.max_batch)
             self._m_steps.inc()
@@ -386,6 +438,7 @@ class ServeEngine:
             self._drain_ingest()
             self._drain_queries()
             self._drain_maintenance()
+            self._drain_residency()
             return finished
 
     def _drain_maintenance(self) -> int:
@@ -402,6 +455,20 @@ class ServeEngine:
             self._m_maintenance_turns.inc()
         return done
 
+    def _drain_residency(self) -> int:
+        """One residency-lane turn: demote at most ``residency_budget``
+        over-budget tenants (snapshot + freeing their device caches), under
+        the plane's lock when a plane is attached."""
+        if self.residency is None or self.residency_budget <= 0:
+            return 0
+        if self.residency.over_budget() == 0:
+            return 0
+        with self.obs.span("engine.drain.residency"), self._memory_lock():
+            done = self.residency.enforce_budget(self.residency_budget)
+        if done:
+            self._m_residency_turns.inc()
+        return done
+
     # ------------------------------------------------------------------
     def run_until_drained(self, max_steps: int = 10000) -> List[Request]:
         for _ in range(max_steps):
@@ -409,9 +476,13 @@ class ServeEngine:
                     and not self.query_queue \
                     and all(a is None for a in self.active):
                 # cooperative maintenance keeps stepping until its backlog
-                # (deferred flushes, compactions, merges) is drained too
-                if self.maintenance is None or self.maintenance_budget <= 0 \
-                        or self.maintenance.pending() == 0:
+                # (deferred flushes, compactions, merges) is drained too,
+                # and residency until the hot set is back within budget
+                if (self.maintenance is None or self.maintenance_budget <= 0
+                        or self.maintenance.pending() == 0) \
+                        and (self.residency is None
+                             or self.residency_budget <= 0
+                             or self.residency.over_budget() == 0):
                     break
             self.step()
         return self.finished
@@ -442,7 +513,11 @@ class ServeEngine:
             "query_wait_p50_s": self._h_query_wait.quantile(0.5),
             "query_wait_p99_s": self._h_query_wait.quantile(0.99),
             "maintenance_turns": self._m_maintenance_turns.value,
+            "residency_turns": self._m_residency_turns.value,
             **(self.maintenance.metrics() if self.maintenance is not None else {}),
+            # hot_tenants, evictions, rehydrations, digest_answers,
+            # device_bytes(_est), ...
+            **(self.residency.metrics() if self.residency is not None else {}),
         }
 
     def latency_summary(self) -> Dict[str, Dict[str, float]]:

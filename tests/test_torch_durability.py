@@ -7,9 +7,8 @@ The cases of ``tests/test_durability.py``, each run in both packages (or the
 port's side against the JAX package's result): WAL framing, exactly-once
 keys, snapshot + journal-tail recovery, deferred-flush snapshots, journaled
 compaction, the crash sweeps over every durability boundary, the property
-test, and the plane in cooperative and background mode. One case waits for
-the ResidencyManager (ROADMAP.md, queue 1, item 3):
-``test_crash_sweep_manager_demote_and_rehydrate``.
+test, the residency manager's demote-and-rehydrate sweep, and the plane in
+cooperative and background mode.
 
 How the packages are compared. Under ``TableEncoder`` (below) both packages
 embed every text to the same float32 bits, so their state digests must be
@@ -646,9 +645,69 @@ def test_crash_sweep_demotion_boundary(tmp_path):
     _sweep(tmp_path, ops, window)
 
 
-# test_crash_sweep_manager_demote_and_rehydrate of tests/test_durability.py
-# drives the ResidencyManager, which the port does not have yet (ROADMAP.md,
-# queue 1, item 3); it is ported with it.
+def test_crash_sweep_manager_demote_and_rehydrate(tmp_path):
+    """The residency manager's lifecycle under the same sweep: a kill at
+    every boundary of the demotion (digest write + checkpoint-class
+    demotion) and of the cold query's rehydration; a restarted manager
+    recovers the uninterrupted answers and digest. Rehydration IS the
+    crash-recovery open, so this also pins that equivalence. The port's
+    durability events, answers and digest equal the JAX package's (table
+    encoder)."""
+    from repro.core.residency import ResidencyConfig as JaxResConfig
+    from repro.core.residency import ResidencyManager as JaxManager
+    from repro_torch.core.residency import ResidencyConfig, ResidencyManager
+
+    def build(pkg, root, crash=None):
+        if pkg is JAX:
+            return JaxManager(root, config=JaxResConfig(
+                hot_budget=2, digest_threshold=-99.0),
+                mem_config=JaxConfig(), encoder=TableEncoder(), crash=crash)
+        return ResidencyManager(root, config=ResidencyConfig(
+            hot_budget=2, digest_threshold=-99.0), encoder=TableEncoder(),
+            device="cpu", crash=crash)
+
+    def lifecycle(pkg, mgr):
+        w = wl(pkg)
+        mgr.ingest("t", w.sessions[:4], idempotency_key="i0")
+        mgr.demote("t")
+        return [(r.answer, r.evidence) for r in mgr.query_batch("t", w.queries)]
+
+    def reference(pkg, name):
+        mgr = build(pkg, str(tmp_path / name))
+        ans = lifecycle(pkg, mgr)             # demote -> escalate -> rehydrate
+        digest = mgr.state_digest("t")
+        mgr.close()
+        probe = pkg.Injector(None)
+        mgr = build(pkg, str(tmp_path / f"{name}_probe"), crash=probe)
+        w = wl(pkg)
+        mgr.ingest("t", w.sessions[:4], idempotency_key="i0")
+        events_ingest = probe.events          # covered by the core sweep
+        mgr.demote("t")
+        mgr.query_batch("t", w.queries)
+        mgr.close()
+        return ans, digest, probe, events_ingest
+
+    want_ans, want_digest, probe, first = reference(TORCH, "ref")
+    j_ans, j_digest, j_probe, _ = reference(JAX, "jref")
+    assert (want_ans, want_digest, probe.trace) == \
+        (j_ans, j_digest, j_probe.trace)
+    for ev in ("demote:digest", "demote:begin", "demote:commit",
+               "rehydrate:begin", "rehydrate:commit"):
+        assert ev in probe.trace
+
+    for k in range(first + 1, probe.events + 1):
+        root = str(tmp_path / f"crash_{k:02d}")
+        mgr = build(TORCH, root, crash=TORCH.Injector(k))
+        with pytest.raises(TorchCrash):       # process death mid-transition
+            lifecycle(TORCH, mgr)
+        mgr.close()
+        rec = build(TORCH, root)              # fresh process over the dir
+        assert rec.tenant_ids() == ["t"]
+        assert [(r.answer, r.evidence) for r in
+                rec.query_batch("t", wl(TORCH).queries)] == want_ans
+        assert rec.state_digest("t") == want_digest, \
+            f"state diverged after crash at event #{k} ({probe.trace[k - 1]})"
+        rec.close()
 
 
 @settings(max_examples=4, deadline=None)
@@ -952,11 +1011,6 @@ def test_demote_frees_the_device_caches_and_reopens(tmp_path):
     store.close()
     rec = TORCH.open(str(tmp_path / "s"), "table")
     assert rec.ops_replayed == 0 and answers(rec, w.queries) == want
-
-
-def test_plane_refuses_residency():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        TorchPlane(TORCH.system().forest, residency=object())
 
 
 def test_background_worker_failure_reaches_the_caller():

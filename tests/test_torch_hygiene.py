@@ -39,7 +39,9 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.core.journal, repro_torch.core.maintenance_plane, "
             "repro_torch.core.persistence, repro_torch.core.codec, "
             "repro_torch.compression, repro_torch.runtime.checkpoint, "
-            "repro_torch.runtime.fault_tolerance; "
+            "repro_torch.runtime.fault_tolerance, "
+            "repro_torch.core.residency, repro_torch.core.baselines, "
+            "repro_torch.core.baselines.base; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); "
             "sys.exit(1 if bad else 0)")
