@@ -15,11 +15,13 @@ Phases, each printed on its own line; any failed check exits nonzero:
               equal bits, and one call must be one device launch, as must one
               bf16 call of ``mamba2_ssd`` and of ``rwkv6_scan``, one call of
               ``tree_refresh`` and of ``topk_sim`` at their main shapes (the
-              baselines' one-query shape too) and one call of each form of
-              ``browse_scores``. ``browse_scores``'
-              gather form is checked at the slice's and the serve phase's
-              level shapes from a node arena, with padded slots exactly 0 and
-              one node in four slots bitwise equal. The bf16 scan outputs are
+              baselines' one-query shape too), one call of each form of
+              ``browse_scores``, ``flash_attention`` at whisper's encoder
+              shape and ``decode_attention`` at olmoe's decode shape.
+              ``browse_scores``' gather form is checked at the slice's, the
+              serve phase's and the moe phase's level shapes from a node
+              arena, with padded slots exactly 0 and one node in four slots
+              bitwise equal. The bf16 scan outputs are
               held to a float64 run of the plain version
               (``bf16_scan_excess``), the draw of the ``mamba2_ssd`` stress
               row on which the earlier criterion failed a correct kernel
@@ -123,7 +125,40 @@ Phases, each printed on its own line; any failed check exits nonzero:
               run, the decoded tokens equal to the rwkv6 phase's,
               ``rwkv6_scan`` and the three forest kernels launched and no
               plain version run.
-  14. kernels one line per kernel, and the JSON summary of all of them.
+  14. moe     the serve engine on olmoe-1b-7b at its published width and
+              depth (64 experts, top 8; bf16, random weights from a seeded
+              generator on the card, 13.8 GB): ``ServeEngine(max_batch=8,
+              max_len=512)`` whose memory is a ``MemForestSystem(embed_dim=
+              2048)`` with a ``ModelEncoder`` on the same weights; the
+              slice's first 128 sessions through the ingest lane, its 64
+              queries through the query lane, and phase 5's two rounds of 8
+              prefix-keyed prompts. All five kernels must launch and no plain
+              version run; the prefix cache reused, every query answered, two
+              encodes bitwise equal. Printed: sessions/s, decoded tokens/s,
+              the ``ingest.extract`` span, the memory's index sizes, the
+              (token, choice) pairs dropped past capacity in the encoder,
+              the prefill and the decode step (counted in an untimed repeat
+              of the traffic, so the timed run is the engine's own code),
+              and the device's idle share from a profiled repeat.
+  15. vlm     pixtral-12b at its published width and depth (bf16, 24.5 GB):
+              ``prefill`` of 8 prompts of 128 tokens with 64 patch
+              embeddings each (``models.make_batch``), then 32 greedy
+              ``decode`` steps. ``flash_attention`` and ``decode_attention``
+              must launch, no plain version run, and the cache's lengths be
+              192 + 32. Printed: tokens/s.
+  16. whisper whisper-base at its published width and depth (bf16): the
+              encoder over 8 x 1500 frames (full attention), a 16-token
+              prompt, 32 decode steps; the same checks.
+  17. family_parity  card against CPU in float32 with the same weights:
+              olmoe at full width and depth 2 through the engine's traffic
+              on a few sessions (equal decoded tokens, facts, trees and
+              answers, embeddings within 1e-4), each CPU MoE layer taking
+              the card layer's input, its expert choices equal to the card's
+              but for flips between probabilities within 1e-5 (float noise
+              between the devices: printed, and held on the card's choice);
+              pixtral at full width and depth 2 and whisper at full width and
+              depth: equal greedy tokens, logits within 1e-4.
+  18. kernels one line per kernel, and the JSON summary of all of them.
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a
 visible CUDA device, or without the rest of the repository beside it, the
@@ -171,6 +206,11 @@ SLICE_KERNELS = ("tree_refresh", "topk_sim", "browse_scores")
 # hashing encoder) and at D = 4096 (llama3-8b), seed 0
 BASELINE_TOPK = ((16384, 10210), (128, 86))
 SERVE_KERNELS = SLICE_KERNELS + ("flash_attention", "decode_attention")
+ATTENTION_KERNELS = ("flash_attention", "decode_attention")
+# the moe phase's memory at olmoe's D = 2048, seed 0: (capacity, valid rows)
+# of its root index and its fact index, and the rows of its node arena
+OLMOE_TOPK = ((256, 160), (128, 67))
+OLMOE_ARENA = 3484
 
 
 class CheckFailed(Exception):
@@ -357,7 +397,7 @@ def check_kernels(torch, peaks, seed: int):
             ((128, 8, 256), True, g), ((128, 8, 4096), True, g),
             ((32, 8, 256), True, g), ((16, 8, 256), True, g),
             ((4096, 16, 256), False, g), ((128, 8, 3072), False, g_new),
-            ((8, 4, 36004), False, g_new)):
+            ((8, 4, 36004), False, g_new), ((128, 8, 2048), True, g_new)):
         emb = ref.normalize_rows(torch.randn(
             P * K, D, generator=gen, device=dev)).reshape(P, K, D).contiguous()
         cnt = torch.randint(0, K + 1, (P,), generator=gen, device=dev)
@@ -477,6 +517,8 @@ def check_kernels(torch, peaks, seed: int):
     rows_case(256, 8, 250, 4000, 64, "single floats", plant=True)
     rows_case(512, 8, 256, 13382, 512, "unaligned arena", fill=(1, 4),
               offset=1)
+    # the moe phase's levels at olmoe's D = 2048, from its memory's arena
+    rows_case(512, 8, 2048, OLMOE_ARENA, 512, "olmoe level", True)
 
     # -- topk_sim -----------------------------------------------------------
     def topk_case(Q, N, D, k, nv, *, main=False, plant=False, normalize=False,
@@ -562,6 +604,11 @@ def check_kernels(torch, peaks, seed: int):
     topk_case(1, BASELINE_TOPK[1][0], 4096, 10, BASELINE_TOPK[1][1],
               main=True, plant=True, gen=g_new,
               pairs=[(0, 5, BASELINE_TOPK[1][1] - 1)])
+    # the moe phase's recall at olmoe's D = 2048: its memory's root index
+    # (k = 24) and fact index (k = 16), with planted ties
+    for (cap, nv), k in zip(OLMOE_TOPK, (24, 16)):
+        topk_case(64, cap, 2048, k, nv, main=True, plant=True, gen=g_new,
+                  pairs=[(0, 5, 6), (1, 3, nv - 1)])
 
     # -- flash_attention ----------------------------------------------------
     # bf16 rows: tests/test_kernels.py's bf16 criterion, |err| <= 2e-2 +
@@ -602,10 +649,10 @@ def check_kernels(torch, peaks, seed: int):
         need(worst <= 2e-2, f"{what}: a row differs from the plain version "
              f"by {worst:.3e} of its largest value (tol 2e-2)")
 
-    def flash_case(B, S, Hq, Hkv, D, causal, dt, main, what):
-        q = torch.randn(B, S, Hq, D, generator=g, device=dev).to(dt)
-        k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dt)
-        v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dt)
+    def flash_case(B, S, Hq, Hkv, D, causal, dt, main, what, gen=g):
+        q = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(dt)
+        k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dt)
+        v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dt)
         out = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         label = (f"{what} {B}x{S}x{Hq}/{Hkv}x{D} "
@@ -628,6 +675,7 @@ def check_kernels(torch, peaks, seed: int):
                lambda: ref.attention_ref(q, k, v, causal=causal),
                (2 * B * S * Hq * D + 2 * B * S * Hkv * D) * elem,
                4 * B * Hq * pairs * D, main, library, ops_of[dt])
+        return q, k, v
 
     bf16, f32 = torch.bfloat16, torch.float32
     flash_case(336, 28, 32, 8, 128, True, bf16, True, "encoder")
@@ -641,12 +689,26 @@ def check_kernels(torch, peaks, seed: int):
     flash_case(1, 40, 128, 1, 64, True, bf16, False, "group of 128")
     flash_case(1, 4096, 32, 8, 128, True, bf16, False, "stress")
     flash_case(2, 2048, 32, 32, 96, False, bf16, False, "stress")
+    # the moe, vlm and whisper phases' shapes: olmoe's encoder and prefill
+    # (16/16 x 128, a group of 1), pixtral's prefill (64 patches and 128
+    # tokens: three 64-row query and key tiles), whisper's encoder (full, 1500 frames: 24
+    # key tiles, the last one 28 rows) and its decoder's prompt
+    flash_case(336, 28, 16, 16, 128, True, bf16, True, "olmoe encoder",
+               gen=g_new)
+    flash_case(8, 128, 16, 16, 128, True, bf16, True, "olmoe prefill",
+               gen=g_new)
+    flash_case(8, 192, 32, 8, 128, True, bf16, True, "pixtral prefill",
+               gen=g_new)
+    whisper_call = flash_case(8, 1500, 8, 8, 64, False, bf16, True,
+                              "whisper encoder", gen=g_new)
+    flash_case(8, 16, 8, 8, 64, True, bf16, True, "whisper prefill",
+               gen=g_new)
 
     # -- decode_attention ---------------------------------------------------
-    def decode_case(B, Smax, Hq, Hkv, D, lengths, dt, main, what):
-        q = torch.randn(B, Hq, D, generator=g, device=dev).to(dt)
-        kc = torch.randn(B, Smax, Hkv, D, generator=g, device=dev).to(dt)
-        vc = torch.randn(B, Smax, Hkv, D, generator=g, device=dev).to(dt)
+    def decode_case(B, Smax, Hq, Hkv, D, lengths, dt, main, what, gen=g):
+        q = torch.randn(B, Hq, D, generator=gen, device=dev).to(dt)
+        kc = torch.randn(B, Smax, Hkv, D, generator=gen, device=dev).to(dt)
+        vc = torch.randn(B, Smax, Hkv, D, generator=gen, device=dev).to(dt)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         out = decode_attention(q, kc, vc, lens)
         again = decode_attention(q, kc, vc, lens)
@@ -677,6 +739,7 @@ def check_kernels(torch, peaks, seed: int):
                lambda: ref.decode_attention_ref(q, kc, vc, lens),
                2 * rows * Hkv * D * elem + 2 * B * Hq * D * elem + 4 * B,
                4 * rows * Hq * D, main, library, ops_of[dt])
+        return q, kc, vc, lens
 
     rng = np.random.default_rng(seed)
     main_lens = rng.integers(40, 200, size=8).tolist()
@@ -697,6 +760,13 @@ def check_kernels(torch, peaks, seed: int):
     wide = rng.integers(1, 4097, size=64).tolist()
     wide[0], wide[1] = 0, 5000          # an empty row, a row past Smax
     decode_case(64, 4096, 32, 8, 128, wide, bf16, False, "stress")
+    # the moe phase's decode (olmoe, 16/16 x 128) and the whisper phase's
+    # (8/8 x 64 in a 64-row cache: its 16-token prompts and 32 steps)
+    olmoe_lens = np.random.default_rng(seed + 1).integers(120, 185, size=8)
+    olmoe_call = decode_case(8, 512, 16, 16, 128, olmoe_lens.tolist(), bf16,
+                             True, "olmoe decode", gen=g_new)
+    decode_case(8, 64, 8, 8, 64, np.random.default_rng(seed + 2).integers(
+        17, 49, size=8).tolist(), bf16, True, "whisper decode", gen=g_new)
 
     # the C entry refuses a scratch smaller than its layout and a head dim
     # the tensor maps cannot take (the wrapper pads those)
@@ -926,6 +996,18 @@ def check_kernels(torch, peaks, seed: int):
           f"({', '.join(n[:50] for n in names)})", flush=True)
     need(len(names) == 1 and "topk_sim" in names[0],
          f"{what}: one call made {len(names)} device launches")
+    # whisper's encoder row and olmoe's decode row: one launch a call
+    for what, kern, call in (
+            ("flash_attention whisper encoder 8x1500x8/8x64 full",
+             "flash_attention",
+             lambda: flash_attention(*whisper_call, causal=False)),
+            ("decode_attention olmoe decode 8x512x16/16x128",
+             "decode_attention", lambda: decode_attention(*olmoe_call))):
+        names = device_events(torch, call)
+        print(f"check: {what} launches per call={len(names)} "
+              f"({', '.join(n[:50] for n in names)})", flush=True)
+        need(len(names) == 1 and kern in names[0],
+             f"{what}: one call made {len(names)} device launches")
     return results
 
 
@@ -2565,6 +2647,409 @@ def run_residency(torch, wl, seed, rwkv6_run):
         shutil.rmtree(base, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 14-17: the MoE, VLM and whisper families
+# ---------------------------------------------------------------------------
+MOE_SESSIONS = 128        # the slice's workload cut for olmoe's memory
+VLM_PROMPT = 128          # pixtral's prompt tokens beside its 64 patches
+WHISPER_PROMPT = 16       # whisper's decoder prompt beside its 1500 frames
+FAMILY_STEPS = 32         # decode steps of the vlm and whisper phases
+FLIP_MARGIN = 1e-5        # a router flip between devices below this is noise
+
+
+class MoeDrops:
+    """Counts the (token, choice) pairs ``moe_block`` drops past capacity,
+    by the caller: the memory's encoder, the engine's prefill or its decode
+    step. While it is entered, ``models.layers.moe_slots`` is wrapped to add
+    each call's count to a tensor on the card (no host sync); ``read`` takes
+    them to the host once."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.layers, self.orig = layers, layers.moe_slots
+        self.tag, self.sums = "encode", {}
+
+    def __enter__(self):
+        def counting(eidx, E, C):
+            keep, slot = self.orig(eidx, E, C)
+            dropped, total = self.sums.get(self.tag, (0, 0))
+            self.sums[self.tag] = (dropped + (keep.numel() - keep.sum()),
+                                   total + keep.numel())
+            return keep, slot
+        self.layers.moe_slots = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_slots = self.orig
+
+    def model(self, model):
+        """``model`` whose prefill and decode tag the calls they make."""
+        def tagged(tag, fn):
+            def call(*args):
+                outer, self.tag = self.tag, tag
+                try:
+                    return fn(*args)
+                finally:
+                    self.tag = outer
+            return call
+        return model._replace(prefill=tagged("prefill", model.prefill),
+                              decode=tagged("decode", model.decode))
+
+    def read(self):
+        return {tag: (int(d), n) for tag, (d, n) in self.sums.items()}
+
+
+def memory_shape(mf) -> str:
+    """The device index sizes of a memory: the shapes its ``topk_sim`` and
+    ``browse_scores`` calls take (the moe check rows' constants)."""
+    forest = mf.forest
+    fact_dev, nf = forest.fact_index_device()
+    root_dev, nr, _ = forest.root_index_device()
+    arena, _ = forest.node_arena()
+    nodes = sum(len(t.level) for t in forest.trees.values())
+    return (f"facts={nf} fact_capacity={fact_dev.shape[0]} roots={nr} "
+            f"root_capacity={root_dev.shape[0]} nodes={nodes} "
+            f"arena_rows={arena.shape[0]}")
+
+
+def check_launches(phase, counts, kernels) -> None:
+    print(f"{phase}: launches " + " ".join(
+        f"{k}={n} plain={p}" for k, (n, p) in counts.items()))
+    for k, (n, p) in counts.items():
+        need(p == 0, f"{k} ran its plain version {p} times on CUDA in the "
+             f"{phase} phase")
+    for k in kernels:
+        need(counts[k][0] > 0, f"{k} never launched on the {phase} path")
+
+
+def run_moe(torch, wl, seed):
+    """Phase 14: the serve engine on olmoe-1b-7b at its published width and
+    depth (bf16), its memory a ModelEncoder on the same weights, on the
+    slice's first MOE_SESSIONS sessions."""
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import MemorySink, Observability, Tracer
+
+    cfg = get_config("olmoe_1b_7b")
+    sessions = wl.sessions[:MOE_SESSIONS]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    print(f"moe: model={cfg.name} layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+          f"experts={cfg.num_experts} top_k={cfg.experts_per_token} "
+          f"d_ff={cfg.d_ff} capacity_factor={cfg.moe_capacity_factor} "
+          f"vocab={cfg.vocab_size} dtype={cfg.dtype} "
+          f"params={param_count(params):,} "
+          f"init_s={time.perf_counter() - t0:.2f} "
+          f"device_gib={torch.cuda.memory_allocated() / 2**30:.2f}", flush=True)
+
+    sink = MemorySink()
+    obs = Observability(tracer=Tracer(sink=sink, enabled=True))
+    engine, tok = build_engine(cfg, params, "cuda", obs)
+    prompts = decode_prompts(wl, tok, DECODE_PROMPTS)
+    kernels.reset_counts()
+    ingest_s, query_s, results = serve_traffic(
+        torch, engine, prompts, sessions, wl.queries, NEW_TOKENS)
+    counts = read_counts(REPLACES)
+
+    m = engine.metrics()
+    totals = span_totals(sink)
+    mf = engine.memory
+    decode_s = totals.get("engine.decode", 0.0)
+    print(f"moe: sessions={len(sessions)} round1_s={ingest_s:.4f} "
+          f"sessions_per_s={len(sessions) / ingest_s:.2f} "
+          f"ingest_extract_s={totals.get('ingest.extract', 0.0):.4f} "
+          f"encoder_tokens={mf.encoder.stats.tokens} "
+          f"encoder_calls={mf.encoder.stats.calls} stats={mf.scale_stats()}")
+    print(f"moe: queries_served={m['queries_served']} round2_s={query_s:.4f} "
+          f"decode_steps={m['decode_steps']} "
+          f"decoded_tokens={m['decoded_tokens']} decode_span_s={decode_s:.4f} "
+          f"decoded_tokens_per_s={m['decoded_tokens'] / decode_s:.1f} "
+          f"(decode spans) "
+          f"{m['decoded_tokens'] / (ingest_s + query_s):.1f} (wall) "
+          f"peak_device_gib={torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    print(f"moe: memory {memory_shape(mf)}")
+    print("moe: metrics " + json.dumps(m, sort_keys=True))
+    print("moe: span_s " + " ".join(
+        f"{k}={v:.4f}" for k, v in sorted(totals.items())), flush=True)
+    browse_spans("moe", sink)
+    check_launches("moe", counts, SERVE_KERNELS)
+    need(m["prefills_reused"] >= 1, "moe: the prefix cache was never reused")
+    need(len(results) == len(wl.queries)
+         and all(r is not None for r in results), "moe: a query went "
+         "unanswered")
+    need(len(engine.finished) == 2 * DECODE_PROMPTS and m["decoded_tokens"] > 0,
+         "moe: a decode request did not finish")
+    texts = [t.text for s in sessions[:8] for t in s.turns]
+    e1, e2 = mf.encoder.encode(texts), mf.encoder.encode(texts)
+    need(e1.shape == (len(texts), cfg.d_model) and bool(np.isfinite(e1).all()),
+         "moe: encoder output has the wrong shape or is not finite")
+    need(e1.tobytes() == e2.tobytes(), "moe: two encodes of one batch differ")
+    print(f"moe: encoder repeatable, {len(texts)} texts bitwise equal")
+    del engine, mf
+
+    # the drops, counted in an untimed repeat of the same traffic so that
+    # the timed run above is the engine's own code
+    engine, _ = build_engine(cfg, params, "cuda")
+    drops = MoeDrops()
+    engine.model = drops.model(engine.model)
+    with drops:
+        serve_traffic(torch, engine, prompts, sessions, wl.queries,
+                      NEW_TOKENS)
+    dropped = drops.read()
+    print("moe: dropped (token, choice) pairs past capacity, in an untimed "
+          "repeat " + " ".join(f"{tag}={d}/{n}"
+                               for tag, (d, n) in sorted(dropped.items())))
+    need(set(dropped) == {"encode", "prefill", "decode"},
+         f"moe: moe_block ran for {sorted(dropped)}")
+    del engine
+
+    engine, _ = build_engine(cfg, params, "cuda")
+    profiled_repeat(torch, "moe", lambda: serve_traffic(
+        torch, engine, prompts, sessions, wl.queries, NEW_TOKENS),
+        ingest_s + query_s, [ProfilerActivity.CUDA])
+    del engine, params
+    torch.cuda.empty_cache()
+    print(f"moe: device_gib after freeing the weights="
+          f"{torch.cuda.memory_allocated() / 2**30:.3f}")
+    return counts
+
+
+def run_family(torch, phase, arch, prompt, seed):
+    """Phases 15 (vlm, pixtral-12b) and 16 (whisper, whisper-base): bf16,
+    published width and depth; ``prefill`` of DECODE_PROMPTS prompts from
+    ``make_batch`` (pixtral's with its patch embeddings, whisper's with its
+    1500 frames), then FAMILY_STEPS greedy ``decode`` steps, after one
+    untimed warm-up of the same calls; then a profiled repeat for the
+    device's idle share."""
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, make_batch
+
+    cfg = get_config(arch)
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{phase}: model={cfg.name} family={cfg.family} "
+          f"layers={cfg.num_layers} encoder_layers={cfg.encoder_layers} "
+          f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} dtype={cfg.dtype} "
+          f"params={param_count(params):,} "
+          f"init_s={time.perf_counter() - t0:.2f} "
+          f"device_gib={torch.cuda.memory_allocated() / 2**30:.2f}", flush=True)
+    batch = make_batch(cfg, "prefill", DECODE_PROMPTS, prompt, seed,
+                       device="cuda")
+    max_len = 512 if cfg.family == "vlm" else 64
+    start = prompt + (cfg.num_patches if cfg.family == "vlm" else 0)
+
+    def run(steps):
+        logits, cache = model.prefill(params, batch, max_len)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = []
+        for _ in range(steps):
+            nxt = torch.argmax(logits, dim=-1)
+            out.append(nxt)
+            logits, cache = model.decode(params, {"tokens": nxt}, cache)
+        torch.cuda.synchronize()
+        return logits, cache, out, time.perf_counter() - t1
+
+    run(1)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    logits, cache, out, decode_s = run(FAMILY_STEPS)
+    prefill_s = time.perf_counter() - t0 - decode_s
+    counts = read_counts(REPLACES)
+    tokens = DECODE_PROMPTS * FAMILY_STEPS
+    print(f"{phase}: prompts={DECODE_PROMPTS} prompt_tokens={prompt} "
+          f"sequence_start={start} prefill_s={prefill_s:.4f} "
+          f"prefill_tokens_per_s={DECODE_PROMPTS * start / prefill_s:.1f} "
+          f"decode_steps={FAMILY_STEPS} decode_s={decode_s:.4f} "
+          f"decoded_tokens_per_s={tokens / decode_s:.1f} "
+          f"ms_per_step={decode_s / FAMILY_STEPS * 1e3:.2f} "
+          f"peak_device_gib={torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    check_launches(phase, counts, ATTENTION_KERNELS)
+    need(cache["lengths"].tolist() == [start + FAMILY_STEPS] * DECODE_PROMPTS,
+         f"{phase}: the cache's lengths are {cache['lengths'].tolist()}, "
+         f"want {start} + {FAMILY_STEPS}")
+    need(logits.shape == (DECODE_PROMPTS, cfg.vocab_size)
+         and bool(torch.isfinite(logits.float()).all()),
+         f"{phase}: the last logits have the wrong shape or are not finite")
+    need(counts["flash_attention"][0] >= cfg.num_layers + cfg.encoder_layers,
+         f"{phase}: flash_attention launched {counts['flash_attention'][0]} "
+         "times, fewer than the prefill's layers")
+    need(counts["decode_attention"][0] == cfg.num_layers * FAMILY_STEPS,
+         f"{phase}: decode_attention launched "
+         f"{counts['decode_attention'][0]} times, not one a layer a step")
+    del cache, logits
+    profiled_repeat(torch, phase, lambda: run(FAMILY_STEPS),
+                    prefill_s + decode_s, [ProfilerActivity.CUDA])
+    del params, batch
+    torch.cuda.empty_cache()
+    print(f"{phase}: device_gib after freeing the weights="
+          f"{torch.cuda.memory_allocated() / 2**30:.3f}")
+    return counts
+
+
+def run_moe_parity(torch, seed):
+    """olmoe at full width and depth 2, float32, through the engine on the
+    card and on the CPU with the same weights and traffic. The card run
+    records each moe_block call's input and routing; in the CPU run each
+    moe_block takes the card call's input (so noise does not build up
+    layer over layer), and its expert choices must equal the card's. A
+    choice that differs where the two probabilities lie within FLIP_MARGIN
+    is float noise between the devices: that token keeps the card's choice
+    and the flip is printed. A wider difference fails."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_workload
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("olmoe_1b_7b").replace(num_layers=2, dtype="float32",
+                                            param_dtype="float32")
+    wl = make_workload(num_entities=4, num_sessions=4,
+                       transitions_per_entity=3, num_queries=8, seed=seed)
+    gpu_params = T.init_params(cfg, seed, device="cuda")
+    cpu_params = to_cpu(gpu_params)
+    orig = L.moe_block
+    calls, flips, held = [], [], {"in_err": 0.0, "calls": 0}
+
+    def recording(p, x, cfg_):
+        xf = x.reshape(-1, x.shape[-1])
+        gw, gi, _ = L.moe_gate(p, xf, cfg_)
+        calls.append((x.cpu(), gi.cpu(), gw.cpu()))
+        return orig(p, x, cfg_)
+
+    def replaying(p, x, cfg_):
+        n = held["calls"]
+        need(n < len(calls), "moe parity: the CPU run made more moe_block "
+             "calls than the card's")
+        x_card, gi_card, gw_card = calls[n]
+        held["calls"] = n + 1
+        need(x_card.shape == x.shape, f"moe parity: call {n} has shape "
+             f"{tuple(x.shape)} on the CPU, {tuple(x_card.shape)} on the card")
+        held["in_err"] = max(held["in_err"],
+                             float((x - x_card).abs().max()))
+        T_, D = x.shape[0] * x.shape[1], x.shape[2]
+        xf = x_card.reshape(T_, D)
+        gw, gi, aux = L.moe_gate(p, xf, cfg_)
+        differ = (gi != gi_card).any(dim=1)
+        if bool(differ.any()):
+            probs = torch.softmax(xf @ p["router"], dim=-1)
+            for t in torch.arange(T_)[differ].tolist():
+                j = int((gi[t] != gi_card[t]).to(torch.int64).argmax())
+                a, b = int(gi[t, j]), int(gi_card[t, j])
+                margin = abs(float(probs[t, a] - probs[t, b]))
+                flips.append((n, t, j, a, b, margin))
+                need(margin < FLIP_MARGIN, f"moe parity: call {n} token {t} "
+                     f"choice {j}: expert {a} on the CPU, {b} on the card, "
+                     f"probabilities {margin:.3e} apart (noise is below "
+                     f"{FLIP_MARGIN})")
+            gi = torch.where(differ[:, None], gi_card, gi)
+            gw = torch.where(differ[:, None], gw_card, gw)
+        return L.moe_experts(p, xf, gw, gi, cfg_).reshape(x.shape), aux
+
+    runs = {}
+    texts = [t.text for s in wl.sessions[:2] for t in s.turns]
+    try:
+        for device, params, hook in (("cuda", gpu_params, recording),
+                                     ("cpu", cpu_params, replaying)):
+            L.moe_block = hook
+            engine, tok = build_engine(cfg, params, device)
+            t0 = time.perf_counter()
+            _, _, results = serve_traffic(torch, engine,
+                                          decode_prompts(wl, tok, 4),
+                                          wl.sessions, wl.queries, 8)
+            runs[device] = (engine, results, engine.memory.encoder.encode(
+                texts), time.perf_counter() - t0)
+    finally:
+        L.moe_block = orig
+    (ge, gres, gemb, gs), (ce, cres, cemb, cs) = runs["cuda"], runs["cpu"]
+    need(held["calls"] == len(calls), f"moe parity: the CPU run made "
+         f"{held['calls']} moe_block calls, the card's {len(calls)}")
+    need(held["in_err"] <= 1e-3, f"moe parity: a moe_block input differs "
+         f"between the devices by {held['in_err']:.3e}")
+    emb_err = float(np.abs(gemb - cemb).max())
+    need(emb_err <= 1e-4, f"moe parity: encoder embeddings differ by {emb_err}")
+    same_engines("family_parity olmoe", ge, ce, gres, cres)
+    fa = ge.memory.forest
+    tokens = sum(c[1].shape[0] for c in calls)
+    print(f"family_parity: {cfg.name} width, {cfg.num_layers} layers, "
+          f"float32: sessions={len(wl.sessions)} queries={len(gres)} "
+          f"decoded_tokens={ge.metrics()['decoded_tokens']} tokens equal, "
+          f"facts={len(fa.facts)} trees={len(fa.trees)} answers equal, "
+          f"embedding max_abs_err={emb_err:.3e} (tol 1e-4); "
+          f"moe_block calls={len(calls)} routed tokens={tokens}, each CPU "
+          f"layer on the card layer's input (inputs apart by at most "
+          f"{held['in_err']:.3e}); router flips={len(flips)}"
+          + (" (float noise, held on the card's choice: " + "; ".join(
+              f"call {n} token {t} choice {j} cpu {a} card {b} margin "
+              f"{mg:.3e}" for n, t, j, a, b, mg in flips[:8]) + ")"
+             if flips else "")
+          + f" card_s={gs:.3f} cpu_s={cs:.3f}", flush=True)
+    del runs, ge, ce, gpu_params, cpu_params, calls
+    torch.cuda.empty_cache()
+
+
+def run_family_parity(torch, seed):
+    """Phase 17: card against CPU in float32 with the same weights: olmoe
+    (run_moe_parity), then pixtral at full width and depth 2 and whisper at
+    full width and depth: equal greedy tokens, logits within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, make_batch
+
+    torch.cuda.reset_peak_memory_stats()
+    run_moe_parity(torch, seed)
+    for arch, layers, prompt in (("pixtral_12b", 2, 32),
+                                 ("whisper_base", None, WHISPER_PROMPT)):
+        cfg = get_config(arch).replace(dtype="float32", param_dtype="float32")
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        model = get_model(cfg)
+        gpu_params = model.init(seed, device="cuda")
+        cpu_params = to_cpu(gpu_params)
+        batch = make_batch(cfg, "prefill", 2, prompt, seed, device="cuda")
+        runs = {}
+        for device, params in (("cuda", gpu_params), ("cpu", cpu_params)):
+            b = {k: v.to(device) for k, v in batch.items()}
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, b, 128)
+            out, steps = [logits.cpu()], []
+            for _ in range(4):
+                nxt = torch.argmax(logits, dim=-1)
+                steps.append(nxt.tolist())
+                logits, cache = model.decode(params, {"tokens": nxt}, cache)
+                out.append(logits.cpu())
+            runs[device] = (out, steps, cache["lengths"].tolist(),
+                            time.perf_counter() - t0)
+        (gl, gt, glen, gs), (cl, ct, clen, cs) = runs["cuda"], runs["cpu"]
+        err = max(float((a - b).abs().max()) for a, b in zip(gl, cl))
+        need(gt == ct, f"family_parity {cfg.name}: decoded tokens differ: "
+             f"{gt} on the card, {ct} on the CPU")
+        need(glen == clen, f"family_parity {cfg.name}: cache lengths differ")
+        need(err <= 1e-4, f"family_parity {cfg.name}: logits differ by {err}")
+        print(f"family_parity: {cfg.name} width, {cfg.num_layers} layers, "
+              f"float32: batch 2, prompt {prompt}"
+              + (f" + {cfg.num_patches} patches" if cfg.family == "vlm"
+                 else f" + {cfg.encoder_seq_len} frames")
+              + f", 4 decode steps: tokens equal, logits max_abs_err="
+              f"{err:.3e} (tol 1e-4) card_s={gs:.3f} cpu_s={cs:.3f}",
+              flush=True)
+        del runs, gpu_params, cpu_params, batch
+        torch.cuda.empty_cache()
+    print("family_parity: peak_device_gib="
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -2734,7 +3219,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("residency")
 
-    # 14. kernels -----------------------------------------------------------
+    # 14. the serve engine on olmoe-1b-7b, its memory on the same weights ----
+    moe_counts = run_moe(torch, wl, args.seed)
+    stamp("moe")
+
+    # 15-16. pixtral-12b and whisper-base through prefill and decode ---------
+    vlm_counts = run_family(torch, "vlm", "pixtral_12b", VLM_PROMPT,
+                            args.seed)
+    stamp("vlm")
+    whisper_counts = run_family(torch, "whisper", "whisper_base",
+                                WHISPER_PROMPT, args.seed)
+    stamp("whisper")
+
+    # 17. the three families on the card and on the CPU ----------------------
+    run_family_parity(torch, args.seed)
+    stamp("family_parity")
+
+    # 18. kernels -----------------------------------------------------------
     summary = []
     for k in REPLACES:
         r = results[k]
@@ -2743,7 +3244,9 @@ def main() -> int:
                    "durable": durable_counts[k][0],
                    "maintenance_lane": lane_counts[k][0],
                    "baselines": baseline_counts[k][0],
-                   "residency": residency_counts[k][0]}
+                   "residency": residency_counts[k][0],
+                   "moe": moe_counts[k][0], "vlm": vlm_counts[k][0],
+                   "whisper": whisper_counts[k][0]}
         print(f"kernels: {k} launches={sum(by_path.values())} ("
               + ", ".join(f"{p} {n}" for p, n in by_path.items())
               + f") check=ok main_shape={r['shape']}")

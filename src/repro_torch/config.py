@@ -42,11 +42,12 @@ class MemForestConfig:
 class ModelConfig:
     """Architecture description.
 
-    ``family`` selects the block type. The port runs ``dense`` (pre-norm
-    GQA transformer, RoPE, SwiGLU / GeLU / relu^2 MLP), ``ssm`` (rwkv6) and
-    ``hybrid`` (zamba2); the other families (``moe``, ``encdec``, ``vlm``)
-    are described here so their configs load, and ``models.get_model``
-    refuses them.
+    ``family`` selects the block type, and the port runs every one:
+    ``dense`` (pre-norm GQA transformer, RoPE, SwiGLU / GeLU / relu^2 MLP),
+    ``moe`` (the same attention, a top-k routed expert MLP), ``vlm`` (dense,
+    with patch embeddings prepended to the tokens), ``encdec`` (whisper:
+    a bidirectional encoder, a decoder with cross-attention), ``ssm``
+    (rwkv6) and ``hybrid`` (zamba2).
     """
 
     name: str
@@ -114,6 +115,11 @@ class ModelConfig:
         return self.family == "ssm"
 
     @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic archs that run the long_500k shape."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
@@ -165,3 +171,17 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of an LM family: its size and which step it runs."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"

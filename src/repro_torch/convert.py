@@ -12,8 +12,9 @@ A dense transformer's parameters::
     params = transformer_params_from_numpy(
         jax.tree.map(np.asarray, jax_params), cfg, device="cuda")
 
-zamba2's and rwkv6's parameters go the same way through
-``zamba2_params_from_numpy`` and ``rwkv6_params_from_numpy``.
+The MoE and VLM families take the same converter; zamba2's, rwkv6's and
+whisper's parameters go the same way through ``zamba2_params_from_numpy``,
+``rwkv6_params_from_numpy`` and ``whisper_params_from_numpy``.
 """
 from __future__ import annotations
 
@@ -24,7 +25,6 @@ import torch
 
 from repro_torch.core.encoder import HashingEncoder
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import torch_dtype
 
 
 def hashing_encoder_from_numpy(table: np.ndarray, *, device=None,
@@ -38,34 +38,31 @@ def hashing_encoder_from_numpy(table: np.ndarray, *, device=None,
                           device=device, table=table)
 
 
-def _tensor(a, device, dtype=None) -> torch.Tensor:
-    """One leaf as a tensor on ``device``: in ``dtype``, or in the leaf's
-    own type when ``dtype`` is None. A bf16 array arrives as numpy's
-    bf16-compatible dtype (it becomes torch.bfloat16) or as float32, and
-    either way holds the same values."""
+def _tensor(a, device) -> torch.Tensor:
+    """One leaf as a tensor on ``device``, in the leaf's own type. A bf16
+    array arrives as numpy's bf16-compatible dtype (it becomes
+    torch.bfloat16)."""
     a = np.asarray(a)
     bf16 = a.dtype.kind == "V" or a.dtype.name == "bfloat16"
     if bf16:
         a = a.astype(np.float32)    # numpy has no native bf16
     t = torch.from_numpy(np.array(a, copy=True)).to(device)
-    if dtype is None and bf16:
-        dtype = torch.bfloat16
-    return t if dtype is None else t.to(dtype)
+    return t.to(torch.bfloat16) if bf16 else t
 
 
-def _tree(tree, device, dtype=None, index=None):
+def _tree(tree, device, index=None):
     """A dict tree of leaves as tensors; ``index`` picks one entry of a
     leading stacked axis."""
     if isinstance(tree, dict):
-        return {k: _tree(v, device, dtype, index) for k, v in tree.items()}
+        return {k: _tree(v, device, index) for k, v in tree.items()}
     a = np.asarray(tree)
-    return _tensor(a if index is None else a[index], device, dtype)
+    return _tensor(a if index is None else a[index], device)
 
 
-def _unstack(tree, cfg, device, dtype=None):
-    """Layers stacked along a leading axis -> the port's list of per-layer
-    dicts."""
-    return [_tree(tree, device, dtype, i) for i in range(cfg.num_layers)]
+def _unstack(tree, n, device):
+    """``n`` layers stacked along a leading axis -> the port's list of
+    per-layer dicts."""
+    return [_tree(tree, device, i) for i in range(n)]
 
 
 def _check_final_norm(params, cfg) -> None:
@@ -76,23 +73,24 @@ def _check_final_norm(params, cfg) -> None:
 
 def transformer_params_from_numpy(params: Dict[str, Any], cfg, *,
                                   device=None) -> Dict[str, Any]:
-    """The port's parameters from the JAX package's dense-transformer tree:
-    ``embed`` (V, D), ``layers`` stacked along a leading layer axis,
-    ``final_norm`` and ``unembed`` (absent when the embeddings are tied).
+    """The port's parameters from the JAX package's transformer tree (the
+    dense, MoE and VLM families): ``embed`` (V, D), ``layers`` stacked along
+    a leading layer axis, ``final_norm`` and ``unembed`` (absent when the
+    embeddings are tied).
 
     Projections keep the JAX layout, (d_in, d_out), applied as ``x @ w``:
     nothing is transposed. The stacked layers become the port's list of
-    per-layer dicts. Every tensor takes ``cfg.param_dtype``."""
+    per-layer dicts. Every leaf keeps its own type: an MoE layer's router is
+    float32 whatever ``cfg.param_dtype`` is."""
     dev = resolve_device(device)
-    dtype = torch_dtype(cfg.param_dtype)
     _check_final_norm(params, cfg)
     out = {
-        "embed": _tensor(params["embed"], dev, dtype),
-        "layers": _unstack(params["layers"], cfg, dev, dtype),
-        "final_norm": _tensor(params["final_norm"], dev, dtype),
+        "embed": _tensor(params["embed"], dev),
+        "layers": _unstack(params["layers"], cfg.num_layers, dev),
+        "final_norm": _tensor(params["final_norm"], dev),
     }
     if not cfg.tie_embeddings:
-        out["unembed"] = _tensor(params["unembed"], dev, dtype)
+        out["unembed"] = _tensor(params["unembed"], dev)
     return out
 
 
@@ -108,7 +106,7 @@ def zamba2_params_from_numpy(params: Dict[str, Any], cfg, *,
     _check_final_norm(params, cfg)
     return {
         "embed": _tensor(params["embed"], dev),
-        "layers": _unstack(params["layers"], cfg, dev),
+        "layers": _unstack(params["layers"], cfg.num_layers, dev),
         "shared_attn": _tree(params["shared_attn"], dev),
         "final_norm": _tensor(params["final_norm"], dev),
         "unembed": _tensor(params["unembed"], dev),
@@ -126,7 +124,26 @@ def rwkv6_params_from_numpy(params: Dict[str, Any], cfg, *,
     return {
         "embed": _tensor(params["embed"], dev),
         "ln_in": _tensor(params["ln_in"], dev),
-        "layers": _unstack(params["layers"], cfg, dev),
+        "layers": _unstack(params["layers"], cfg.num_layers, dev),
         "final_norm": _tensor(params["final_norm"], dev),
         "unembed": _tensor(params["unembed"], dev),
     }
+
+
+def whisper_params_from_numpy(params: Dict[str, Any], cfg, *,
+                              device=None) -> Dict[str, Any]:
+    """The port's parameters from the JAX package's whisper tree:
+    ``embed``, ``enc_layers`` and ``dec_layers`` (stacked; each becomes a
+    list of per-layer dicts, ``cfg.encoder_layers`` and ``cfg.num_layers``
+    of them), and the final layer norms with their biases. Nothing is
+    transposed, and every leaf keeps its own type."""
+    dev = resolve_device(device)
+    out = {
+        "embed": _tensor(params["embed"], dev),
+        "enc_layers": _unstack(params["enc_layers"], cfg.encoder_layers,
+                               dev),
+        "dec_layers": _unstack(params["dec_layers"], cfg.num_layers, dev),
+    }
+    for name in ("enc_norm", "enc_norm_b", "dec_norm", "dec_norm_b"):
+        out[name] = _tensor(params[name], dev)
+    return out

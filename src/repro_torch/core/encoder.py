@@ -166,9 +166,16 @@ class ModelEncoder:
 
     Each call pads its texts to the longest of them (at most ``max_len``
     tokens), right-padded; causal attention keeps the padding out of the
-    real positions, and the pool's mask keeps it out of the mean."""
+    real positions, and the pool's mask keeps it out of the mean. On an MoE
+    trunk the padding counts toward the experts' capacity, as in the
+    reference, so a text's embedding depends on the batch it comes in."""
 
     def __init__(self, cfg, params, tokenizer, max_len: int = 128):
+        if cfg.family not in transformer.FAMILIES:
+            raise ValueError(
+                f"{cfg.name}: ModelEncoder runs the transformer trunk of the "
+                f"{', '.join(transformer.FAMILIES)} families, not "
+                f"{cfg.family}")
         self.cfg = cfg
         self.params = params
         self.tok = tokenizer

@@ -39,8 +39,9 @@ class Forest:
         if not config.level_parallel:
             raise NotImplementedError(
                 "level_parallel=False (one tree_refresh launch per node, the "
-                "paper's Fig. 6c ablation) is not ported; the port always "
-                "refreshes one batched launch per tree level")
+                "paper's Fig. 6c ablation) is not ported (ROADMAP.md, queue "
+                "1, item 8); the port always refreshes one batched launch "
+                "per tree level")
         self.config = config
         self.device = torch.device(device)
         self.obs = get_obs(obs)

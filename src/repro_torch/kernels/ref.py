@@ -134,7 +134,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
     """GQA attention over one sequence: q (B, S, Hq, D), k/v (B, S, Hkv, D)
     -> (B, S, Hq, D) in q's type. Computed in float32; masked scores are
-    -1e30. Query head h reads KV head ``h // (Hq // Hkv)``."""
+    -1e30. Query head h reads KV head ``h // (Hq // Hkv)``. Full
+    (``causal=False``), k and v may have another length than q: whisper's
+    cross-attention, which no kernel computes."""
     B, S, Hq, D = q.shape
     group = Hq // k.shape[2]
     if group > 1:

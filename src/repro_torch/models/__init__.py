@@ -1,4 +1,5 @@
-"""Models the port runs: the dense transformer family, rwkv6 and zamba2."""
-from repro_torch.models.factory import Model, get_model
+"""Models the port runs: the dense, MoE and VLM transformer families,
+whisper, rwkv6 and zamba2."""
+from repro_torch.models.factory import Model, get_model, make_batch
 
-__all__ = ["Model", "get_model"]
+__all__ = ["Model", "get_model", "make_batch"]

@@ -6,26 +6,24 @@
     model.decode(params, batch, cache) -> (logits, cache)
     model.init_cache(batch, max_len, device=...) -> empty cache
 
-Counterpart of the JAX package's ``models/factory.py``. The dense, ``ssm``
-(rwkv6) and ``hybrid`` (zamba2) families run; training (``loss``) and the
-shape-only ``cache_specs`` of the dry-run tooling are not ported yet
-(ROADMAP.md, queue 1, item 7). Every other family raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+Counterpart of the JAX package's ``models/factory.py``: the dense, ``moe``
+and ``vlm`` families run in ``transformer``, ``ssm`` in ``rwkv6``,
+``hybrid`` in ``zamba2`` and ``encdec`` in ``whisper``. ``make_batch``
+builds a seeded random batch of any family. Training (``loss``) and the
+dry-run tooling (``cache_specs``, ``param_specs``, ``input_specs``) are not
+ported yet (ROADMAP.md, queue 1, item 7).
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple
+
+import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import rwkv6, transformer, zamba2
-
-# family -> the ROADMAP.md queue-1 item that ports it
-_NOT_PORTED = {
-    "moe": "queue 1, item 6 (the MoE block of models/layers.py)",
-    "vlm": "queue 1, item 6 (the VLM patch-embedding stub)",
-    "encdec": "queue 1, item 6 (whisper and cross-attention)",
-}
+from repro_torch.device import resolve_device
+from repro_torch.models import rwkv6, transformer, whisper, zamba2
+from repro_torch.models.layers import torch_dtype
 
 
 class Model(NamedTuple):
@@ -36,14 +34,11 @@ class Model(NamedTuple):
     init_cache: Callable[..., Any]
 
 
-_MODULES = {"dense": transformer, "ssm": rwkv6, "hybrid": zamba2}
+_MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+            "ssm": rwkv6, "hybrid": zamba2, "encdec": whisper}
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; "
-            f"ROADMAP.md {_NOT_PORTED[cfg.family]}")
     if cfg.family not in _MODULES:
         raise ValueError(cfg.family)
     mod = _MODULES[cfg.family]
@@ -56,3 +51,36 @@ def get_model(cfg: ModelConfig) -> Model:
                                                             cache),
         init_cache=functools.partial(mod.init_cache, cfg),
     )
+
+
+def make_batch(cfg: ModelConfig, shape_kind: str, batch: int, seq: int,
+               seed: int = 0, *, device=None) -> Dict[str, torch.Tensor]:
+    """A random batch from a seeded ``torch.Generator`` on ``device`` (None
+    means the CUDA card): ``tokens`` (B, S), or (B,) for ``"decode"``,
+    uniform in [0, vocab); ``labels`` (B, S) for ``"train"``; whisper's
+    ``frames`` (B, encoder_seq_len, D) and the VLM's ``patch_embeds`` (B,
+    num_patches, D), standard normal in ``cfg.dtype``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = torch_dtype(cfg.dtype)
+    out: Dict[str, torch.Tensor] = {}
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=dev).to(dtype)
+
+    def ids(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device=dev)
+
+    if cfg.family == "encdec":
+        out["frames"] = normal(batch, cfg.encoder_seq_len, cfg.d_model)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = normal(batch, cfg.num_patches, cfg.d_model)
+    if shape_kind == "decode":
+        out["tokens"] = ids(batch)
+        return out
+    out["tokens"] = ids(batch, seq)
+    if shape_kind == "train":
+        out["labels"] = ids(batch, seq)
+    return out

@@ -1,10 +1,14 @@
-"""Decoder-only LM, dense family: init, trunk, prefill and decode.
+"""Decoder-only LM, the dense, MoE and VLM families: init, trunk, prefill
+and decode.
 
 Counterpart of the JAX package's ``models/transformer.py``. Parameters are a
 dict: ``embed`` (V, D), ``layers`` (a list with one dict per layer: ``ln1``,
-``ln2``, ``attn``, ``mlp``), ``final_norm`` and, unless the embeddings are
-tied, ``unembed`` (D, V). The JAX package stacks the layers along a leading
-axis for ``lax.scan``; here a Python loop walks the list.
+``ln2``, ``attn``, and ``mlp``, or ``moe`` for the MoE family),
+``final_norm`` and, unless the embeddings are tied, ``unembed`` (D, V). The
+JAX package stacks the layers along a leading axis for ``lax.scan``; here a
+Python loop walks the list. The VLM family's batches may carry
+``patch_embeds`` (B, P, D), prepended to the token embeddings at prefill
+(positions and the cache's ``lengths`` count them); decode ignores them.
 
 The KV cache is a dict ``{"k", "v": (L, B, max_len, Hkv, Dh) in cfg.dtype,
 "lengths": (B,) int32}`` on the parameters' device. ``decode_step`` writes
@@ -22,6 +26,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 
+FAMILIES = ("dense", "moe", "vlm")
+
 
 # ---------------------------------------------------------------------------
 # init
@@ -30,22 +36,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device=None) -> Dict[str, Any]:
     """Random weights from a seeded ``torch.Generator`` on ``device`` (None
     means the CUDA card), with the reference's distributions: dense
-    normal * 1/sqrt(d_in), embeddings normal * 0.02, norms ones."""
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.family}: models.transformer builds the dense "
-                         "family; get_model(cfg) picks the module of a "
-                         "family")
+    normal * 1/sqrt(d_in), embeddings normal * 0.02, norms ones; an MoE
+    layer's router in float32 and its experts normal * 1/sqrt(d_in)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.family}: models.transformer builds the "
+                         f"{', '.join(FAMILIES)} families; get_model(cfg) "
+                         "picks the module of a family")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = L.torch_dtype(cfg.param_dtype)
+
+    def layer():
+        p = {"ln1": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+             "ln2": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+             "attn": L.attn_init(gen, cfg, dtype)}
+        if cfg.family == "moe":
+            p["moe"] = L.moe_init(gen, cfg, dtype)
+        else:
+            p["mlp"] = L.mlp_init(gen, cfg, dtype)
+        return p
+
     params: Dict[str, Any] = {
         "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
-        "layers": [{
-            "ln1": torch.ones(cfg.d_model, dtype=dtype, device=dev),
-            "ln2": torch.ones(cfg.d_model, dtype=dtype, device=dev),
-            "attn": L.attn_init(gen, cfg, dtype),
-            "mlp": L.mlp_init(gen, cfg, dtype),
-        } for _ in range(cfg.num_layers)],
+        "layers": [layer() for _ in range(cfg.num_layers)],
         "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
     }
     if not cfg.tie_embeddings:
@@ -57,7 +70,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
 # ---------------------------------------------------------------------------
 # shared trunk
 # ---------------------------------------------------------------------------
+def _ffn(cfg: ModelConfig, p, h):
+    """The layer's MLP or MoE block: (out, aux loss or None without
+    experts)."""
+    if cfg.family == "moe":
+        return L.moe_block(p["moe"], h, cfg)
+    return L.mlp_block(p["mlp"], h, cfg), None
+
+
 def _layer_fwd(cfg: ModelConfig, p, x, positions, *, return_kv=False):
+    """One layer over (B, S, D): (x, aux, and (k, v) if ``return_kv``)."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     att = L.attention_prefill(p["attn"], h, cfg, positions,
                               return_kv=return_kv)
@@ -65,18 +87,20 @@ def _layer_fwd(cfg: ModelConfig, p, x, positions, *, return_kv=False):
         att, kv = att
     x = x + att
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + L.mlp_block(p["mlp"], h, cfg)
-    return (x, kv) if return_kv else x
+    y, aux = _ffn(cfg, p, h)
+    return (x + y, aux, kv) if return_kv else (x + y, aux)
 
 
 def trunk(params, cfg: ModelConfig, x: torch.Tensor,
           positions: torch.Tensor):
-    """x: (B, S, D) embeddings -> (hidden (B, S, D), aux_loss). The dense
-    family has no auxiliary loss: it is 0."""
+    """x: (B, S, D) embeddings -> (hidden (B, S, D), aux_loss): the MoE
+    layers' aux losses summed in float32, 0 for the other families."""
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params["layers"]:
-        x = _layer_fwd(cfg, p, x, positions)
-    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return h, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = _layer_fwd(cfg, p, x, positions)
+        if aux is not None:
+            total = total + aux
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), total
 
 
 def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -92,8 +116,12 @@ def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 def _embed_batch(params, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Token embedding: (B, S) ids -> (B, S, D)."""
-    return params["embed"][batch["tokens"]]
+    """Token embedding, (B, S) ids -> (B, S, D); for the VLM family the
+    batch's ``patch_embeds`` (B, P, D) go in front: (B, P + S, D)."""
+    x = params["embed"][batch["tokens"]]
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -115,13 +143,14 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             max_len: int):
     """Full-sequence forward; returns (last logits (B, V), cache). The
     cache is ``max_len`` wide (``S`` if the prompt is longer, as the
-    reference pads only up to ``max_len``)."""
+    reference pads only up to ``max_len``). S counts a VLM batch's
+    patches."""
     x = _embed_batch(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     cache = init_cache(cfg, B, max(max_len, S), device=x.device)
     for i, p in enumerate(params["layers"]):
-        x, (k, v) = _layer_fwd(cfg, p, x, positions, return_kv=True)
+        x, _, (k, v) = _layer_fwd(cfg, p, x, positions, return_kv=True)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -132,8 +161,9 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 def decode_step(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                 cache: Dict[str, torch.Tensor]):
-    """One-token decode. batch: {"tokens": (B,) int}. Returns (logits (B,
-    V), cache with the new rows written in place and lengths + 1)."""
+    """One-token decode. batch: {"tokens": (B,) int} (a VLM batch's
+    patches are ignored). Returns (logits (B, V), cache with the new rows
+    written in place and lengths + 1)."""
     x = params["embed"][batch["tokens"]]           # (B, D)
     lengths = cache["lengths"]
     for i, p in enumerate(params["layers"]):
@@ -142,7 +172,8 @@ def decode_step(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                                        cache["v"][i], lengths)
         x = x + att
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + L.mlp_block(p["mlp"], h, cfg)
+        y, _ = _ffn(cfg, p, h[:, None, :])
+        x = x + y[:, 0]
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, h)
     return logits, {"k": cache["k"], "v": cache["v"], "lengths": lengths + 1}

@@ -41,7 +41,10 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.compression, repro_torch.runtime.checkpoint, "
             "repro_torch.runtime.fault_tolerance, "
             "repro_torch.core.residency, repro_torch.core.baselines, "
-            "repro_torch.core.baselines.base; "
+            "repro_torch.core.baselines.base, repro_torch.models.whisper, "
+            "repro_torch.configs.olmoe_1b_7b, repro_torch.configs.pixtral_12b, "
+            "repro_torch.configs.whisper_base, "
+            "repro_torch.configs.qwen3_moe_235b, repro_torch.configs.shapes; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); "
             "sys.exit(1 if bad else 0)")

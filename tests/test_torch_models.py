@@ -34,13 +34,14 @@ from repro.models import get_model as jax_get_model
 from repro.models import layers as jax_layers
 from repro.models import transformer as jax_transformer
 from repro_torch import MemForestConfig, MemForestSystem, kernels
+from repro_torch.configs import ARCHS as ALL_ARCHS
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import transformer_params_from_numpy
 from repro_torch.core.encoder import EncoderStats, ModelEncoder
 from repro_torch.data.synthetic import make_workload as torch_make_workload
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.kernels import ops
-from repro_torch.models import get_model
+from repro_torch.models import get_model, make_batch
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -362,13 +363,25 @@ def test_bf16_prefill_and_decode():
         assert t[0].dtype == torch.bfloat16 and t[1]["k"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "encdec"])
-def test_other_families_are_refused(family):
-    from repro_torch.config import ModelConfig
-    cfg = ModelConfig(name="x", family=family, num_layers=1, d_model=8,
-                      num_heads=1, num_kv_heads=1, d_ff=8, vocab_size=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_get_model_builds_every_arch(arch):
+    """Every family the reference has: the smoke config's own init on the
+    CPU, a prefill and one decode step with finite logits of the right
+    shape, and the cache's lengths moved on by one."""
+    cfg = get_smoke_config(arch)
+    model = get_model(cfg)
+    params = model.init(0, device="cpu")
+    batch = make_batch(cfg, "prefill", 2, 8, 0, device="cpu")
+    logits, cache = model.prefill(params, batch, 16)
+    assert logits.shape == (2, cfg.vocab_size)
+    assert bool(torch.isfinite(logits.float()).all())
+    step = make_batch(cfg, "decode", 2, 1, 1, device="cpu")
+    logits, cache2 = model.decode(params, step, cache)
+    assert logits.shape == (2, cfg.vocab_size)
+    assert bool(torch.isfinite(logits.float()).all())
+    if "lengths" in cache:
+        S = 8 + (cfg.num_patches if cfg.family == "vlm" else 0)
+        assert cache2["lengths"].tolist() == [S + 1] * 2
 
 
 # ---------------------------------------------------------------------------
