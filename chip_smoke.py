@@ -37,6 +37,22 @@ Phases, each printed on its own line; any failed check exits nonzero:
               card (no children, no query matrix) and launch one kernel. The
               same run on the CPU must give the same facts, trees, answers and
               evidence, and embeddings within 1e-5.
+  4b. ablations  ``benchmarks/bench_tree_scaling.py``'s sweeps of the paper's
+              Figure 6 on the card at D = 256, through the port's ``Forest``:
+              (a) lazy flush against eager per-insert refresh at 64, 256 and
+              1024 facts in one tree (summary refreshes, ``tree_refresh``
+              launches, seconds; equal trees); (c) ``flush(level_parallel=
+              True)`` against ``False`` at the same sizes (launches must
+              equal ``kernel_calls``, embeddings within 1e-5); (d/e) the
+              branching factor K = 3, 4, 8, 16, 32, 64 over 512 facts in 16
+              trees, 128 queries through ``topk_sim`` over ``root_index()``
+              (root recall, height), the flushes at K = 3, 32 and 64 held
+              against the plain version (1e-5). The sweeps (c) and (d/e) on
+              the CPU must give the same trees, counters, hits and heights.
+              Then ``MemForestSystem(eager=True)`` against the lazy system on
+              the slice's first 128 sessions: equal facts, trees, placement
+              and answers in the six modes, embeddings within 1e-5; both
+              systems' sessions/s, summary refreshes and launches printed.
   5. serve    the serve engine on llama3-8b at its published width and depth
               (bf16, random weights from a seeded generator on the card):
               ``ServeEngine(max_batch=8, max_len=512)`` whose memory is a
@@ -182,11 +198,6 @@ ROOT = Path(__file__).resolve().parent
 MODES = ("flat", "root-only", "emb", "emb+planner", "llm", "llm+planner")
 SLEEP_CYCLES = 2_000_000     # keeps the stream busy while launches queue up
 TIMING_REPS = 25
-# memory rate (bytes/s), non-tensor fp32 rate and dense bf16 tensor-core rate
-# (FLOP/s) of the H100 SXM, from NVIDIA's data sheet; the bounds are computed
-# for this card only. A bf16 kernel's bound uses the bf16 rate: the least
-# time the card could take for its work.
-H100_SXM_PEAKS = {"bytes": 3.35e12, "fp32": 67e12, "bf16": 989e12}
 REPLACES = {
     "tree_refresh": "src/repro/kernels/tree_refresh.py:54",
     "topk_sim": "src/repro/kernels/topk_sim.py:149",
@@ -330,9 +341,16 @@ def device_events(torch, fn):
 
 
 def peaks_for(name: str):
+    """The memory rate (bytes/s), the non-tensor fp32 rate and the dense bf16
+    tensor-core rate (FLOP/s) of the H100 SXM, from NVIDIA's data sheet, as
+    ``repro_torch.launch.roofline`` holds them; the bounds are computed for
+    this card only. A bf16 kernel's bound uses the bf16 rate: the least time
+    the card could take for its work."""
+    from repro_torch.launch import roofline
     need("H100" in name and not any(v in name for v in ("PCIe", "NVL")),
          f"no peak figures for {name!r}: the bounds hold for the H100 SXM")
-    return H100_SXM_PEAKS
+    return {"bytes": roofline.HBM_BW, "fp32": roofline.PEAK_FLOPS_FP32,
+            "bf16": roofline.PEAK_FLOPS}
 
 
 def bound_ms(nbytes: float, flops: float, peaks, op: str = "fp32"):
@@ -362,6 +380,8 @@ def check_kernels(torch, peaks, seed: int):
     # rows added later draw from a generator of their own, so that adding a
     # row leaves the inputs of every other row as they were
     g_new = torch.Generator(device=dev).manual_seed(seed)
+    # the ablations' rows (K = 3 and 64) draw from a third
+    g_abl = torch.Generator(device=dev).manual_seed(seed + 1)
     results = {}
 
     def record(name, label, err, tol, fn, plain, nbytes, flops, main,
@@ -392,12 +412,15 @@ def check_kernels(torch, peaks, seed: int):
     # -- tree_refresh -------------------------------------------------------
     # the slice's flush launches 128, 32, 16 (and fewer) parents at D = 256;
     # D = 3072 (phi3-mini's width) is a cluster of 4 over slices of 768, and
-    # D = 36004 slices wider than one pass of a block, with D % 8 == 4
+    # D = 36004 slices wider than one pass of a block, with D % 8 == 4; the
+    # ablations' k sweep gives the first level 176 parents of 3 children
+    # (256 with the padding) at K = 3 and 16 parents of 32 at K = 64
     for (P, K, D), main, gen in (
             ((128, 8, 256), True, g), ((128, 8, 4096), True, g),
             ((32, 8, 256), True, g), ((16, 8, 256), True, g),
             ((4096, 16, 256), False, g), ((128, 8, 3072), False, g_new),
-            ((8, 4, 36004), False, g_new), ((128, 8, 2048), True, g_new)):
+            ((8, 4, 36004), False, g_new), ((128, 8, 2048), True, g_new),
+            ((256, 3, 256), False, g_abl), ((16, 64, 256), False, g_abl)):
         emb = ref.normalize_rows(torch.randn(
             P * K, D, generator=gen, device=dev)).reshape(P, K, D).contiguous()
         cnt = torch.randint(0, K + 1, (P,), generator=gen, device=dev)
@@ -1224,6 +1247,304 @@ def span_totals(sink):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the write-path ablations of the paper's Figure 6
+# ---------------------------------------------------------------------------
+ABLATION_DIM = 256                # benchmarks/common.py's EMB_DIM
+ABLATION_SIZES = (64, 256, 1024)  # facts in one tree (Fig. 6a and 6c)
+K_SWEEP = (3, 4, 8, 16, 32, 64)   # branching factors (Fig. 6d/e)
+K_SWEEP_FACTS = 512
+K_SWEEP_TREES = 16
+K_SWEEP_TRIALS = 128
+K_CHECKED = (3, 32, 64)           # K the main path never gives tree_refresh
+EAGER_SESSIONS = 128              # the slice's first sessions
+
+
+def unit_rows(rng, n):
+    """``n`` random unit rows of ABLATION_DIM floats, drawn as
+    ``bench_tree_scaling._facts`` draws them."""
+    embs = rng.normal(size=(n, ABLATION_DIM)).astype(np.float32)
+    embs /= np.linalg.norm(embs, axis=1, keepdims=True) + 1e-6
+    return embs
+
+
+def measured(torch, device, fn):
+    """(fn's result, seconds, tree_refresh launches, its plain calls) of one
+    call of ``fn``, the device's work included."""
+    from repro_torch.kernels import COUNTS
+    count = COUNTS["tree_refresh"]
+    l0, p0 = count.launches, count.plain_calls
+    t0 = time.perf_counter()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, count.launches - l0,
+            count.plain_calls - p0)
+
+
+def one_tree(device, embs, eager=False):
+    """``bench_tree_scaling``'s tree: one entity tree of ``embs``'s facts,
+    flushed once at the end (lazy) or refreshed after every insert
+    (``eager``, the paper's Fig. 6a baseline)."""
+    from repro_torch.config import MemForestConfig
+    from repro_torch.core.forest import Forest
+    forest = Forest(MemForestConfig(embed_dim=ABLATION_DIM), device)
+    for i in range(embs.shape[0]):
+        forest.insert_item("entity:a", "entity", "fact", i, float(i), embs[i],
+                           f"f{i}")
+        if eager:
+            forest.eager_refresh_path("entity:a")
+    return forest
+
+
+def lazy_vs_eager(torch, device, sizes=ABLATION_SIZES):
+    """``bench_tree_scaling.lazy_vs_eager`` (Fig. 6a): per size, the lazy
+    and the eager tree as ``measured`` gives them."""
+    rng = np.random.default_rng(0)
+    rows = []
+    for n in sizes:
+        embs = unit_rows(rng, n)
+
+        def lazy():
+            forest = one_tree(device, embs)
+            forest.flush()
+            return forest
+        rows.append((n, measured(torch, device, lazy),
+                     measured(torch, device,
+                              lambda: one_tree(device, embs, eager=True))))
+    return rows
+
+
+def level_parallel(torch, device, sizes=ABLATION_SIZES):
+    """``bench_tree_scaling.level_parallel`` (Fig. 6c): per size, (the
+    level-parallel tree, the per-node tree, each flush ``measured``)."""
+    rng = np.random.default_rng(2)
+    rows = []
+    for n in sizes:
+        embs = unit_rows(rng, n)
+        fa, fb = one_tree(device, embs), one_tree(device, embs)
+        rows.append((n, fa, measured(torch, device,
+                                     lambda: fa.flush(level_parallel=True)),
+                     fb, measured(torch, device,
+                                  lambda: fb.flush(level_parallel=False))))
+    return rows
+
+
+class RefreshRecorder:
+    """While entered, ``repro_torch.kernels.ops.tree_refresh`` (the forest's
+    entry) keeps each call's inputs and output, so that a flush can be held
+    against the plain version afterwards."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.calls, self._ops = [], ops
+        self._orig = ops.tree_refresh
+
+        def recording(emb, mask):
+            out = self._orig(emb, mask)
+            self.calls.append((emb, mask, out))
+            return out
+        ops.tree_refresh = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.tree_refresh = self._orig
+        return False
+
+    def max_err(self) -> float:
+        """The largest distance of a recorded output from the plain version
+        on its inputs; an empty parent must give a zero row."""
+        from repro_torch.kernels import ref
+        err = 0.0
+        for emb, mask, out in self.calls:
+            want = ref.tree_refresh_ref(emb, mask)
+            err = max(err, float((out - want).abs().max()))
+            need(bool((out[mask.sum(1) == 0] == 0).all()),
+                 "tree_refresh: empty parents must give zero rows")
+        return err
+
+
+def k_sweep(torch, device, ks=K_SWEEP, n=K_SWEEP_FACTS, checked=()):
+    """``bench_tree_scaling.k_sweep`` (Fig. 6d/e): per K, 16 trees of
+    ``n / 16`` facts around a random centre each, one flush, then 128
+    queries by a random fact's own embedding through ``topk_sim`` over
+    ``root_index()``: a hit when the top root is the fact's tree. Returns
+    per K (K, hits in trial order, the tallest tree's height, the flush's
+    largest error against the plain version when K is in ``checked``)."""
+    from repro_torch.config import MemForestConfig
+    from repro_torch.core.forest import Forest
+    from repro_torch.kernels.topk_sim import topk_sim
+
+    rng = np.random.default_rng(3)
+    per_tree = n // K_SWEEP_TREES
+    rows = []
+    for k in ks:
+        forest = Forest(MemForestConfig(embed_dim=ABLATION_DIM,
+                                        branching_factor=k), device)
+        owner = {}
+        fact_embs = np.zeros((n, ABLATION_DIM), np.float32)
+        for t in range(K_SWEEP_TREES):
+            base = rng.normal(size=ABLATION_DIM).astype(np.float32)
+            base /= np.linalg.norm(base)
+            for i in range(per_tree):
+                e = base + 0.9 * rng.normal(size=ABLATION_DIM).astype(
+                    np.float32)
+                e /= np.linalg.norm(e) + 1e-6
+                fid = t * per_tree + i
+                fact_embs[fid] = e
+                forest.insert_item(f"entity:e{t}", "entity", "fact", fid,
+                                   float(i), e, f"f{fid}")
+                owner[fid] = t
+        err = None
+        if k in checked:
+            with RefreshRecorder() as rec:
+                forest.flush()
+            err = rec.max_err()
+        else:
+            forest.flush()
+        roots, n_valid, order = forest.root_index()
+        keys = torch.from_numpy(roots).to(device)
+        hits = []
+        for _ in range(K_SWEEP_TRIALS):
+            fid = int(rng.integers(0, n))
+            q = torch.from_numpy(fact_embs[fid][None]).to(device)
+            _, idx = topk_sim(q, keys, 1, num_valid=n_valid)
+            hits.append(order[int(idx[0, 0])] == f"entity:e{owner[fid]}")
+        rows.append((k, hits, max(t.height for t in forest.trees.values()),
+                     err))
+    return rows
+
+
+def tree_shape(forest):
+    """The integer structure of every tree of a forest."""
+    return {key: (t.children, t.level, t.root)
+            for key, t in forest.trees.items()}
+
+
+def eager_system(torch, wl, device, eager):
+    """``MemForestSystem(eager=...)`` on the slice's first EAGER_SESSIONS
+    sessions in batches of 16 (eager ingests them one by one), then its
+    queries in the six modes. Returns (system, answers, ingest seconds,
+    {kernel: (launches, plain calls)} of the ingest and the queries)."""
+    from repro_torch import MemForestSystem
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    before = read_counts(SLICE_KERNELS)
+    mf = MemForestSystem(device=device, eager=eager)
+    sessions = wl.sessions[:EAGER_SESSIONS]
+    t0 = time.perf_counter()
+    for i in range(0, len(sessions), 16):
+        mf.ingest_batch(sessions[i:i + 16])
+    sync()
+    ingest_s = time.perf_counter() - t0
+    answers = {m: [(r.answer, r.evidence)
+                   for r in mf.query_batch(wl.queries, mode=m)]
+               for m in MODES}
+    sync()
+    after = read_counts(SLICE_KERNELS)
+    return mf, answers, ingest_s, {
+        k: (after[k][0] - before[k][0], after[k][1] - before[k][1])
+        for k in SLICE_KERNELS}
+
+
+def run_ablations(torch, wl):
+    """Phase 4b: ``bench_tree_scaling``'s three sweeps on the card, held
+    against the same sweeps on the CPU, then the eager system against the
+    lazy one on the slice's first sessions."""
+    from repro_torch import kernels
+
+    t_phase = time.perf_counter()
+    kernels.reset_counts()
+    for n, (lazy, lazy_s, lazy_l, lazy_p), (eager, eager_s, eager_l,
+                                            eager_p) in lazy_vs_eager(
+                                                torch, "cuda"):
+        need(lazy_p == 0 and eager_p == 0, "ablations: tree_refresh ran its "
+             "plain version on CUDA")
+        need(tree_shape(lazy) == tree_shape(eager), f"ablations: N={n}: the "
+             "eager tree's shape differs from the lazy tree's")
+        err = float(np.abs(lazy.trees["entity:a"].emb
+                           - eager.trees["entity:a"].emb).max())
+        need(err <= 1e-5, f"ablations: N={n}: eager and lazy embeddings "
+             f"differ by {err}")
+        print(f"ablations: lazy_vs_eager N={n} summary_refreshes lazy="
+              f"{lazy.summary_refreshes} eager={eager.summary_refreshes} "
+              f"reduction={eager.summary_refreshes / lazy.summary_refreshes:.2f}x"
+              f" tree_refresh_launches lazy={lazy_l} eager={eager_l} "
+              f"seconds lazy={lazy_s:.4f} eager={eager_s:.4f} "
+              f"emb_err={err:.3e}", flush=True)
+
+    card_par = level_parallel(torch, "cuda")
+    for n, fa, (ra, sa, la, pa), fb, (rb, sb, lb, pb) in card_par:
+        need(pa == 0 and pb == 0, "ablations: tree_refresh ran its plain "
+             "version on CUDA")
+        need(la == ra["kernel_calls"] and lb == rb["kernel_calls"],
+             f"ablations: N={n}: tree_refresh launched {la} and {lb} times "
+             f"for kernel_calls {ra['kernel_calls']} and {rb['kernel_calls']}")
+        need(ra["refreshes"] == rb["refreshes"]
+             and ra["levels"] == rb["levels"], f"ablations: N={n}: the two "
+             "flushes refreshed different nodes")
+        err = float(np.abs(fa.trees["entity:a"].emb
+                           - fb.trees["entity:a"].emb).max())
+        need(err <= 1e-5, f"ablations: N={n}: per-node and level-parallel "
+             f"embeddings differ by {err}")
+        print(f"ablations: level_parallel N={n} kernel_calls parallel="
+              f"{ra['kernel_calls']} per_node={rb['kernel_calls']} "
+              f"launches parallel={la} per_node={lb} seconds parallel="
+              f"{sa:.4f} per_node={sb:.4f} speedup={sb / sa:.2f}x "
+              f"emb_err={err:.3e}", flush=True)
+
+    card_k = k_sweep(torch, "cuda", checked=K_CHECKED)
+    for k, hits, height, err in card_k:
+        line = (f"ablations: ksweep k={k} root_recall="
+                f"{sum(hits) / len(hits):.3f} hits={sum(hits)}/{len(hits)} "
+                f"height={height}")
+        if err is not None:
+            need(err <= 1e-5, f"ablations: tree_refresh at K={k}: max err "
+                 f"{err} against the plain version")
+            line += f" tree_refresh_max_abs_err={err:.3e} (tol 1e-05)"
+        print(line, flush=True)
+
+    lazy_mf, lazy_ans, lazy_s, lazy_c = eager_system(torch, wl, "cuda", False)
+    eager_mf, eager_ans, eager_s, eager_c = eager_system(torch, wl, "cuda",
+                                                         True)
+    counts = read_counts(REPLACES)
+    for k, (n, p) in counts.items():
+        need(p == 0, f"{k} ran its plain version {p} times on CUDA in the "
+             "ablations phase")
+    for k in ("tree_refresh", "topk_sim"):
+        need(counts[k][0] > 0, f"{k} never launched on the ablations path")
+    match = compare_systems(lazy_mf, eager_mf, lazy_ans, eager_ans)
+    sessions = min(EAGER_SESSIONS, len(wl.sessions))
+    for tag, mf, s, c in (("lazy", lazy_mf, lazy_s, lazy_c),
+                          ("eager", eager_mf, eager_s, eager_c)):
+        print(f"ablations: system {tag} sessions={sessions} ingest_s={s:.4f} "
+              f"sessions_per_s={sessions / s:.2f} summary_refreshes="
+              f"{mf.forest.summary_refreshes} launches " + " ".join(
+                  f"{k}={n}" for k, (n, _) in c.items()), flush=True)
+    print(f"ablations: eager system equals lazy: {match}")
+    card_s = time.perf_counter() - t_phase
+
+    # the same sweeps on the CPU
+    for (n, fa, ra, fb, rb), (_, ca, cra, cb, crb) in zip(
+            card_par, level_parallel(torch, "cpu")):
+        need(tree_shape(fa) == tree_shape(ca)
+             and tree_shape(fb) == tree_shape(cb), f"ablations: N={n}: the "
+             "card's trees differ from the CPU's")
+        need(ra[0] == cra[0] and rb[0] == crb[0], f"ablations: N={n}: the "
+             "card's flush counters differ from the CPU's")
+    cpu_k = k_sweep(torch, "cpu")
+    need([(k, h, ht) for k, h, ht, _ in card_k]
+         == [(k, h, ht) for k, h, ht, _ in cpu_k],
+         "ablations: the k sweep's hits or heights differ from the CPU's")
+    print(f"ablations: cpu rerun of level_parallel and ksweep equal; "
+          f"card_s={card_s:.2f} phase_s={time.perf_counter() - t_phase:.2f}")
+    del lazy_mf, eager_mf
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phases 5 and 6: the serve engine on llama3-8b
 # ---------------------------------------------------------------------------
 PROMPT_TOKENS = 120       # decode prompts: the first turns of a session
@@ -1381,6 +1702,8 @@ def run_serve(torch, wl, seed):
           f"sessions_per_s={len(wl.sessions) / ingest_s:.2f} "
           f"encoder_tokens={mf.encoder.stats.tokens} "
           f"encoder_calls={mf.encoder.stats.calls} stats={mf.scale_stats()}")
+    roofline_line("serve", cfg, DECODE_PROMPTS, PROMPT_TOKENS + NEW_TOKENS,
+                  decode_s / m["decode_steps"] * 1e3)
     print(f"serve: queries_served={m['queries_served']} round2_s={query_s:.4f} "
           f"decoded_tokens={m['decoded_tokens']} decode_span_s={decode_s:.4f} "
           f"decoded_tokens_per_s={m['decoded_tokens'] / decode_s:.1f} "
@@ -1554,6 +1877,8 @@ def run_ssm_serve(torch, wl, seed, phase, keep=False):
           f"(decode spans) "
           f"{m['decoded_tokens'] / (ingest_s + query_s):.1f} (wall) "
           f"peak_device_gib={torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    roofline_line(phase, cfg, DECODE_PROMPTS, SSM_PROMPT_TOKENS + NEW_TOKENS,
+                  decode_s / steps * 1e3)
     print(f"{phase}: metrics " + json.dumps(m, sort_keys=True))
     print(f"{phase}: span_s " + " ".join(
         f"{k}={v:.4f}" for k, v in sorted(totals.items())), flush=True)
@@ -2773,6 +3098,8 @@ def run_moe(torch, wl, seed):
           f"(decode spans) "
           f"{m['decoded_tokens'] / (ingest_s + query_s):.1f} (wall) "
           f"peak_device_gib={torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    roofline_line("moe", cfg, DECODE_PROMPTS, PROMPT_TOKENS + NEW_TOKENS,
+                  decode_s / m["decode_steps"] * 1e3)
     print(f"moe: memory {memory_shape(mf)}")
     print("moe: metrics " + json.dumps(m, sort_keys=True))
     print("moe: span_s " + " ".join(
@@ -2877,6 +3204,8 @@ def run_family(torch, phase, arch, prompt, seed):
           f"decoded_tokens_per_s={tokens / decode_s:.1f} "
           f"ms_per_step={decode_s / FAMILY_STEPS * 1e3:.2f} "
           f"peak_device_gib={torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    roofline_line(phase, cfg, DECODE_PROMPTS, start + FAMILY_STEPS,
+                  decode_s / FAMILY_STEPS * 1e3)
     check_launches(phase, counts, ATTENTION_KERNELS)
     need(cache["lengths"].tolist() == [start + FAMILY_STEPS] * DECODE_PROMPTS,
          f"{phase}: the cache's lengths are {cache['lengths'].tolist()}, "
@@ -3050,6 +3379,29 @@ def run_family_parity(torch, seed):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
 
 
+def roofline_line(phase, cfg, batch, context, ms_per_step) -> None:
+    """The analytic bytes and FLOPs of one decode step of ``cfg`` at
+    ``batch`` sequences of ``context`` tokens on one card
+    (``repro_torch.launch.roofline``), its memory term, the measured time
+    of a step and their ratio."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import roofline
+    shape = ShapeConfig(f"{phase}_decode", seq_len=context,
+                        global_batch=batch, kind="decode")
+    by = roofline.analytic_bytes(cfg, shape, num_devices=1, tp=1)
+    fl = roofline.analytic_flops(cfg, shape)
+    terms = roofline.roofline_terms(cfg, shape, num_devices=1, tp=1,
+                                    collective_bytes_per_dev=0.0)
+    memory_ms = terms["memory_s"] * 1e3
+    print(f"roofline: {phase} {cfg.name} decode B={batch} S={context} "
+          f"bytes={by.total:.6e} (weights {by.weights:.6e}, cache "
+          f"{by.cache:.6e}, activations {by.activations:.6e}) "
+          f"flops={fl.hlo_equiv:.6e} memory_ms={memory_ms:.5f} "
+          f"compute_ms={terms['compute_s'] * 1e3:.5f} dominant="
+          f"{terms['dominant']} measured_ms_per_step={ms_per_step:.5f} "
+          f"measured_over_memory={ms_per_step / memory_ms:.2f}", flush=True)
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -3179,6 +3531,10 @@ def main() -> int:
     del mf, cpu_mf
     stamp("slice")
 
+    # 4b. the write-path ablations of Figure 6 ------------------------------
+    ablation_counts = run_ablations(torch, wl)
+    stamp("ablations")
+
     # 5. the serve engine on llama3-8b ---------------------------------------
     serve_counts = run_serve(torch, wl, args.seed)
     stamp("serve")
@@ -3239,7 +3595,9 @@ def main() -> int:
     summary = []
     for k in REPLACES:
         r = results[k]
-        by_path = {"slice": counts[k][0], "serve": serve_counts[k][0],
+        by_path = {"slice": counts[k][0],
+                   "ablations": ablation_counts[k][0],
+                   "serve": serve_counts[k][0],
                    **{phase: c[k][0] for phase, c in ssm_counts.items()},
                    "durable": durable_counts[k][0],
                    "maintenance_lane": lane_counts[k][0],

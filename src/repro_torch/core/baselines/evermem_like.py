@@ -71,10 +71,14 @@ class EverMemLike(MemoryBackend):
         t0 = time.perf_counter()
         # agentic pipeline: retrieve facts, check sufficiency, reformulate once
         q_emb = self.encoder.encode([q.text])[0]
+        # the store's top-k is topk_sim's: score desc, then row asc
+        # memlint: ignore[topk-tiebreak]
         facts = self.store.topk(q_emb, final_topk)
         ans = answer_query(q, facts)
         if not ans and q.anchor_value:
             q2 = self.encoder.encode([q.text + " " + q.anchor_value])[0]
+            # the store's top-k is topk_sim's: score desc, then row asc
+            # memlint: ignore[topk-tiebreak]
             facts = self.store.topk(q2, final_topk)
         t1 = time.perf_counter()
         ans = answer_query(q, facts)

@@ -72,6 +72,8 @@ class LightMemLike(MemoryBackend):
         import time
         t0 = time.perf_counter()
         q_emb = self.encoder.encode([q.text])[0]
+        # the store's top-k is topk_sim's: score desc, then row asc
+        # memlint: ignore[topk-tiebreak]
         facts = self.store.topk(q_emb, final_topk)
         t1 = time.perf_counter()
         ans = answer_query(q, facts)

@@ -32,6 +32,8 @@ class Mem0Like(MemoryBackend):
             for c in cands:
                 # Search: embed the new record (independent) ...
                 emb = self.encoder.encode([c.text])[0]
+                # the store's top-k is topk_sim's: score desc, then row asc
+                # memlint: ignore[topk-tiebreak]
                 cand_facts = self.store.topk(emb, RETRIEVE_K)
                 # ... LLMUpdate: sequential, reads current memory state
                 ctx = c.text + " || " + " | ".join(f.text for f in cand_facts)
@@ -62,6 +64,8 @@ class Mem0Like(MemoryBackend):
         import time
         t0 = time.perf_counter()
         q_emb = self.encoder.encode([q.text])[0]
+        # the store's top-k is topk_sim's: score desc, then row asc
+        # memlint: ignore[topk-tiebreak]
         facts = self.store.topk(q_emb, final_topk)
         t1 = time.perf_counter()
         ans = answer_query(q, facts)

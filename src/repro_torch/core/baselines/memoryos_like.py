@@ -78,6 +78,8 @@ class MemoryOSLike(MemoryBackend):
         facts = [f for (s, a), f in self.profile.items()
                  if s.lower() == q.subject.lower() and a == q.attribute]
         q_emb = self.encoder.encode([q.text])[0]
+        # the store's top-k is topk_sim's: score desc, then row asc
+        # memlint: ignore[topk-tiebreak]
         facts += self.recent_store.topk(q_emb, max(final_topk - len(facts), 0))
         t1 = time.perf_counter()
         ans = answer_query(q, facts)

@@ -40,6 +40,8 @@ class MemPalaceLike(MemoryBackend):
         import time
         t0 = time.perf_counter()
         q_emb = self.encoder.encode([q.text])[0]
+        # the store's top-k is topk_sim's: score desc, then row asc
+        # memlint: ignore[topk-tiebreak]
         raw = self.store.topk(q_emb, final_topk)
         # query-time extraction from raw chunks
         facts: List[CanonicalFact] = []

@@ -36,12 +36,6 @@ from repro_torch.obs import Observability, get_obs
 class Forest:
     def __init__(self, config: MemForestConfig, device,
                  obs: Optional[Observability] = None):
-        if not config.level_parallel:
-            raise NotImplementedError(
-                "level_parallel=False (one tree_refresh launch per node, the "
-                "paper's Fig. 6c ablation) is not ported (ROADMAP.md, queue "
-                "1, item 8); the port always refreshes one batched launch "
-                "per tree level")
         self.config = config
         self.device = torch.device(device)
         self.obs = get_obs(obs)
@@ -172,7 +166,8 @@ class Forest:
     # ------------------------------------------------------------------
     # lazy refresh (Algorithm 1) — level-parallel, batched across trees
     # ------------------------------------------------------------------
-    def flush(self, *, only: Optional[Set[str]] = None) -> Dict[str, int]:
+    def flush(self, *, level_parallel: Optional[bool] = None,
+              only: Optional[Set[str]] = None) -> Dict[str, int]:
         """Refresh all dirty derived artifacts. Returns counters for this
         flush: {"refreshes": distinct dirty nodes, "levels": dependent depth,
         "kernel_calls": batched refresh invocations}.
@@ -181,17 +176,22 @@ class Forest:
         maintenance plane uses this to drain refresh work in bounded chunks
         between serve steps. Because dirty paths never cross trees, flushing
         the dirty set in any chunking yields the same final derived state as
-        one full flush."""
+        one full flush.
+
+        ``level_parallel`` (None: the config's) False is the paper's Fig. 6c
+        ablation: the same levels, one ``tree_refresh`` launch per node."""
+        if level_parallel is None:
+            level_parallel = self.config.level_parallel
         self.flush_calls += 1
         targets = set(self.dirty_trees) if only is None else \
             self.dirty_trees & set(only)
         with self.obs.span("forest.flush", trees=len(targets)) as sp:
-            out = self._flush(targets)
+            out = self._flush(level_parallel, targets)
             sp.set(refreshes=out["refreshes"], levels=out["levels"],
                    kernel_calls=out["kernel_calls"])
         return out
 
-    def _flush(self, targets: Set[str]) -> Dict[str, int]:
+    def _flush(self, level_parallel: bool, targets: Set[str]) -> Dict[str, int]:
         K = self.config.branching_factor
         dim = self.config.embed_dim
         per_tree = {tid: self.trees[tid].dirty_by_level() for tid in targets}
@@ -210,7 +210,12 @@ class Forest:
                     batch.append((tree, n))
             if not batch:
                 continue
-            kernel_calls += self._refresh_batch(batch, K, dim)
+            if level_parallel:
+                kernel_calls += self._refresh_batch(batch, K, dim)
+            else:
+                # ablation: one kernel launch per node (paper Fig. 6c baseline)
+                for item in batch:
+                    kernel_calls += self._refresh_batch([item], K, dim)
             refreshes += len(batch)
 
         # leaves count as refreshed artifacts only for bookkeeping
@@ -256,6 +261,38 @@ class Forest:
                 tree.refresh_text(n)
                 self._arena_dirty.setdefault(tree.tree_id, set()).add(n)
         return 1
+
+    def eager_refresh_path(self, scope_key: str) -> int:
+        """Ablation baseline (paper Fig. 6a): refresh the dirty path of one
+        tree immediately, one node per launch, bottom-up. Returns #calls.
+        Each refreshed node lands in the node arena's dirty rows and the
+        tree's root row in the device root cache's, as a flush's do."""
+        tree = self.trees[scope_key]
+        levels = tree.dirty_by_level()
+        calls = 0
+        for lam in sorted(lv for lv in levels if lv >= 1):
+            for n in levels[lam]:
+                calls += self._refresh_batch([(tree, n)],
+                                             self.config.branching_factor,
+                                             self.config.embed_dim)
+        tree.dirty.clear()
+        self._root_matrix[tree.tree_id] = tree.root_emb()
+        self._root_dev_dirty.add(tree.tree_id)
+        self.dirty_trees.discard(scope_key)
+        self.summary_refreshes += calls
+        return calls
+
+    # ------------------------------------------------------------------
+    # host views of the derived indexes
+    # ------------------------------------------------------------------
+    def root_index(self) -> Tuple[np.ndarray, int, List[str]]:
+        """(capacity-padded host matrix, valid count, tree order)."""
+        return self._root_matrix, len(self._tree_order), list(self._tree_order)
+
+    def fact_index(self) -> Tuple[np.ndarray, int]:
+        """(capacity-padded host matrix, valid count). Dead facts' rows are
+        zeroed on deletion; callers filter by fact_alive."""
+        return self.fact_emb, len(self.facts)
 
     def set_root_row(self, tree: TreeArena) -> None:
         """Write a tree's root-index row (host + device invalidation) — the

@@ -34,7 +34,8 @@ class MemForestSystem:
     name = "memforest"
 
     def __init__(self, config: Optional[MemForestConfig] = None, encoder=None,
-                 *, device=None, parallel_extraction: bool = True,
+                 *, device=None, eager: bool = False,
+                 parallel_extraction: bool = True,
                  obs: Optional[Observability] = None):
         self.device = resolve_device(device)
         self.config = config or MemForestConfig()
@@ -42,6 +43,7 @@ class MemForestSystem:
                                                  device=self.device)
         self.obs = get_obs(obs)
         self.forest = Forest(self.config, self.device, obs=self.obs)
+        self.eager = eager                      # ablation: per-insert refresh
         if parallel_extraction:
             self.extractor = extraction.ParallelExtractor(
                 self.encoder, chunk_turns=self.config.chunk_turns
@@ -70,10 +72,15 @@ class MemForestSystem:
         max_depth = 0
         for cell in cells:
             self.forest.add_cell(cell)
-            routing.materialize_cell(cell, self.forest)
+            skey, _ = routing.materialize_cell(cell, self.forest)
+            if self.eager:
+                self.forest.eager_refresh_path(skey)
         for f in facts:
-            routing.materialize_fact(f, self.forest)
-        if not self.config.read_triggered_refresh:
+            scopes = routing.materialize_fact(f, self.forest)
+            if self.eager:
+                for skey, _leaf in scopes:
+                    self.forest.eager_refresh_path(skey)
+        if not self.eager and not self.config.read_triggered_refresh:
             flush = self.forest.flush()
             max_depth = flush["levels"]
 
@@ -98,7 +105,12 @@ class MemForestSystem:
         ``defer_flush=True`` skips the flush and leaves the dirty trees for
         the maintenance plane (core/maintenance_plane.py) or the next
         reader — the serve engine uses this so ingest drains never block on
-        refresh kernels."""
+        refresh kernels.
+
+        Eager mode has no batch form (it refreshes per insert by
+        definition), so it falls back to the sequential loop."""
+        if self.eager:
+            return [self.ingest_session(s) for s in sessions]
         stats = self.batcher.ingest(
             sessions,
             flush=not (defer_flush or self.config.read_triggered_refresh))

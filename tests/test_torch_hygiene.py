@@ -44,7 +44,9 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.core.baselines.base, repro_torch.models.whisper, "
             "repro_torch.configs.olmoe_1b_7b, repro_torch.configs.pixtral_12b, "
             "repro_torch.configs.whisper_base, "
-            "repro_torch.configs.qwen3_moe_235b, repro_torch.configs.shapes; "
+            "repro_torch.configs.qwen3_moe_235b, repro_torch.configs.shapes, "
+            "repro_torch.analysis, repro_torch.analysis.__main__, "
+            "repro_torch.analysis.lockcheck, repro_torch.launch.roofline; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -99,9 +101,3 @@ def test_every_entry_point_is_defined_in_its_source():
         assert src.name in _build.SOURCES
         assert f'extern "C" int {entry}(' in src.read_text()
 
-
-def test_per_node_flush_ablation_is_refused():
-    from repro_torch.config import MemForestConfig
-    with pytest.raises(NotImplementedError, match="level_parallel"):
-        repro_torch.MemForestSystem(MemForestConfig(level_parallel=False),
-                                    device="cpu")
