@@ -25,7 +25,12 @@ Phases, each printed on its own line; any failed check exits nonzero:
               held to a float64 run of the plain version
               (``bf16_scan_excess``), the draw of the ``mamba2_ssd`` stress
               row on which the earlier criterion failed a correct kernel
-              included.
+              included. ``flash_attention_bwd`` (``check_attention_bwd``)
+              against ``attention_bwd_ref`` at ``BWD_ROWS``: phi3's and
+              llama's training shapes, whisper's encoder, the smoke shape,
+              S = 100 and S = 1; f32 within 1e-4 of the largest |plain|, bf16
+              within one ulp of a float64 run plus ``BWD_EXCESS``; two calls
+              bitwise equal, one call two device launches.
   4. slice    the memory system's path through ``repro_torch.MemForestSystem``
               with its hashing encoder: ``ingest_batch`` of 500 sessions (about
               20k turns, 13k tree nodes) in batches of 16, then ``query_batch``
@@ -174,7 +179,31 @@ Phases, each printed on its own line; any failed check exits nonzero:
               between the devices: printed, and held on the card's choice);
               pixtral at full width and depth 2 and whisper at full width and
               depth: equal greedy tokens, logits within 1e-4.
-  18. kernels one line per kernel, and the JSON summary of all of them.
+  18. train   training on phi3-mini-3.8b at its published width and depth
+              (bf16, remat on, random weights from a seeded generator on the
+              card): ``TokenPipeline(seq_len=512, global_batch=8)`` over the
+              slice workload's turn texts, ``TrainConfig(learning_rate=3e-4,
+              warmup_steps=2, total_steps=8)``, 8 steps through
+              ``make_train_step``. Every loss and ``grad_norm`` finite; on the
+              first step every parameter's gradient (the attention
+              projections included) present, finite and nonzero somewhere;
+              ``flash_attention`` launched 2 x 32 times a step (remat runs the
+              forward twice), ``flash_attention_bwd`` 32 times, no plain
+              attention. Printed: the losses, the median step ms, tokens/s,
+              the peak device memory against the 45.85 GB of states, the
+              phase's seconds and the device's idle share over one profiled
+              step.
+  19. train_parity  float32, 3 steps each, card against CPU from one initial
+              state: whisper-base at full width and depth (B = 2, decoder
+              S = 32), llama3-8b's smoke config with ``microbatch_size=2``
+              and top-k compression, olmoe-1b-7b's smoke config: losses and
+              ``grad_norm`` within 1e-4 relative, parameters within
+              ``TRAIN_PARAM_ATOL``. Then a ``FaultTolerantRunner`` on the
+              card, failures injected at steps 2 and 3, restoring from
+              ``checkpoint.save``: it ends within 1e-6 of an uninterrupted
+              run (not bitwise: the embedding gather's backward adds with
+              atomics on the card).
+  20. kernels one line per kernel, and the JSON summary of all of them.
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a
 visible CUDA device, or without the rest of the repository beside it, the
@@ -203,12 +232,15 @@ REPLACES = {
     "topk_sim": "src/repro/kernels/topk_sim.py:149",
     "browse_scores": "src/repro/kernels/browse_scores.py:51",
     "flash_attention": "src/repro/kernels/flash_attention.py:116",
+    # no Pallas counterpart: the reference differentiates its jnp attention
+    "flash_attention_bwd": "src/repro/kernels/ref.py:16",
     "decode_attention": "src/repro/kernels/decode_attention.py:103",
     "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:119",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:125",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
 SCAN_C = 512      # the bf16 scans' float32 error, in units of 2^-24 T
+BWD_EXCESS = 1e-5  # flash_attention_bwd: bf16 excess over one ulp, of max|ref|
 # the inputs whose signs a scan's terms carry: x, B, C, state; r, k, v, u,
 # state (bf16_scan_excess)
 SCAN_SIGNED = {"mamba2_ssd": (0, 3, 4, 5), "rwkv6_scan": (0, 1, 2, 4, 5)}
@@ -364,6 +396,32 @@ def bound_ms(nbytes: float, flops: float, peaks, op: str = "fp32"):
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+def record_row(torch, peaks, results, name, label, err, tol, fn, plain,
+               nbytes, flops, main, library=None, op="fp32"):
+    """Time the kernel, its plain version and the library call. A main
+    row is one the main paths run; the first main row of a kernel is
+    its row in the JSON summary, the others ride along in it."""
+    ms = device_ms(torch, fn)
+    plain_ms = device_ms(torch, plain)
+    lib_ms = device_ms(torch, library) if library is not None else None
+    b_ms, b_by = bound_ms(nbytes, flops, peaks, op)
+    peak = peaks["bytes"] / 1e12 if b_by == "bytes" else peaks[op] / 1e12
+    unit = "TB/s" if b_by == "bytes" else f"TFLOP/s {op}"
+    lib_txt = f"{lib_ms:.5f}" if lib_ms is not None else "none"
+    print(f"check: {name} {label} max_abs_err={err:.3e} (tol {tol:.0e}) "
+          f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib_txt} "
+          f"bound_ms={b_ms:.5f} ({b_by} at {peak:g} {unit})", flush=True)
+    if main:
+        row = {"shape": label, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "peak": "bytes" if b_by == "bytes" else op,
+               "library_ms": lib_ms}
+        if name not in results:
+            results[name] = dict(row, other_main_rows=[])
+        else:
+            results[name]["other_main_rows"].append(row)
+
+
 def check_kernels(torch, peaks, seed: int):
     from repro_torch.kernels import ref
     from repro_torch.kernels.browse_scores import (browse_scores,
@@ -384,30 +442,8 @@ def check_kernels(torch, peaks, seed: int):
     g_abl = torch.Generator(device=dev).manual_seed(seed + 1)
     results = {}
 
-    def record(name, label, err, tol, fn, plain, nbytes, flops, main,
-               library=None, op="fp32"):
-        """Time the kernel, its plain version and the library call. A main
-        row is one the main paths run; the first main row of a kernel is
-        its row in the JSON summary, the others ride along in it."""
-        ms = device_ms(torch, fn)
-        plain_ms = device_ms(torch, plain)
-        lib_ms = device_ms(torch, library) if library is not None else None
-        b_ms, b_by = bound_ms(nbytes, flops, peaks, op)
-        peak = peaks["bytes"] / 1e12 if b_by == "bytes" else peaks[op] / 1e12
-        unit = "TB/s" if b_by == "bytes" else f"TFLOP/s {op}"
-        lib_txt = f"{lib_ms:.5f}" if lib_ms is not None else "none"
-        print(f"check: {name} {label} max_abs_err={err:.3e} (tol {tol:.0e}) "
-              f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib_txt} "
-              f"bound_ms={b_ms:.5f} ({b_by} at {peak:g} {unit})", flush=True)
-        if main:
-            row = {"shape": label, "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "peak": "bytes" if b_by == "bytes" else op,
-                   "library_ms": lib_ms}
-            if name not in results:
-                results[name] = dict(row, other_main_rows=[])
-            else:
-                results[name]["other_main_rows"].append(row)
+    def record(*args, **kw):
+        record_row(torch, peaks, results, *args, **kw)
 
     # -- tree_refresh -------------------------------------------------------
     # the slice's flush launches 128, 32, 16 (and fewer) parents at D = 256;
@@ -1034,9 +1070,129 @@ def check_kernels(torch, peaks, seed: int):
     return results
 
 
+# the gradient of flash_attention: (B, S, Hq, Hkv, D, causal, dtype name,
+# main, what). The first row is the train phase's shape; the smoke shape is
+# train_parity's (llama3-8b's smoke config in microbatches of 2)
+BWD_ROWS = (
+    (8, 512, 32, 32, 96, True, "bf16", True, "phi3 train"),
+    (8, 512, 32, 8, 128, True, "bf16", False, "llama GQA"),
+    (8, 1500, 8, 8, 64, False, "bf16", False, "whisper encoder"),
+    (2, 64, 4, 2, 16, True, "f32", True, "smoke"),
+    (2, 100, 8, 2, 64, True, "f32", False, "ragged"),
+    (2, 100, 8, 2, 64, False, "bf16", False, "ragged"),
+    (3, 1, 4, 2, 128, True, "f32", False, "one position"),
+    (3, 1, 4, 2, 128, True, "bf16", False, "one position"),
+)
+
+
+def check_attention_bwd(torch, peaks, seed: int):
+    """``flash_attention_bwd`` against ``attention_bwd_ref`` on the card at
+    ``BWD_ROWS``, o from the forward kernel and dO from a seeded generator.
+    f32: max|err| <= 1e-4 of the largest |plain| of the three gradients;
+    bf16: within one bf16 ulp of the plain version run in float64 on the
+    same inputs, plus ``BWD_EXCESS`` of that largest value
+    (``bwd_excess``). Two calls give equal bits; one call is two device
+    launches (dq, then dk and dv). The library call is SDPA's forward and
+    backward, timed for comparison."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    F = torch.nn.functional
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    results = {}
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    last = None
+    for B, S, Hq, Hkv, D, causal, dt_name, main, what in BWD_ROWS:
+        dt = dts[dt_name]
+        q = torch.randn(B, S, Hq, D, generator=g, device=dev).to(dt)
+        k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dt)
+        v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dt)
+        do = torch.randn(B, S, Hq, D, generator=g, device=dev).to(dt)
+        with torch.no_grad():
+            o = flash_attention(q, k, v, causal=causal)
+        label = (f"{what} {B}x{S}x{Hq}/{Hkv}x{D} "
+                 f"{'causal' if causal else 'full'} {dt_name}")
+        got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+        again = flash_attention_bwd(q, k, v, o, do, causal=causal)
+        torch.cuda.synchronize()
+        need(all(torch.equal(a, b) for a, b in zip(got, again)),
+             f"flash_attention_bwd {label}: two calls differ")
+        need(all(t.dtype == dt and bool(torch.isfinite(t).all())
+                 for t in got), f"flash_attention_bwd {label}: not finite "
+             "or not in the inputs' type")
+        plain = ref.attention_bwd_ref(q, k, v, o, do, causal=causal)
+        if dt == torch.float32:
+            top = max(w.abs().max().item() for w in plain)
+            err = max((a - w).abs().max().item() for a, w in zip(got, plain))
+            need(err <= 1e-4 * top, f"flash_attention_bwd {label}: max err "
+                 f"{err:.3e} > 1e-4 x {top:.3e}")
+            tol = 1e-4
+        else:
+            want = ref.attention_bwd_ref(*(x.double() for x in (q, k, v, o,
+                                                                do)),
+                                         causal=causal)
+            top = max(w.abs().max().item() for w in want)
+            excess = max(bwd_excess(a, w, top) for a, w in zip(got, want))
+            print(f"check: flash_attention_bwd {label} excess over one bf16 "
+                  f"ulp = {excess:.3e} of max|ref| {top:.3e} "
+                  f"(tol {BWD_EXCESS:.0e})", flush=True)
+            need(excess <= BWD_EXCESS, f"flash_attention_bwd {label}: "
+                 f"{excess:.3e} beyond one bf16 ulp (tol {BWD_EXCESS})")
+            err = max((a.double() - w).abs().max().item()
+                      for a, w in zip(got, want))
+            tol = BWD_EXCESS
+            del want
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def library():     # timed for comparison; the port never calls it
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                 enable_gqa=True)
+            return torch.autograd.grad(out, (qt, kt, vt), dot)
+        lib = [x.transpose(1, 2) for x in library()]
+        lib_err = max((a.float() - w.float()).abs().max().item()
+                      for a, w in zip(lib, plain))
+        need(lib_err <= 5e-2 * top + 5e-2, f"flash_attention_bwd {label}: "
+             f"the library call differs by {lib_err:.3e}")
+        pairs = S * (S + 1) // 2 if causal else S * S
+        elem = q.element_size()
+        record_row(torch, peaks, results, "flash_attention_bwd", label, err,
+                   tol, lambda: flash_attention_bwd(q, k, v, o, do,
+                                                    causal=causal),
+                   lambda: ref.attention_bwd_ref(q, k, v, o, do,
+                                                 causal=causal),
+                   (4 * B * S * Hq * D + 4 * B * S * Hkv * D) * elem,
+                   5 * 2 * B * Hq * pairs * D, main, library,
+                   "bf16" if dt == torch.bfloat16 else "fp32")
+        if what == "phi3 train":
+            last = (q, k, v, o, do)
+        del plain, lib
+    names = device_events(torch, lambda: flash_attention_bwd(*last))
+    print(f"check: flash_attention_bwd phi3 train launches per call="
+          f"{len(names)} ({', '.join(n[:60] for n in names)})", flush=True)
+    need(len(names) == 2 and "dq_kernel" in names[0]
+         and "dkv_kernel" in names[1],
+         f"flash_attention_bwd: one call made {len(names)} device launches")
+    return results
+
+
 def bf16_ulp(t):
     mag = t.abs().clamp_min(2.0 ** -126)
     return (mag.log2().floor() - 7).exp2()
+
+
+def bwd_excess(out, want64, top) -> float:
+    """How far a bf16 gradient ``out`` lies beyond one bf16 ulp of
+    ``want64``, the plain ``attention_bwd_ref`` run in float64 on the same
+    bf16 inputs, as a share of ``top``, the largest |want64| of the call's
+    three gradients (at S = 1 dq and dk are 0 up to rounding): the kernel
+    passes at <= ``BWD_EXCESS`` (float32 sums in another order; the ulp
+    covers the output's one rounding). tests/test_torch_attention_design.py
+    pins the constant against an emulation of the kernel's schedule."""
+    w = want64.double()
+    return ((out.double() - w).abs() - bf16_ulp(w)).max().item() / top
 
 
 def bf16_scan_excess(out, plain, args, signed, chunk=64) -> float:
@@ -3379,6 +3535,264 @@ def run_family_parity(torch, seed):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
 
 
+# ---------------------------------------------------------------------------
+# phases 18-19: training
+# ---------------------------------------------------------------------------
+TRAIN_STEPS = 8
+TRAIN_SEQ = 512
+TRAIN_BATCH = 8
+TRAIN_STATE_GB = 45.85      # phi3-mini's bf16 params and grads, f32 m and v
+TRAIN_PARAM_ATOL = 1e-4     # train_parity: card against CPU after 3 steps
+PARITY_STEPS = 3
+
+
+def run_train(torch, wl, seed):
+    """Phase 18: phi3-mini-3.8b through the port's train step on the card.
+    Returns the launch counts of the 8 steps."""
+    from repro_torch import kernels
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import get_model
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    from repro_torch.tree import leaves_with_paths
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("phi3_mini")
+    need(cfg.remat and cfg.dtype == "bfloat16", "train: phi3-mini's config "
+         "must train in bf16 with remat")
+    model = get_model(cfg)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                       total_steps=TRAIN_STEPS)
+    state = init_train_state(model, tcfg, seed, device="cuda")
+    corpus = [t.text for s in wl.sessions for t in s.turns]
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, seed=seed, corpus=corpus)
+    step_fn = make_train_step(model, tcfg)
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).to("cuda")
+                for k, v in pipe.batch_at(i).items()}
+
+    real_update = opt_mod.adamw_update
+    seen = []
+
+    def inspecting(params, grads, st, c, **kw):
+        seen.extend((path, g) for path, g in leaves_with_paths(grads))
+        return real_update(params, grads, st, c, **kw)
+
+    batches = [batch_at(i) for i in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    metrics, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        if i == 0:
+            opt_mod.adamw_update = inspecting
+        try:
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batches[i])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            opt_mod.adamw_update = real_update
+        if i == 0:
+            # the first step's gradients, before AdamW consumed them (the
+            # check waits for the device, outside the timed steps' median)
+            n_params = sum(1 for _ in leaves_with_paths(state["params"]))
+            need(len(seen) == n_params, f"train: {len(seen)} gradients for "
+                 f"{n_params} parameters")
+            bad = [path for path, g in seen
+                   if g is None or not bool(torch.isfinite(g).all())
+                   or not bool((g != 0).any())]
+            need(not bad, f"train: parameters without a finite nonzero "
+                 f"gradient on the first step: {bad[:6]}")
+            attn = sum(1 for path, _ in seen if "attn" in path)
+            print(f"train: first step gradients present, finite and nonzero "
+                  f"for all {len(seen)} parameters ({attn} attention "
+                  "projections)", flush=True)
+            del seen[:]
+        metrics.append(m)
+    counts = read_counts(REPLACES)
+    losses = torch.stack([m["loss"] for m in metrics]).tolist()
+    gnorms = torch.stack([m["grad_norm"] for m in metrics]).tolist()
+    need(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+         f"train: a loss or grad_norm is not finite: {losses} {gnorms}")
+    L = cfg.num_layers
+    check_launches("train", counts, ("flash_attention",
+                                     "flash_attention_bwd"))
+    need(counts["flash_attention"][0] == 2 * L * TRAIN_STEPS,
+         f"train: flash_attention launched {counts['flash_attention'][0]} "
+         f"times in {TRAIN_STEPS} steps, want {2 * L * TRAIN_STEPS}")
+    need(counts["flash_attention_bwd"][0] == L * TRAIN_STEPS,
+         f"train: flash_attention_bwd launched "
+         f"{counts['flash_attention_bwd'][0]} times, want {L * TRAIN_STEPS}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(step_ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    params = sum(t.numel() for _, t in leaves_with_paths(state["params"]))
+
+    # one more step under the profiler: the device's idle share
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batches[TRAIN_STEPS])
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    busy_s, top = device_busy(prof)
+    idle = max(0.0, 1.0 - busy_s / prof_s) if busy_s > 0 else None
+    print(f"train: {cfg.name} params={params} layers={L} B={TRAIN_BATCH} "
+          f"S={TRAIN_SEQ} steps={TRAIN_STEPS} losses=" + ",".join(
+              f"{x:.5f}" for x in losses) + " grad_norms=" + ",".join(
+              f"{x:.4f}" for x in gnorms), flush=True)
+    print(f"train: step_ms={','.join(f'{x:.2f}' for x in step_ms)} "
+          f"median_step_ms={med:.3f} (steps 2-{TRAIN_STEPS}) "
+          f"tokens_per_s={tokens / (med / 1e3):.1f} peak_gb={peak_gb:.3f} "
+          f"(states {TRAIN_STATE_GB} GB) card {card_line()}", flush=True)
+    print(f"train: profiled step s={prof_s:.4f} device_busy_s={busy_s:.4f} "
+          f"idle_share=" + (f"{idle:.4f}" if idle is not None else
+                            "not measured (no device events)")
+          + " top: " + ", ".join(f"{k[:40]}={us / 1e3:.2f}ms"
+                                 for k, us in top), flush=True)
+    check_launches("train", counts, ())
+    del state, batches, metrics
+    torch.cuda.empty_cache()
+    print(f"train: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    return counts
+
+
+def _parity_batch(cfg, rng, B, S):
+    b = {"tokens": rng.integers(3, cfg.vocab_size, size=(B, S)).astype(
+        np.int32),
+         "labels": rng.integers(3, cfg.vocab_size, size=(B, S)).astype(
+        np.int32)}
+    if cfg.family == "encdec":
+        b["frames"] = rng.normal(size=(B, cfg.encoder_seq_len, cfg.d_model)
+                                 ).astype(np.float32)
+    return b
+
+
+def run_train_parity(torch, seed):
+    """Phase 19: three float32 trainings on the card and on the CPU from one
+    initial state (made on the CPU from a seeded generator, copied to the
+    card), batches from a seeded numpy generator; then the runner's restart
+    from a checkpoint on the card. Returns the card's launch counts."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime.fault_tolerance import FaultTolerantRunner
+    from repro_torch.training.optimizer import clone_tree
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    from repro_torch.tree import leaves, map_tree
+
+    t_phase = time.perf_counter()
+    f32 = dict(dtype="float32", param_dtype="float32")
+    cases = (
+        ("whisper-base", get_config("whisper_base").replace(**f32), 2, 32,
+         {}),
+        ("llama3-8b smoke", get_smoke_config("llama3_8b").replace(**f32), 4,
+         64, dict(microbatch_size=2, grad_compression="topk")),
+        ("olmoe-1b-7b smoke", get_smoke_config("olmoe_1b_7b").replace(**f32),
+         4, 64, {}))
+    total = {k: 0 for k in REPLACES}
+    for name, cfg, B, S, kw in cases:
+        model = get_model(cfg)
+        tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                           total_steps=PARITY_STEPS, **kw)
+        cpu_state = init_train_state(model, tcfg, seed, device="cpu")
+        card_state = map_tree(lambda t: t.to("cuda", copy=True), cpu_state)
+        rng = np.random.default_rng(seed)
+        batches = [_parity_batch(cfg, rng, B, S) for _ in range(PARITY_STEPS)]
+        step = make_train_step(model, tcfg)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        card_m = []
+        for b in batches:
+            card_state, m = step(card_state, {
+                k: torch.from_numpy(v).to("cuda") for k, v in b.items()})
+            card_m.append(m)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = read_counts(REPLACES)
+        check_launches(f"train_parity {name}", counts,
+                       ("flash_attention", "flash_attention_bwd"))
+        for k in total:
+            total[k] += counts[k][0]
+        t0 = time.perf_counter()
+        cpu_m = []
+        for b in batches:
+            cpu_state, m = step(cpu_state, {k: torch.from_numpy(v)
+                                            for k, v in b.items()})
+            cpu_m.append(m)
+        cpu_s = time.perf_counter() - t0
+        worst = 0.0
+        for mc, mp in zip(card_m, cpu_m):
+            for k in ("loss", "grad_norm"):
+                a, c = float(mc[k]), float(mp[k])
+                rel = abs(a - c) / max(abs(c), 1e-30)
+                worst = max(worst, rel)
+                need(rel <= 1e-4, f"train_parity {name}: {k} {a} on the "
+                     f"card, {c} on the CPU")
+        perr = max((a.cpu() - b).abs().max().item() for a, b in zip(
+            leaves(card_state["params"]), leaves(cpu_state["params"])))
+        need(perr <= TRAIN_PARAM_ATOL, f"train_parity {name}: parameters "
+             f"differ by {perr:.3e} (tol {TRAIN_PARAM_ATOL})")
+        print(f"train_parity: {name} B={B} S={S} {kw or ''} losses="
+              + ",".join(f"{float(m['loss']):.6f}" for m in card_m)
+              + f" worst_rel_loss_or_grad_norm={worst:.3e} (tol 1e-04) "
+              f"param_max_abs_err={perr:.3e} (tol {TRAIN_PARAM_ATOL:.0e}) "
+              f"card_s={card_s:.3f} cpu_s={cpu_s:.3f} launches "
+              f"flash_attention={counts['flash_attention'][0]} "
+              f"flash_attention_bwd={counts['flash_attention_bwd'][0]}",
+              flush=True)
+        del cpu_state, card_state
+
+    # the runner on the card: failures at steps 2 and 3 restore the last
+    # checkpoint; the run ends where an uninterrupted one does
+    cfg = get_smoke_config("llama3_8b").replace(**f32)
+    model = get_model(cfg)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=5)
+    s0 = init_train_state(model, tcfg, seed, device="cuda")
+    rng = np.random.default_rng(seed + 1)
+    batches = [{k: torch.from_numpy(v).to("cuda")
+                for k, v in _parity_batch(cfg, rng, 4, 64).items()}
+               for _ in range(5)]
+    step = make_train_step(model, tcfg)
+    want = clone_tree(s0)
+    for b in batches:
+        want, _ = step(want, b)
+    with tempfile.TemporaryDirectory() as d:
+        runner = FaultTolerantRunner(
+            step, lambda st, i: ckpt.save(d, i, st, extra={"step": i}),
+            lambda: (ckpt.restore(d, s0)[0], ckpt.latest_step(d)),
+            checkpoint_every=2)
+        ckpt.save(d, 0, s0, extra={"step": 0})
+        runner.inject_failure(2)
+        runner.inject_failure(3)
+        got, end = runner.run(clone_tree(s0), 0, 5, lambda i: batches[i])
+        torch.cuda.synchronize()
+    err = max((a - b).abs().max().item()
+              for a, b in zip(leaves(got["params"]), leaves(want["params"])))
+    need(end == 5 and runner.log.restarts == 2,
+         f"train_parity: the runner ended at {end} after "
+         f"{runner.log.restarts} restarts")
+    need(err <= 1e-6, f"train_parity: the restarted run differs from the "
+         f"uninterrupted one by {err:.3e}")
+    print(f"train_parity: runner restarts={runner.log.restarts} end_step={end} "
+          f"max_abs_diff_to_uninterrupted={err:.3e} (tol 1e-06) phase_s="
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)
+    return {k: (n, 0) for k, n in total.items()}
+
+
 def roofline_line(phase, cfg, batch, context, ms_per_step) -> None:
     """The analytic bytes and FLOPs of one decode step of ``cfg`` at
     ``batch`` sequences of ``context`` tokens on one card
@@ -3477,6 +3891,7 @@ def main() -> int:
 
     # 3. kernel checks ------------------------------------------------------
     results = check_kernels(torch, peaks, args.seed)
+    results.update(check_attention_bwd(torch, peaks, args.seed))
     stamp("check")
 
     # 4. the main path ------------------------------------------------------
@@ -3591,7 +4006,13 @@ def main() -> int:
     run_family_parity(torch, args.seed)
     stamp("family_parity")
 
-    # 18. kernels -----------------------------------------------------------
+    # 18-19. training: phi3-mini on the card, then card against CPU ---------
+    train_counts = run_train(torch, wl, args.seed)
+    stamp("train")
+    train_parity_counts = run_train_parity(torch, args.seed)
+    stamp("train_parity")
+
+    # 20. kernels -----------------------------------------------------------
     summary = []
     for k in REPLACES:
         r = results[k]
@@ -3604,7 +4025,9 @@ def main() -> int:
                    "baselines": baseline_counts[k][0],
                    "residency": residency_counts[k][0],
                    "moe": moe_counts[k][0], "vlm": vlm_counts[k][0],
-                   "whisper": whisper_counts[k][0]}
+                   "whisper": whisper_counts[k][0],
+                   "train": train_counts[k][0],
+                   "train_parity": train_parity_counts[k][0]}
         print(f"kernels: {k} launches={sum(by_path.values())} ("
               + ", ".join(f"{p} {n}" for p, n in by_path.items())
               + f") check=ok main_shape={r['shape']}")

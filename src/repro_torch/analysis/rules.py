@@ -237,7 +237,8 @@ def span_context(ctx: ModuleCtx) -> None:
 # 6. every CUDA kernel has a plain version that a test references
 # ---------------------------------------------------------------------------
 # kernel source stem -> the stem of its plain version in ref.py
-_KERNEL_ALIASES: Dict[str, str] = {"flash_attention": "attention"}
+_KERNEL_ALIASES: Dict[str, str] = {"flash_attention": "attention",
+                                   "flash_attention_bwd": "attention_bwd"}
 
 
 @rule("kernel-parity",

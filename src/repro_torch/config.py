@@ -1,10 +1,12 @@
 """Configuration for the PyTorch port.
 
-Copies of the JAX package's ``MemForestConfig`` and ``ModelConfig`` with the
-same fields and defaults, so both packages build the same forest and the
-same model from the same settings. ``ModelConfig`` has no
-``attention_impl``: in the port the device of the tensors chooses between a
-CUDA kernel and its plain PyTorch version.
+Copies of the JAX package's ``MemForestConfig``, ``ModelConfig`` and
+``TrainConfig`` with the same fields and defaults, so both packages build the
+same forest, the same model and the same trainer from the same settings.
+``ModelConfig`` has no ``attention_impl``: in the port the device of the
+tensors chooses between a CUDA kernel and its plain PyTorch version.
+``TrainConfig.zero1`` is kept for the copy's sake: the port has no mesh to
+shard the optimizer over.
 """
 from __future__ import annotations
 
@@ -171,6 +173,25 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatch_size: int = 0          # 0 = no microbatching
+    zero1: bool = True                # shard optimizer states over data axes
+    grad_compression: str = "none"    # none | topk | int8
+    compression_ratio: float = 0.125  # for topk
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    seed: int = 0
 
 
 @dataclass(frozen=True)

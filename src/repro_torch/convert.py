@@ -14,7 +14,12 @@ A dense transformer's parameters::
 
 The MoE and VLM families take the same converter; zamba2's, rwkv6's and
 whisper's parameters go the same way through ``zamba2_params_from_numpy``,
-``rwkv6_params_from_numpy`` and ``whisper_params_from_numpy``.
+``rwkv6_params_from_numpy`` and ``whisper_params_from_numpy``. A whole train
+state (parameters, AdamW moments and step, error state) goes through
+``train_state_from_numpy``::
+
+    state = train_state_from_numpy(jax.tree.map(np.asarray, jax_state), cfg,
+                                   device="cuda")
 """
 from __future__ import annotations
 
@@ -146,4 +151,31 @@ def whisper_params_from_numpy(params: Dict[str, Any], cfg, *,
     }
     for name in ("enc_norm", "enc_norm_b", "dec_norm", "dec_norm_b"):
         out[name] = _tensor(params[name], dev)
+    return out
+
+
+_PARAM_CONVERTERS = {"dense": transformer_params_from_numpy,
+                     "moe": transformer_params_from_numpy,
+                     "vlm": transformer_params_from_numpy,
+                     "hybrid": zamba2_params_from_numpy,
+                     "ssm": rwkv6_params_from_numpy,
+                     "encdec": whisper_params_from_numpy}
+
+
+def train_state_from_numpy(state: Dict[str, Any], cfg, *,
+                           device=None) -> Dict[str, Any]:
+    """The port's train state from the JAX package's (``init_train_state``
+    or a trained one) as numpy arrays: ``params``, ``opt`` (``m`` and ``v``,
+    float32 with the parameters' tree, and the int32 ``step``) and, with
+    gradient compression, ``err`` (float32, the parameters' tree). The
+    moments and the error state go through the family's parameter
+    converter, since they have the parameters' tree."""
+    dev = resolve_device(device)
+    conv = _PARAM_CONVERTERS[cfg.family]
+    out = {"params": conv(state["params"], cfg, device=dev),
+           "opt": {"m": conv(state["opt"]["m"], cfg, device=dev),
+                   "v": conv(state["opt"]["v"], cfg, device=dev),
+                   "step": _tensor(state["opt"]["step"], dev)}}
+    if "err" in state:
+        out["err"] = conv(state["err"], cfg, device=dev)
     return out

@@ -12,6 +12,7 @@ COUNTS: Dict[str, LaunchCount] = {
     "topk_sim": topk_sim.COUNT,
     "browse_scores": browse_scores.COUNT,
     "flash_attention": flash_attention.COUNT,
+    "flash_attention_bwd": flash_attention.BWD_COUNT,
     "decode_attention": decode_attention.COUNT,
     "mamba2_ssd": mamba2_ssd.COUNT,
     "rwkv6_scan": rwkv6_scan.COUNT,

@@ -29,8 +29,8 @@ import torch.nn.functional as F
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("tree_refresh.cu", "topk_sim.cu", "browse_scores.cu",
-           "flash_attention.cu", "decode_attention.cu", "mamba2_ssd.cu",
-           "rwkv6_scan.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu",
+           "decode_attention.cu", "mamba2_ssd.cu", "rwkv6_scan.cu")
 HEADERS = ("tma.cuh", "mma.cuh")     # included by the sources: part of every hash
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,6 +49,8 @@ SIGNATURES: Dict[str, Tuple] = {
                                 _I, _P),
     "memforest_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _P),
+    "memforest_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _I, _I, _I, _I, _I, _P),
     "memforest_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _I, _P),
     "memforest_mamba2_ssd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -193,6 +195,19 @@ def check_cuda_inputs(name: str, *tensors: torch.Tensor,
             raise ValueError(f"{name}: the CUDA kernel takes contiguous "
                              "tensors")
     return dev
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and an input requires grad: the kernel's
+    output would carry no autograd graph, so a ``backward()`` through it
+    would silently give its inputs no gradient. Kernels without a backward
+    kernel call this on their CUDA branch; their plain versions (CPU
+    tensors) stay differentiable."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires grad, and the CUDA "
+                           "kernel has no backward kernel yet; call it under "
+                           "torch.no_grad() or with inputs that do not "
+                           "require grad")
 
 
 def is_plain(name: str, *tensors: torch.Tensor) -> bool:

@@ -59,6 +59,7 @@ def browse_scores(child_emb: torch.Tensor, q_emb: torch.Tensor,
     if _build.is_plain("browse_scores", child_emb, q_emb, child_mask):
         COUNT.plain_calls += 1
         return browse_scores_ref(child_emb, q_emb, child_mask)
+    _build.refuse_grad("browse_scores", child_emb, q_emb, child_mask)
     dev = _build.check_cuda_inputs("browse_scores", child_emb, q_emb,
                                    child_mask)
     F, K, D = child_emb.shape
@@ -100,6 +101,7 @@ def browse_scores_rows(arena: torch.Tensor, rows: torch.Tensor,
                              f"{int(lane_of.max())}]")
         COUNT.plain_calls += 1
         return browse_scores_rows_ref(*tensors)
+    _build.refuse_grad("browse_scores_rows", *tensors)
     dev = _build.check_cuda_inputs("browse_scores_rows", arena, q_rows,
                                    child_mask)
     _build.check_cuda_inputs("browse_scores_rows", rows, lane_of, arena,

@@ -63,6 +63,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if _build.is_plain("decode_attention", q, k_cache, v_cache, lengths):
         COUNT.plain_calls += 1
         return decode_attention_ref(q, k_cache, v_cache, lengths)
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     dev = _build.check_cuda_inputs("decode_attention", q, k_cache, v_cache,
                                    dtypes=DTYPES)
     _build.check_cuda_inputs("decode_attention", lengths,

@@ -46,6 +46,7 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if _build.is_plain("mamba2_ssd", x, dt, A, Bm, C, state):
         COUNT.plain_calls += 1
         return mamba2_ssd_chunked(x, dt, A, Bm, C, state, chunk=chunk)
+    _build.refuse_grad("mamba2_ssd", x, dt, A, Bm, C, state)
     dev = _build.check_cuda_inputs("mamba2_ssd", x, Bm, C, dtypes=DTYPES)
     _build.check_cuda_inputs("mamba2_ssd", dt, A, state,
                              dtypes=(torch.float32,))

@@ -154,6 +154,44 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, *,
+                      causal: bool = True):
+    """The gradient of ``attention_ref`` over one sequence, which the JAX
+    package gets by differentiating its jnp attention: q, o and do (B, S,
+    Hq, D), k and v (B, S, Hkv, D) -> (dq, dk, dv) in the inputs' type.
+    Explicit float32 math (float64 for float64 inputs): P = softmax of the
+    scores masked at ``NEG_INF``, dP = dO . v, Di = dO . o from the
+    forward's output ``o``, dS = P (dP - Di); dq = scale dS k, dk = scale
+    dS^T q and dv = P^T dO, dk and dv summed over each KV head's group of
+    query heads. ``flash_attention_bwd`` computes the same."""
+    B, S, Hq, D = q.shape
+    group = Hq // k.shape[2]
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf, kf, vf, of, dof = (x.to(ct) for x in (q, k, v, o, do))
+    if group > 1:
+        kf = torch.repeat_interleave(kf, group, dim=2)
+        vf = torch.repeat_interleave(vf, group, dim=2)
+    scale = _inv_sqrt(D, q.device).to(ct)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+        logits = torch.where(mask[None, None], logits,
+                             torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = torch.sum(dof * of, dim=-1).permute(0, 2, 1)[..., None]
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    Hkv = Hq // group
+    dk = dk.reshape(B, S, Hkv, group, D).sum(dim=3)
+    dv = dv.reshape(B, S, Hkv, group, D).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor,
                          lengths: torch.Tensor) -> torch.Tensor:

@@ -47,6 +47,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _build.is_plain("rwkv6_scan", r, k, v, w, u, state):
         COUNT.plain_calls += 1
         return rwkv6_chunked(r, k, v, w, u, state, chunk=chunk)
+    _build.refuse_grad("rwkv6_scan", r, k, v, w, u, state)
     dev = _build.check_cuda_inputs("rwkv6_scan", r, k, v, u, dtypes=DTYPES)
     _build.check_cuda_inputs("rwkv6_scan", w, state, dtypes=(torch.float32,))
     if not (w.device == state.device == dev):

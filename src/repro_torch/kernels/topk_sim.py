@@ -74,6 +74,7 @@ def topk_sim(queries: torch.Tensor, keys: torch.Tensor, k: int, *,
         COUNT.plain_calls += 1
         return topk_sim_ref(queries, keys, k, normalize=normalize,
                             num_valid=num_valid)
+    _build.refuse_grad("topk_sim", queries, keys)
     if normalize:
         queries, keys = normalize_rows(queries), normalize_rows(keys)
     dev = _build.check_cuda_inputs("topk_sim", queries, keys)

@@ -44,6 +44,7 @@ def tree_refresh(child_emb: torch.Tensor,
     if _build.is_plain("tree_refresh", child_emb, child_mask):
         COUNT.plain_calls += 1
         return tree_refresh_ref(child_emb, child_mask)
+    _build.refuse_grad("tree_refresh", child_emb, child_mask)
     dev = _build.check_cuda_inputs("tree_refresh", child_emb, child_mask)
     P, K, D = child_emb.shape
     # rows of whole 16-byte chunks (zero columns change neither the mean nor

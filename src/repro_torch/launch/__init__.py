@@ -1,1 +1,2 @@
-"""Launch-side analytics of the port: the roofline model (``roofline``)."""
+"""Launch side of the port: the roofline model (``roofline``) and the
+training driver (``train``)."""

@@ -2,6 +2,7 @@
 
     model = get_model(cfg)
     params = model.init(seed, device=...)
+    model.loss(params, batch) -> (loss, metrics)
     model.prefill(params, batch, max_len) -> (logits, cache)
     model.decode(params, batch, cache) -> (logits, cache)
     model.init_cache(batch, max_len, device=...) -> empty cache
@@ -9,9 +10,11 @@
 Counterpart of the JAX package's ``models/factory.py``: the dense, ``moe``
 and ``vlm`` families run in ``transformer``, ``ssm`` in ``rwkv6``,
 ``hybrid`` in ``zamba2`` and ``encdec`` in ``whisper``. ``make_batch``
-builds a seeded random batch of any family. Training (``loss``) and the
-dry-run tooling (``cache_specs``, ``param_specs``, ``input_specs``) are not
-ported yet (ROADMAP.md, queue 1, item 7).
+builds a seeded random batch of any family. ``loss`` trains the dense,
+``moe``, ``vlm`` and ``encdec`` families; for ``ssm`` and ``hybrid`` it
+raises on every device, because their scans have no backward kernel yet.
+The dry-run tooling (``cache_specs``, ``param_specs``, ``input_specs``) is
+not ported (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from repro_torch.models.layers import torch_dtype
 class Model(NamedTuple):
     cfg: ModelConfig
     init: Callable[..., Any]
+    loss: Callable[..., Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     init_cache: Callable[..., Any]
@@ -36,6 +40,16 @@ class Model(NamedTuple):
 
 _MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": rwkv6, "hybrid": zamba2, "encdec": whisper}
+TRAINABLE = ("dense", "moe", "vlm", "encdec")
+
+
+def _no_loss(cfg: ModelConfig):
+    def loss(params, batch):
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family waits for backward "
+            "kernels of mamba2_ssd and rwkv6_scan (ROADMAP.md, queue 1, item "
+            "7); the port trains the dense, moe, vlm and encdec families")
+    return loss
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -45,6 +59,8 @@ def get_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=functools.partial(mod.init_params, cfg),
+        loss=((lambda params, batch: mod.loss_fn(params, cfg, batch))
+              if cfg.family in TRAINABLE else _no_loss(cfg)),
         prefill=lambda params, batch, max_len: mod.prefill(params, cfg, batch,
                                                            max_len),
         decode=lambda params, batch, cache: mod.decode_step(params, cfg, batch,

@@ -327,3 +327,19 @@ def moe_block(p: Params, x: torch.Tensor,
     xf = x.reshape(B * S, D)
     gate_w, gate_i, aux = moe_gate(p, xf, cfg)
     return moe_experts(p, xf, gate_w, gate_i, cfg).reshape(B, S, D), aux
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits (B, S, V), labels (B, S) int. Log-softmax in float32, then the
+    mean of -log p(label) over all positions, or over the positions where
+    ``mask`` is nonzero (at least one counted), as the reference."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if mask is None:
+        return -torch.mean(ll)
+    m = mask.to(torch.float32)
+    return -torch.sum(ll * m) / torch.clamp(torch.sum(m), min=1.0)

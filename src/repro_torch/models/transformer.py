@@ -1,5 +1,5 @@
-"""Decoder-only LM, the dense, MoE and VLM families: init, trunk, prefill
-and decode.
+"""Decoder-only LM, the dense, MoE and VLM families: init, trunk, the train
+loss, prefill and decode.
 
 Counterpart of the JAX package's ``models/transformer.py``. Parameters are a
 dict: ``embed`` (V, D), ``layers`` (a list with one dict per layer: ``ln1``,
@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
@@ -92,12 +93,19 @@ def _layer_fwd(cfg: ModelConfig, p, x, positions, *, return_kv=False):
 
 
 def trunk(params, cfg: ModelConfig, x: torch.Tensor,
-          positions: torch.Tensor):
+          positions: torch.Tensor, *, remat: bool = False):
     """x: (B, S, D) embeddings -> (hidden (B, S, D), aux_loss): the MoE
-    layers' aux losses summed in float32, 0 for the other families."""
+    layers' aux losses summed in float32, 0 for the other families. With
+    ``remat`` each layer runs under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint``): its activations are recomputed in the
+    backward pass instead of kept."""
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params["layers"]:
-        x, aux = _layer_fwd(cfg, p, x, positions)
+        if remat:
+            x, aux = checkpoint(_layer_fwd, cfg, p, x, positions,
+                                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux = _layer_fwd(cfg, p, x, positions)
         if aux is not None:
             total = total + aux
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), total
@@ -122,6 +130,25 @@ def _embed_batch(params, cfg: ModelConfig,
     if cfg.family == "vlm" and "patch_embeds" in batch:
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     return x
+
+
+# ---------------------------------------------------------------------------
+# train loss
+# ---------------------------------------------------------------------------
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """(loss, {"xent", "aux"}): the token cross-entropy over ``labels`` (B,
+    S) (and ``loss_mask`` when the batch has one) plus 0.01 x the MoE
+    layers' aux loss. A VLM batch's patch positions are dropped before the
+    logits. ``cfg.remat`` recomputes each layer in the backward pass."""
+    x = _embed_batch(params, cfg, batch)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    h, aux = trunk(params, cfg, x, positions, remat=cfg.remat)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        h = h[:, batch["patch_embeds"].shape[1]:]
+    logits = _logits(params, cfg, h)
+    loss = L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

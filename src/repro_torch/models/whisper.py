@@ -1,4 +1,5 @@
-"""Whisper-style encoder-decoder: init, encode, prefill and decode.
+"""Whisper-style encoder-decoder: init, encode, the train loss, prefill and
+decode.
 
 Counterpart of the JAX package's ``models/whisper.py``. The conv audio
 frontend is a stub, as there: batches carry precomputed frame embeddings
@@ -20,6 +21,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.config import ModelConfig
@@ -85,20 +87,47 @@ def position_table(params, cfg: ModelConfig, n: int) -> torch.Tensor:
     return table[:n]
 
 
-def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+def _remat(fn, remat: bool, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``) when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def _enc_layer(cfg: ModelConfig, p, x, positions):
+    h = L.layer_norm(x, p["ln1"], p["ln1b"], cfg.norm_eps)
+    x = x + L.attention_prefill(p["attn"], h, cfg, positions, causal=False)
+    h = L.layer_norm(x, p["ln2"], p["ln2b"], cfg.norm_eps)
+    return x + L.mlp_block(p["mlp"], h, cfg)
+
+
+def encode(params, cfg: ModelConfig, frames: torch.Tensor, *,
+           remat: bool = False) -> torch.Tensor:
     """frames: (B, S_enc, D), the stubbed frontend's output -> (B, S_enc,
-    D)."""
+    D). ``remat`` recomputes each layer in the backward pass."""
     B, S, D = frames.shape
     x = frames + position_table(params, cfg, S).to(frames.dtype)[None]
     positions = torch.arange(S, device=x.device)[None, :]
     for p in params["enc_layers"]:
-        h = L.layer_norm(x, p["ln1"], p["ln1b"], cfg.norm_eps)
-        x = x + L.attention_prefill(p["attn"], h, cfg, positions,
-                                    causal=False)
-        h = L.layer_norm(x, p["ln2"], p["ln2b"], cfg.norm_eps)
-        x = x + L.mlp_block(p["mlp"], h, cfg)
+        x = _remat(_enc_layer, remat, cfg, p, x, positions)
     return L.layer_norm(x, params["enc_norm"], params["enc_norm_b"],
                         cfg.norm_eps)
+
+
+def _dec_layer(cfg: ModelConfig, p, x, positions, enc_out):
+    """One decoder layer: (x, its self-attention's (k, v), the
+    cross-attention's (k, v))."""
+    h = L.layer_norm(x, p["ln1"], p["ln1b"], cfg.norm_eps)
+    att, kv = L.attention_prefill(p["self_attn"], h, cfg, positions,
+                                  return_kv=True)
+    x = x + att
+    h = L.layer_norm(x, p["ln_x"], p["ln_xb"], cfg.norm_eps)
+    ck, cv = L.cross_kv(p["cross_attn"], enc_out, cfg)
+    x = x + L.cross_attention(p["cross_attn"], h, cfg, ck, cv)
+    h = L.layer_norm(x, p["ln2"], p["ln2b"], cfg.norm_eps)
+    return x + L.mlp_block(p["mlp"], h, cfg), kv, (ck, cv)
 
 
 def _decoder_seq(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -110,20 +139,34 @@ def _decoder_seq(params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = torch.arange(S, device=x.device)[None, :]
     self_kv, cross = [], []
     for p in params["dec_layers"]:
-        h = L.layer_norm(x, p["ln1"], p["ln1b"], cfg.norm_eps)
-        att, kv = L.attention_prefill(p["self_attn"], h, cfg, positions,
-                                      return_kv=True)
-        x = x + att
-        h = L.layer_norm(x, p["ln_x"], p["ln_xb"], cfg.norm_eps)
-        ck, cv = L.cross_kv(p["cross_attn"], enc_out, cfg)
-        x = x + L.cross_attention(p["cross_attn"], h, cfg, ck, cv)
-        h = L.layer_norm(x, p["ln2"], p["ln2b"], cfg.norm_eps)
-        x = x + L.mlp_block(p["mlp"], h, cfg)
+        x, kv, ckv = _dec_layer(cfg, p, x, positions, enc_out)
         self_kv.append(kv)
-        cross.append((ck, cv))
+        cross.append(ckv)
     h = L.layer_norm(x, params["dec_norm"], params["dec_norm_b"],
                      cfg.norm_eps)
     return h, self_kv, cross
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """(loss, {"xent"}): the decoder's token cross-entropy over ``labels``
+    (and ``loss_mask``), the logits tied to the embedding. ``cfg.remat``
+    recomputes each encoder and decoder layer in the backward pass."""
+    enc_out = encode(params, cfg, batch["frames"], remat=cfg.remat)
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = params["embed"][tokens] + position_table(params, cfg, S)[None]
+    positions = torch.arange(S, device=x.device)[None, :]
+
+    def layer(p, x):
+        return _dec_layer(cfg, p, x, positions, enc_out)[0]
+
+    for p in params["dec_layers"]:
+        x = _remat(layer, cfg.remat, p, x)
+    h = L.layer_norm(x, params["dec_norm"], params["dec_norm_b"],
+                     cfg.norm_eps)
+    logits = h @ params["embed"].T
+    loss = L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    return loss, {"xent": loss}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None,

@@ -46,7 +46,12 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.configs.whisper_base, "
             "repro_torch.configs.qwen3_moe_235b, repro_torch.configs.shapes, "
             "repro_torch.analysis, repro_torch.analysis.__main__, "
-            "repro_torch.analysis.lockcheck, repro_torch.launch.roofline; "
+            "repro_torch.analysis.lockcheck, repro_torch.launch.roofline, "
+            "repro_torch.launch.train, repro_torch.training, "
+            "repro_torch.training.optimizer, "
+            "repro_torch.training.grad_compress, "
+            "repro_torch.training.train_loop, repro_torch.data.pipeline, "
+            "repro_torch.tree, repro_torch.kernels.flash_attention; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); "
             "sys.exit(1 if bad else 0)")
