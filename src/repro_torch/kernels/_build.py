@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("tree_refresh.cu", "topk_sim.cu", "browse_scores.cu",
            "flash_attention.cu", "flash_attention_bwd.cu",
            "decode_attention.cu", "mamba2_ssd.cu", "rwkv6_scan.cu")
-HEADERS = ("tma.cuh", "mma.cuh")     # included by the sources: part of every hash
+HEADERS = ("tma.cuh", "mma.cuh", "wgmma.cuh")  # included by the sources: hashed
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -47,10 +47,11 @@ SIGNATURES: Dict[str, Tuple] = {
                            _I, _I, _I, _I, _I, _P),
     "memforest_browse_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _P),
-    "memforest_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _P),
-    "memforest_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                      _I, _I, _I, _I, _I, _I, _P),
+    "memforest_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _P),
+    "memforest_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _L, _I, _I, _I, _I, _I, _I, _I, _I,
+                                      _P),
     "memforest_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _I, _P),
     "memforest_mamba2_ssd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

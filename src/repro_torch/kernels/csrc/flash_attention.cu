@@ -46,15 +46,23 @@
 //  - The tensor maps need 16-byte row strides (D % 8 == 0) and 16-byte
 //    aligned bases: the wrapper pads other head dims and copies misaligned
 //    views before the call.
+//  - Training asks for each row's log-sum-exp (lse, (B, Hq, S) float32),
+//    written from the online softmax's m and l in its log2 domain: m + log2
+//    l on scores scaled by scale_log2 = log2(e) / sqrt(D). The backward
+//    (flash_attention_bwd.cu) reads it in that domain, P = exp2(s
+//    scale_log2 - lse), and never recomputes it. Inference passes null and
+//    the launch is unchanged.
 //
 // float32 (the parity phases, held to 2e-5 against the CPU): the CUDA-core
-// kernel below, unchanged, because the tensor cores' TF32 keeps about three
-// decimal digits. The dispatch is by type, in the C entry point.
+// kernel below, because the tensor cores' TF32 keeps about three decimal
+// digits; it writes the same lse (its natural m + log l times log2(e)). The
+// dispatch is by type, in the C entry point.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -71,6 +79,7 @@ constexpr int kBK = 32;                     // keys per tile: one per lane
 constexpr int kMaxD = 128;                  // a lane owns 4 head-dim values
 constexpr int kKStride = kMaxD + 4;         // K rows: 16-byte aligned, no conflicts
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -93,7 +102,7 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
+                       const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
                        int S, int Hq, int Hkv, int D, int causal) {
   __shared__ __align__(16) float qs[kBQ][kMaxD];
   __shared__ __align__(16) float ks[kBK][kKStride];
@@ -199,6 +208,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + r0 + r;
     if (row >= S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    // the log-sum-exp in log2 units, as the bf16 kernel writes it
+    if (lse != nullptr && lane == 0) lse[(b * Hq + h) * S + row] = (m[r] + logf(l[r])) * kLog2e;
     T* o = out + ((b * S + row) * Hq + h) * D;
 #pragma unroll
     for (int t = 0; t < 4; ++t)
@@ -211,86 +222,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // bf16: wgmma on the tensor cores, TMA into a two-stage ring
 // ---------------------------------------------------------------------------
 constexpr int kBN = 64;                    // keys per K/V tile
-constexpr int kPanel = 64;                 // head-dim values per 128-byte panel
-constexpr int kPanelBytes = 64 * 128;      // one 64-row panel: 8 KB
+constexpr int kPanel = tc::kPanel;         // head-dim values per 128-byte panel
+constexpr int kPanelBytes = tc::kPanelBytes;
 constexpr int kStages = 2;                 // K/V tiles in flight
-constexpr float kLog2e = 1.4426950408889634f;
-
-// Shared-memory matrix descriptor of a 128-byte swizzled panel (rows of 128
-// bytes, 8-row groups 1024 bytes apart): start address, leading and stride
-// byte offsets (both 1024: for K-major operands the leading offset is
-// unused, and an MN-major operand of at most 64 columns, one panel, reads
-// the 8-row step from either), layout type 1 = 128-byte swizzle.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving accesses of an accumulator across a wgmma
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D(64 x 64, f32) (+)= A(64 x 16, bf16, shared) . B(64 x 16, bf16, shared)^T
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D(64 x 16, f32) += A(64 x 16, bf16, registers) . B(16 x 16, bf16, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-}
-
-// D(64 x 32, f32) += A(64 x 16, bf16, registers) . B(16 x 32, bf16, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-}
-
-// D(64 x 48, f32) += A(64 x 16, bf16, registers) . B(16 x 48, bf16, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n48(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-}
-
-// D(64 x 64, f32) += A(64 x 16, bf16, registers) . B(16 x 64, bf16, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // KS: head-dim steps of 16 (4 for D <= 64, else ceil(D / 16)), so NP =
 // ceil(KS / 4) 64-wide panels; W: consumer warpgroups of 64 packed rows
@@ -299,7 +233,8 @@ template <int KS, int W>
 __global__ void __launch_bounds__(W * 128)
 flash_attention_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_o,
-                   int S, int Hkv, int Gc, int Mp, int causal, float scale_log2) {
+                   float* __restrict__ lse, int S, int Hkv, int G, int Gc, int Mp, int causal,
+                   float scale_log2) {
   constexpr int NP = (KS + 3) / 4;
   constexpr int last_n = (KS - 4 * (NP - 1)) * 16;  // columns of the last panel
   extern __shared__ uint8_t smem_raw[];
@@ -379,17 +314,17 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q, const __grid_const
       float sc[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-      reg_fence(sc);
-      wgmma_fence();
+      tc::reg_fence(sc);
+      tc::fence();
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         const uint32_t off = (kk % 4) * 32;  // 16 bf16 into the 128-byte row
-        wgmma_ss_n64(sc, sw128_desc(q_panel(wg, kk / 4) + off),
-                     sw128_desc(k_panel(s, kk / 4) + off), kk > 0);
+        tc::ss_n64(sc, tc::sw128_desc(q_panel(wg, kk / 4) + off),
+                   tc::sw128_desc(k_panel(s, kk / 4) + off), kk > 0);
       }
-      wgmma_commit();
-      wgmma_wait_all();
-      reg_fence(sc);
+      tc::commit();
+      tc::wait<0>();
+      tc::reg_fence(sc);
 
       // scores in log2 units; keys past S, and past the row's position when
       // causal, are masked
@@ -445,31 +380,20 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q, const __grid_const
 
       // P in bf16: the accumulator of keys 16kk..16kk+15 is the A fragment
       uint32_t pa[4][4];
+      tc::to_a_frags(sc, pa);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-      }
+      for (int p = 0; p < NP; ++p) tc::reg_fence(o[p]);
+      tc::fence();
 #pragma unroll
-      for (int p = 0; p < NP; ++p) reg_fence(o[p]);
-      wgmma_fence();
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+        for (int p = 0; p < NP; ++p)  // V 16 keys down, MN-major
+          tc::rs(o[p], pa[kk], tc::sw128_desc(v_panel(s, p) + kk * 16 * 128),
+                 p < NP - 1 ? 64 : last_n);
+      tc::commit();
+      tc::wait<0>();
 #pragma unroll
-        for (int p = 0; p < NP; ++p) {
-          const uint64_t dv = sw128_desc(v_panel(s, p) + kk * 16 * 128);  // 16 keys down
-          if (p < NP - 1 || last_n == 64) wgmma_rs_n64(o[p], pa[kk], dv);
-          else if (last_n == 48) wgmma_rs_n48(o[p], pa[kk], dv);
-          else if (last_n == 32) wgmma_rs_n32(o[p], pa[kk], dv);
-          else wgmma_rs_n16(o[p], pa[kk], dv);
-        }
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-#pragma unroll
-      for (int p = 0; p < NP; ++p) reg_fence(o[p]);
+      for (int p = 0; p < NP; ++p) tc::reg_fence(o[p]);
     }
     __syncthreads();  // every warpgroup is done with stage s
     if (tid == 0 && it + kStages < n_tiles) load_kv(s, it + kStages);
@@ -481,23 +405,23 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q, const __grid_const
     l0 += __shfl_xor_sync(kFull, l0, off);
     l1 += __shfl_xor_sync(kFull, l1, off);
   }
+  if (lse != nullptr && lane % 4 == 0) {
+    // each live row's log-sum-exp in log2 units: m + log2(l), m the largest
+    // score times scale_log2, l = sum_j exp2(score_j scale_log2 - m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half, pos = half ? pos1 : pos0, head = g0 + r % Gc;
+      if (r < Gc * Mp && pos < S && head < G)
+        lse[((static_cast<long>(b) * Hkv + hk) * G + head) * S + pos] =
+            half ? m1 + log2f(l1) : m0 + log2f(l0);
+    }
+  }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   // O in bf16 into this warpgroup's Q panels (its last read of them is
-  // done), in the same swizzled layout: 16-byte chunk c of row r sits at
-  // chunk c ^ (r % 8); then one TMA store per panel. Rows past S, heads past
-  // the group and head-dim values past D fall outside the tensor map.
-#pragma unroll
-  for (int p = 0; p < NP; ++p)
-#pragma unroll
-    for (int j = 0; j < (p < NP - 1 ? 8 : last_n / 8); ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = r0 + 8 * half;
-        const float inv = half ? inv1 : inv0;
-        const uint32_t addr = q_panel(wg, p) + r * 128 + ((j ^ (r % 8)) * 16) + col * 2;
-        const uint32_t v = pack_bf16(o[p][4 * j + 2 * half] * inv, o[p][4 * j + 2 * half + 1] * inv);
-        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-      }
+  // done), in the panels' swizzled layout, then one TMA store per panel.
+  // Rows past S, heads past the group and head-dim values past D fall
+  // outside the tensor map.
+  tc::store_panels<NP, last_n>(o, [&](int p) { return q_panel(wg, p); }, r0, col, inv0, inv1);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup only
   if (tid % 128 == 0) {
@@ -519,29 +443,29 @@ bool make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dim
 }
 
 template <int KS, int W>
-int launch_tc(const CUtensorMap (&maps)[4], int B, int S, int Hkv, int G, int Gc, int Mp,
-              int causal, float scale_log2, cudaStream_t stream) {
+int launch_tc(const CUtensorMap (&maps)[4], float* lse, int B, int S, int Hkv, int G, int Gc,
+              int Mp, int causal, float scale_log2, cudaStream_t stream) {
   constexpr int NP = (KS + 3) / 4;
   const int smem = 1024 + (W * NP + 2 * kStages * NP) * kPanelBytes;
   auto kernel = flash_attention_tc<KS, W>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + W * Mp - 1) / (W * Mp), Hkv * ((G + Gc - 1) / Gc), B);
-  kernel<<<grid, W * 128, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], S, Hkv, Gc, Mp,
-                                          causal, scale_log2);
+  kernel<<<grid, W * 128, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], lse, S, Hkv, G, Gc,
+                                          Mp, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int KS>
-int launch_ks(const CUtensorMap (&maps)[4], int B, int S, int Hkv, int G, int Gc, int Mp,
-              int causal, float scale_log2, cudaStream_t stream) {
+int launch_ks(const CUtensorMap (&maps)[4], float* lse, int B, int S, int Hkv, int G, int Gc,
+              int Mp, int causal, float scale_log2, cudaStream_t stream) {
   return S <= Mp  // every position fits one warpgroup's tile
-             ? launch_tc<KS, 1>(maps, B, S, Hkv, G, Gc, Mp, causal, scale_log2, stream)
-             : launch_tc<KS, 2>(maps, B, S, Hkv, G, Gc, Mp, causal, scale_log2, stream);
+             ? launch_tc<KS, 1>(maps, lse, B, S, Hkv, G, Gc, Mp, causal, scale_log2, stream)
+             : launch_tc<KS, 2>(maps, lse, B, S, Hkv, G, Gc, Mp, causal, scale_log2, stream);
 }
 
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int S, int Hq,
-                int Hkv, int D, int scale_dim, int causal, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+                int Hq, int Hkv, int D, int scale_dim, int causal, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int Gc = G < 64 ? G : 64;  // heads of the group per tile
   const int Mp = 64 / Gc;          // positions per warpgroup tile
@@ -562,20 +486,21 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
     return static_cast<int>(cudaErrorInvalidValue);
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(scale_dim));
   switch ((D + 15) / 16) {
-    case 5: return launch_ks<5>(maps, B, S, Hkv, G, Gc, Mp, causal, scale_log2, stream);
-    case 6: return launch_ks<6>(maps, B, S, Hkv, G, Gc, Mp, causal, scale_log2, stream);
-    case 7: return launch_ks<7>(maps, B, S, Hkv, G, Gc, Mp, causal, scale_log2, stream);
-    case 8: return launch_ks<8>(maps, B, S, Hkv, G, Gc, Mp, causal, scale_log2, stream);
-    default: return launch_ks<4>(maps, B, S, Hkv, G, Gc, Mp, causal, scale_log2, stream);  // D <= 64
+    case 5: return launch_ks<5>(maps, lse, B, S, Hkv, G, Gc, Mp, causal, scale_log2, stream);
+    case 6: return launch_ks<6>(maps, lse, B, S, Hkv, G, Gc, Mp, causal, scale_log2, stream);
+    case 7: return launch_ks<7>(maps, lse, B, S, Hkv, G, Gc, Mp, causal, scale_log2, stream);
+    case 8: return launch_ks<8>(maps, lse, B, S, Hkv, G, Gc, Mp, causal, scale_log2, stream);
+    default:  // D <= 64
+      return launch_ks<4>(maps, lse, B, S, Hkv, G, Gc, Mp, causal, scale_log2, stream);
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int S, int Hq,
-               int Hkv, int D, int causal, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+               int Hq, int Hkv, int D, int causal, cudaStream_t stream) {
   const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
   flash_attention_kernel<float><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), S, Hq, Hkv, D, causal);
+      static_cast<float*>(out), lse, S, Hq, Hkv, D, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -584,10 +509,13 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
 // q (B, S, Hq, D), k and v (B, S, Hkv, D), out (B, S, Hq, D), all contiguous
 // and of one type: bf16 when bf16 != 0, else f32. Scores are scaled by
 // 1/sqrt(scale_dim). bf16 needs D % 8 == 0 and 16-byte aligned tensors (the
-// tensor maps' rule); f32 needs scale_dim == D.
+// tensor maps' rule); f32 needs scale_dim == D. lse: null (inference), or
+// (B, Hq, S) float32 that receives each row's log-sum-exp in log2 units,
+// log2 sum_j exp2(s_j log2(e) / sqrt(scale_dim)) for the row's allowed keys
+// j, the domain flash_attention_bwd reads.
 extern "C" int memforest_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                         int B, int S, int Hq, int Hkv, int D, int scale_dim,
-                                         int causal, int bf16, void* stream) {
+                                         void* lse, int B, int S, int Hq, int Hkv, int D,
+                                         int scale_dim, int causal, int bf16, void* stream) {
   if (D < 1 || D > kMaxD || scale_dim < 1 || Hkv < 1 || Hq % Hkv != 0 || Hq > 65535 ||
       B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -595,10 +523,11 @@ extern "C" int memforest_flash_attention(const void* q, const void* k, const voi
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!bf16) {
     if (scale_dim != D) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_f32(q, k, v, out, B, S, Hq, Hkv, D, causal, s);
+    return launch_f32(q, k, v, out, static_cast<float*>(lse), B, S, Hq, Hkv, D, causal, s);
   }
   const auto misaligned = [](const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 != 0; };
   if (D % 8 != 0 || misaligned(q) || misaligned(k) || misaligned(v) || misaligned(out))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16(q, k, v, out, B, S, Hq, Hkv, D, scale_dim, causal, s);
+  return launch_bf16(q, k, v, out, static_cast<float*>(lse), B, S, Hq, Hkv, D, scale_dim, causal,
+                     s);
 }

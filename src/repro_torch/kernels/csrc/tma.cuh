@@ -72,6 +72,15 @@ __device__ __forceinline__ void load_5d(uint32_t dst, const CUtensorMap* map, in
       : "memory");
 }
 
+__device__ __forceinline__ void store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void store_5d(const CUtensorMap* map, uint32_t src, int c0, int c1,
                                          int c2, int c3, int c4) {
   asm volatile(

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634   # the attention kernels' exp2 domain
 
 
 def normalize_rows(x: torch.Tensor) -> torch.Tensor:
@@ -130,6 +131,22 @@ def _inv_sqrt(D: int, device) -> torch.Tensor:
                                          device=device))
 
 
+def _masked_logits(qf: torch.Tensor, kf: torch.Tensor,
+                   causal: bool) -> torch.Tensor:
+    """The scores q . k / sqrt(D) of q (B, S, H, D) and k (B, Sk, H, D) of
+    one float type -> (B, H, S, Sk), masked at ``NEG_INF`` for keys past the
+    row when causal (then Sk == S)."""
+    S, D = qf.shape[1], qf.shape[3]
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * _inv_sqrt(
+        D, qf.device).to(qf.dtype)
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=qf.device))
+        logits = torch.where(mask[None, None], logits,
+                             torch.full_like(logits, NEG_INF))
+    return logits
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
     """GQA attention over one sequence: q (B, S, Hq, D), k/v (B, S, Hkv, D)
@@ -137,21 +154,31 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     -1e30. Query head h reads KV head ``h // (Hq // Hkv)``. Full
     (``causal=False``), k and v may have another length than q: whisper's
     cross-attention, which no kernel computes."""
-    B, S, Hq, D = q.shape
-    group = Hq // k.shape[2]
+    group = q.shape[2] // k.shape[2]
     if group > 1:
         k = torch.repeat_interleave(k, group, dim=2)
         v = torch.repeat_interleave(v, group, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                          k.to(torch.float32)) * _inv_sqrt(D, q.device)
-    if causal:
-        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
-                                     device=q.device))
-        logits = torch.where(mask[None, None], logits,
-                             torch.full_like(logits, NEG_INF))
+    logits = _masked_logits(q.to(torch.float32), k.to(torch.float32), causal)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(torch.float32))
     return out.to(q.dtype)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True) -> torch.Tensor:
+    """Each row's log-sum-exp of ``attention_ref``'s masked scores, in log2
+    units, the domain ``flash_attention``'s kernel writes for training: q
+    (B, S, Hq, D), k (B, S, Hkv, D) -> (B, Hq, S) float32 (float64 for
+    float64 inputs), log2 sum_j exp2(s_ij log2(e)) for the scores s_ij =
+    q_i . k_j / sqrt(D) masked at ``NEG_INF`` (keys past the row when
+    causal), that is the natural log-sum-exp times log2(e)."""
+    group = q.shape[2] // k.shape[2]
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    kf = k.to(ct)
+    if group > 1:
+        kf = torch.repeat_interleave(kf, group, dim=2)
+    return torch.logsumexp(_masked_logits(q.to(ct), kf, causal),
+                           dim=-1) * LOG2E
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -173,13 +200,7 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kf = torch.repeat_interleave(kf, group, dim=2)
         vf = torch.repeat_interleave(vf, group, dim=2)
     scale = _inv_sqrt(D, q.device).to(ct)
-    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    if causal:
-        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
-                                     device=q.device))
-        logits = torch.where(mask[None, None], logits,
-                             torch.full_like(logits, NEG_INF))
-    p = torch.softmax(logits, dim=-1)
+    p = torch.softmax(_masked_logits(qf, kf, causal), dim=-1)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     delta = torch.sum(dof * of, dim=-1).permute(0, 2, 1)[..., None]
     ds = p * (dp - delta)

@@ -19,14 +19,19 @@ plain PyTorch that follows each kernel's schedule step by step:
   merging its slots in split-index order. Whatever order the blocks finish
   in gives the same bits. (The kernel's own run-to-run bits are held by
   ``chip_smoke.py``'s repeat check.)
-- ``flash_attention_bwd``: its two entries' tile schedule (A: 64-row query
-  tiles recomputing each row's log-sum-exp over 64-key tiles, keys past S
-  at -inf and causally masked ones at -1e30, then dq; B: 64-key tiles
-  looping over the group's query heads and the query tiles from the tile's
-  first key, reading A's lse and Di), against ``attention_bwd_ref`` and
-  ``jax.vjp`` of the reference in float32, and in bf16 against a float64
-  run within one ulp plus ``chip_smoke.BWD_EXCESS`` (pinned here), with
-  ragged tails, S = 1 and head dims 16, 64, 96 and 128.
+- the log-sum-exp the forward writes for training (log2 units), against
+  ``attention_lse_ref`` and ``jax.nn.logsumexp``.
+- ``flash_attention_bwd``: both entries' schedules read the forward's lse
+  (none recomputes it). float32 (the CUDA-core kernels: A per 64-row query
+  tile and query head sweeping the key tiles once; B per 64-key tile
+  looping over the group's heads) against ``attention_bwd_ref`` and
+  ``jax.vjp`` of the reference within 1e-4. bf16 (the tensor-core kernels:
+  packed rows of Gc heads and Mp positions, exp2 on the lse, P and dS
+  rounded to bf16 before their products, f32 sums; B's (lse, Di) from A's
+  scratch) against both references and against a float64 run within one
+  ulp plus ``chip_smoke.BWD_TC_EXCESS`` (pinned here, with the shapes it
+  was derived at), with ragged tails, S = 1, head dims 16 to 128 and
+  groups of 1 to 96.
 - the wrappers still refuse what they refused and never fall back.
 
 Inputs come from numpy with fixed seeds and go to both packages.
@@ -42,6 +47,7 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ref as jax_ref
 from repro_torch import kernels
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (CHUNK, FAN_IN, TILE,
                                                  plan_splits, scratch_sizes)
@@ -68,10 +74,13 @@ def _within(out, plain):
 # ---------------------------------------------------------------------------
 # flash_attention: the tensor-core schedule
 # ---------------------------------------------------------------------------
-def flash_schedule(q, k, v, causal):
+def flash_schedule(q, k, v, causal, with_lse=False):
     """The bf16 kernel's arithmetic: q (B, S, Hq, D), k and v (B, S, Hkv,
-    D), bf16 -> (B, S, Hq, D) bf16. Block (row tile, head chunk, KV head,
-    batch) as the kernel launches them, vectorised over batch and KV head."""
+    D), bf16 -> (B, S, Hq, D) bf16, and with ``with_lse`` also each row's
+    log-sum-exp (B, Hq, S) float32 as training asks the kernel for it: m +
+    log2(l) from the online softmax, in log2 units. Block (row tile, head
+    chunk, KV head, batch) as the kernel launches them, vectorised over
+    batch and KV head."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -82,6 +91,7 @@ def flash_schedule(q, k, v, causal):
     qf = q.float().reshape(B, S, Hkv, G, D)
     kf, vf = k.float(), v.float()
     out = torch.zeros(B, S, Hkv, G, D)
+    lse = torch.zeros(B, S, Hkv, G)
     for g0 in range(0, G, Gc):
         for p0 in range(0, S, W * Mp):
             pos = torch.arange(p0, p0 + W * Mp)          # the block's positions
@@ -116,10 +126,15 @@ def flash_schedule(q, k, v, causal):
                 m = mn
             res = (o / torch.clamp(l, min=1e-30)[..., None]).reshape(
                 B, Hkv, W * Mp, Gc, D).permute(0, 2, 1, 3, 4)
+            row_lse = (m + torch.log2(l)).reshape(B, Hkv, W * Mp, Gc).permute(0, 2, 1, 3)
             for i, pi in enumerate(pos.tolist()):
                 if pi < S:
                     out[:, pi, :, g0:g0 + len(hv)] = res[:, i, :, : len(hv)]
-    return out.reshape(B, S, Hq, D).to(torch.bfloat16)
+                    lse[:, pi, :, g0:g0 + len(hv)] = row_lse[:, i, :, : len(hv)]
+    out = out.reshape(B, S, Hq, D).to(torch.bfloat16)
+    if with_lse:
+        return out, lse.reshape(B, S, Hq).permute(0, 2, 1).contiguous()
+    return out
 
 
 FLASH_SHAPES = [
@@ -141,6 +156,27 @@ def test_flash_schedule_meets_the_kernel_tolerance(B, S, Hq, Hkv, D, causal):
     _within(got, ref.attention_ref(q, k, v, causal=causal).float().numpy())
     want = jax_ref.attention_ref(qj, kj, vj, causal=causal)
     _within(got, np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", FLASH_SHAPES)
+def test_flash_schedule_lse_matches_the_references(B, S, Hq, Hkv, D, causal):
+    """The log-sum-exp the forward kernel writes for training (log2 units),
+    within 1e-5 of ``attention_lse_ref`` and of ``jax.nn.logsumexp`` of the
+    reference's masked scores (times log2(e)), on the same bf16 inputs."""
+    import jax
+    rng = np.random.default_rng(S * 100 + D + 1)
+    (qj, q), (kj, k), (vj, v) = (_pair(rng, (B, S, h, D))
+                                 for h in (Hq, Hkv, Hkv))
+    out, lse = flash_schedule(q, k, v, causal, with_lse=True)
+    assert torch.equal(out, flash_schedule(q, k, v, causal))
+    assert lse.shape == (B, Hq, S) and lse.dtype == torch.float32
+    assert (lse - ref.attention_lse_ref(q, k, causal=causal)).abs().max() <= 1e-5
+    kr = jnp.repeat(kj.astype(jnp.float32), Hq // Hkv, axis=2)
+    s = jnp.einsum("bqhd,bkhd->bhqk", qj.astype(jnp.float32), kr) / np.sqrt(np.float32(D))
+    if causal:
+        s = jnp.where(jnp.tril(jnp.ones((S, S), bool))[None, None], s, NEG)
+    want = np.asarray(jax.nn.logsumexp(s, axis=-1)) * LOG2E
+    assert np.abs(lse.numpy() - want).max() <= 1e-5
 
 
 def test_flash_schedule_at_4096_positions():
@@ -169,14 +205,14 @@ def test_tma_ready_pads_the_head_dim_and_aligns():
 
 
 # ---------------------------------------------------------------------------
-# flash_attention_bwd: the two entries' tile schedule
+# flash_attention_bwd: the two entries' tile schedules
 # ---------------------------------------------------------------------------
 BWD_TILE = 64
 
 
 def _tile(x, h, r0, S):
     """Rows r0 .. r0 + 63 of head h of x (B, S, H, D) in float32, rows past S
-    zeros: what the kernel stages in shared memory."""
+    zeros: what the f32 kernel stages in shared memory."""
     t = torch.zeros(x.shape[0], BWD_TILE, x.shape[3])
     n = max(0, min(BWD_TILE, S - r0))
     t[:, :n] = x[:, r0:r0 + n, h].float()
@@ -190,58 +226,50 @@ def _allowed(rows, keys, S, causal):
     return ok & (keys[None] <= rows[:, None]) if causal else ok
 
 
-def flash_bwd_schedule(q, k, v, o, do, causal):
-    """``csrc/flash_attention_bwd.cu``'s two entries, tile by tile, in
-    float32: A per (query tile, query head) recomputes each row's lse in
-    64-key tiles (keys past S at -inf, causally masked ones at -1e30), takes
-    Di = dO . o and sums dq over the allowed key tiles; B per (key tile, KV
-    head) loops over the group's heads and the query tiles from the tile's
-    first key (causal) or 0, reading A's lse and Di. Vectorised over the
-    batch. Returns (dq, dk, dv) in the inputs' type."""
+def flash_bwd_schedule(q, k, v, o, lse, do, causal):
+    """``csrc/flash_attention_bwd.cu``'s float32 entries, tile by tile: A per
+    (query tile, query head) takes Di = dO . o and sums dq over the allowed
+    64-key tiles in one sweep, P = exp2(q.k scale log2(e) - lse) with the
+    forward's lse (log2 units); B per (key tile, KV head) loops over the
+    group's heads and the query tiles from the tile's first key (causal) or
+    0, reading the forward's lse and A's Di. Vectorised over the batch.
+    Returns (dq, dk, dv) in the inputs' type."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     scale = np.float32(1.0) / np.sqrt(np.float32(D))
+    scale_log2 = scale * np.float32(LOG2E)
     dq = torch.zeros(B, S, Hq, D)
     dk = torch.zeros(B, S, Hkv, D)
     dv = torch.zeros(B, S, Hkv, D)
-    lse = torch.zeros(B, Hq, S)
     delta = torch.zeros(B, Hq, S)
     tiles = range(0, S, BWD_TILE)
     local = torch.arange(BWD_TILE)
+
+    def rows_of(x, h, r0):       # (B, 64) of a (B, Hq, S) array, zeros past S
+        t = torch.zeros(B, BWD_TILE)
+        n = min(BWD_TILE, S - r0)
+        t[:, :n] = x[:, h, r0:r0 + n]
+        return t
     for h in range(Hq):                                   # entry A
         hk = h // G
         for q0 in tiles:
             qs, dos = _tile(q, h, q0, S), _tile(do, h, q0, S)
             rows = q0 + local
             di = (dos * _tile(o, h, q0, S)).sum(-1)
-            m = torch.full((B, BWD_TILE), NEG)
-            l = torch.zeros(B, BWD_TILE)
+            lse_t = rows_of(lse, h, q0)
             kv_end = min(S, q0 + BWD_TILE) if causal else S
-            for kv0 in range(0, kv_end, BWD_TILE):
-                keys = kv0 + local
-                s = (qs @ _tile(k, hk, kv0, S).transpose(1, 2)) * scale
-                if causal:
-                    s = torch.where(keys[None] > rows[:, None],
-                                    torch.tensor(NEG), s)
-                s = torch.where(keys[None] >= S, torch.tensor(-math.inf), s)
-                m_new = torch.maximum(m, s.amax(-1))
-                l = l * torch.exp(m - m_new) + torch.exp(
-                    s - m_new[..., None]).sum(-1)
-                m = m_new
-            lse_t = m + torch.log(l)
             acc = torch.zeros(B, BWD_TILE, D)
             for kv0 in range(0, kv_end, BWD_TILE):
                 keys = kv0 + local
                 ks, vs = _tile(k, hk, kv0, S), _tile(v, hk, kv0, S)
                 ok = _allowed(rows, keys, S, causal)
-                p = torch.where(ok, torch.exp((qs @ ks.transpose(1, 2)) * scale
-                                              - lse_t[..., None]),
+                p = torch.where(ok, torch.exp2((qs @ ks.transpose(1, 2)) * scale_log2
+                                               - lse_t[..., None]),
                                 torch.tensor(0.0))
                 acc += (p * (dos @ vs.transpose(1, 2) - di[..., None])) @ ks
             n = min(BWD_TILE, S - q0)
             dq[:, q0:q0 + n, h] = (acc * scale)[:, :n]
-            lse[:, h, q0:q0 + n] = lse_t[:, :n]
             delta[:, h, q0:q0 + n] = di[:, :n]
     for hk in range(Hkv):                                 # entry B
         for k0 in tiles:
@@ -253,13 +281,10 @@ def flash_bwd_schedule(q, k, v, o, do, causal):
                 for r0 in range(k0 if causal else 0, S, BWD_TILE):
                     rows = r0 + local
                     qs, dos = _tile(q, h, r0, S), _tile(do, h, r0, S)
-                    lse_r = torch.zeros(B, BWD_TILE)
-                    di = torch.zeros(B, BWD_TILE)
-                    n = min(BWD_TILE, S - r0)
-                    lse_r[:, :n], di[:, :n] = lse[:, h, r0:r0 + n], delta[:, h, r0:r0 + n]
+                    lse_r, di = rows_of(lse, h, r0), rows_of(delta, h, r0)
                     ok = (rows[:, None] < S) & _allowed(rows, keys, S, causal)
-                    p = torch.where(ok, torch.exp((qs @ ks.transpose(1, 2)) * scale
-                                                  - lse_r[..., None]),
+                    p = torch.where(ok, torch.exp2((qs @ ks.transpose(1, 2)) * scale_log2
+                                                   - lse_r[..., None]),
                                     torch.tensor(0.0))
                     ds = p * (dos @ vs.transpose(1, 2) - di[..., None])
                     dv_acc += p.transpose(1, 2) @ dos
@@ -270,6 +295,109 @@ def flash_bwd_schedule(q, k, v, o, do, causal):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _packed_rows(S, G, c, t):
+    """Positions and heads of the 64 packed rows of tile t of head chunk c,
+    and which of them are rows of the tensor (a group that does not divide
+    64 leaves rows past Gc * Mp; positions past S and heads past G)."""
+    Gc, Mp, _, _ = fa.packing(S, G)
+    r = torch.arange(64)
+    pos, head = t * Mp + r // Gc, c * Gc + r % Gc
+    return pos, head, (r < Gc * Mp) & (pos < S) & (head < G)
+
+
+def _gather(x, pos, head, valid, G):
+    """Packed rows of x (B, S, Hq, D) as (B, Hkv, 64, D) float32, zeros for
+    rows that are none of the tensor's: what TMA lands in a Q panel."""
+    B, S, Hq, D = x.shape
+    out = torch.zeros(B, Hq // G, 64, D)
+    xg = x.float().reshape(B, S, Hq // G, G, D)
+    out[:, :, valid] = xg[:, pos[valid], :, head[valid]].permute(1, 2, 0, 3)
+    return out
+
+
+def flash_bwd_tc_schedule(q, k, v, o, lse, do, causal):
+    """``csrc/flash_attention_bwd.cu``'s bf16 entries, tile by tile, in the
+    kernel's arithmetic: bf16 inputs, f32 products and sums, P = exp2(S
+    scale_log2 - lse) on the forward's lse, and the two roundings of the
+    tensor-core design: dS to bf16 before dq += dS.K (A), P^T and dS^T to
+    bf16 before dV += P^T.dO and dK += dS^T.Q (B). Rows are packed as
+    (position, query head of the group) in 64-row tiles of Gc heads and Mp
+    positions; the causal mask compares keys with positions. A writes each
+    tile's (lse, Di) pairs into a scratch of ``bwd_scratch_floats`` floats
+    that starts as NaN, and B reads them back, so a pair B read unwritten
+    would poison its gradients. Vectorised over batch and KV head. Returns
+    (dq, dk, dv) in bf16."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    Gc, Mp, nc, nt = fa.packing(S, G)
+    scale = np.float32(1.0) / np.sqrt(np.float32(D))
+    scale_log2 = np.float32(LOG2E) / np.sqrt(np.float32(D))
+    bf = torch.bfloat16
+    kf, vf = k.float(), v.float()
+    lse4 = lse.reshape(B, Hkv, G, S)
+    pairs = torch.full((B, Hkv, nc, nt, 64, 2), math.nan)
+    assert pairs.numel() == fa.bwd_scratch_floats(B, S, Hq, Hkv, True)
+    local = torch.arange(64)
+    zero = torch.tensor(0.0)
+
+    def keys_of(x, k0):          # a 64-key tile (B, Hkv, 64, D), zeros past S
+        t = torch.zeros(B, Hkv, 64, D)
+        n = min(64, S - k0)
+        t[:, :, :n] = x[:, k0:k0 + n].permute(0, 2, 1, 3)
+        return t
+
+    dq = torch.zeros(B, S, Hkv, G, D)
+    for c in range(nc):                                   # entry A
+        for t in range(nt):
+            pos, head, valid = _packed_rows(S, G, c, t)
+            qt, dot = _gather(q, pos, head, valid, G), _gather(do, pos, head, valid, G)
+            lse_r = torch.zeros(B, Hkv, 64)
+            lse_r[:, :, valid] = lse4[:, :, head[valid], pos[valid]].float()
+            di = (dot * _gather(o, pos, head, valid, G)).sum(-1)
+            pairs[:, :, c, t, :, 0], pairs[:, :, c, t, :, 1] = lse_r, di
+            kv_end = min(S, t * Mp + Mp) if causal else S
+            acc = torch.zeros(B, Hkv, 64, D)
+            for kv0 in range(0, kv_end, 64):
+                kt, vt = keys_of(kf, kv0), keys_of(vf, kv0)
+                keys = kv0 + local
+                p = torch.exp2((qt @ kt.transpose(-1, -2)) * scale_log2 - lse_r[..., None])
+                ok = keys[None] < S
+                if causal:
+                    ok = ok & (keys[None] <= pos[:, None])
+                p = torch.where(ok, p, zero)
+                ds = p * (dot @ vt.transpose(-1, -2) - di[..., None])
+                acc += ds.to(bf).float() @ kt
+            res = (acc * scale)[:, :, valid].permute(2, 0, 1, 3)
+            dq[:, pos[valid], :, head[valid]] = res
+    dk = torch.zeros(B, S, Hkv, D)
+    dv = torch.zeros(B, S, Hkv, D)
+    for k0 in range(0, S, 64):                            # entry B
+        kt, vt = keys_of(kf, k0), keys_of(vf, k0)
+        keys = k0 + local
+        dk_acc = torch.zeros(B, Hkv, 64, D)
+        dv_acc = torch.zeros(B, Hkv, 64, D)
+        for c in range(nc):
+            for t in range(k0 // Mp if causal else 0, nt):
+                if causal and min(S, t * Mp + Mp) - 1 < k0:
+                    continue          # no position of the tile sees these keys
+                pos, head, valid = _packed_rows(S, G, c, t)
+                qt, dot = _gather(q, pos, head, valid, G), _gather(do, pos, head, valid, G)
+                lse_c, di_c = pairs[:, :, c, t, :, 0], pairs[:, :, c, t, :, 1]
+                p = torch.exp2((kt @ qt.transpose(-1, -2)) * scale_log2 - lse_c[..., None, :])
+                ok = valid[None] & (keys[:, None] < S)
+                if causal:
+                    ok = ok & (keys[:, None] <= pos[None])
+                p = torch.where(ok, p, zero)
+                ds = p * (vt @ dot.transpose(-1, -2) - di_c[..., None, :])
+                dv_acc += p.to(bf).float() @ dot
+                dk_acc += ds.to(bf).float() @ qt
+        n = min(64, S - k0)
+        dk[:, k0:k0 + n] = (dk_acc * scale)[:, :, :n].permute(0, 2, 1, 3)
+        dv[:, k0:k0 + n] = dv_acc[:, :, :n].permute(0, 2, 1, 3)
+    return dq.reshape(B, S, Hq, D).to(bf), dk.to(bf), dv.to(bf)
+
+
 BWD_SHAPES = [
     # B, S, Hq, Hkv, D, causal
     (2, 64, 4, 2, 16, True),        # the smoke configs' shape
@@ -278,21 +406,29 @@ BWD_SHAPES = [
     (1, 1, 4, 2, 128, True),        # S = 1
     (1, 130, 8, 2, 128, True),      # three tiles, llama's head dim and group
     (2, 77, 2, 2, 64, False),       # whisper's encoder, full, ragged
+    (1, 20, 96, 1, 32, True),       # G = 96: two head chunks, the second part empty
+    (1, 50, 6, 2, 32, True),        # G = 3: 63 packed rows a tile
 ]
+
+
+def _bwd_inputs(rng, B, S, Hq, Hkv, D, dtype):
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(np.float32)
+                                    ).to(dtype) for h in (Hq, Hkv, Hkv, Hq))
+    return q, k, v, do
 
 
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", BWD_SHAPES)
 def test_flash_bwd_schedule_matches_the_plain_version(B, S, Hq, Hkv, D, causal):
-    """f32: the schedule within 1e-4 of the largest |plain| of the three
-    gradients (chip_smoke.py's f32 tolerance for the kernel; at S = 1 dq
-    and dk are 0 up to rounding), and against jax.vjp of the reference."""
+    """f32: the schedule, on the plain lse, within 1e-4 of the largest |plain|
+    of the three gradients (chip_smoke.py's f32 tolerance for the kernel; at
+    S = 1 dq and dk are 0 up to rounding), and against jax.vjp of the
+    reference."""
     import jax
     rng = np.random.default_rng(S * 7 + D)
-    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(np.float32))
-               for h in (Hq, Hkv, Hkv))
+    q, k, v, do = _bwd_inputs(rng, B, S, Hq, Hkv, D, torch.float32)
     o = ref.attention_ref(q, k, v, causal=causal)
-    do = torch.from_numpy(rng.normal(size=(B, S, Hq, D)).astype(np.float32))
-    got = flash_bwd_schedule(q, k, v, o, do, causal)
+    lse = ref.attention_lse_ref(q, k, causal=causal)
+    got = flash_bwd_schedule(q, k, v, o, lse, do, causal)
     want = ref.attention_bwd_ref(q, k, v, o, do, causal=causal)
     _, vjp = jax.vjp(lambda a, b, c: jax_ref.attention_ref(a, b, c, causal=causal),
                      *(jnp.asarray(x.numpy()) for x in (q, k, v)))
@@ -302,42 +438,110 @@ def test_flash_bwd_schedule_matches_the_plain_version(B, S, Hq, Hkv, D, causal):
         assert np.abs(g.numpy() - np.asarray(j)).max() <= 1e-4 * top
 
 
-@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", BWD_SHAPES[:5])
-def test_flash_bwd_schedule_meets_the_bf16_criterion(B, S, Hq, Hkv, D, causal):
-    """bf16 inputs, f32 sums, outputs rounded to bf16: each output within one
-    bf16 ulp plus ``chip_smoke.BWD_EXCESS`` of the largest |w| of w, the plain version
-    in float64 on the same bf16 inputs (the criterion the card's rows are
-    held to). The schedule stays ten times inside the constant, which is
-    pinned here."""
-    import chip_smoke
-    assert chip_smoke.BWD_EXCESS == 1e-5
-    rng = np.random.default_rng(S * 11 + D)
-    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(np.float32)
-                                ).to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
-    o = ref.attention_ref(q, k, v, causal=causal)
-    do = torch.from_numpy(rng.normal(size=(B, S, Hq, D)).astype(np.float32)
-                          ).to(torch.bfloat16)
-    got = flash_bwd_schedule(q, k, v, o, do, causal)
+def _tc_case(B, S, Hq, Hkv, D, causal, q, k, v, do):
+    """The bf16 forward's o and lse (its schedule, as the kernel gives them
+    to the backward), the tensor-core schedule's gradients, the float64
+    plain gradients on the same bf16 inputs and their largest |value|."""
+    o, lse = flash_schedule(q, k, v, causal, with_lse=True)
+    got = flash_bwd_tc_schedule(q, k, v, o, lse, do, causal)
     want = ref.attention_bwd_ref(*(x.double() for x in (q, k, v, o, do)),
                                  causal=causal)
-    top = max(w.abs().max().item() for w in want)
+    return o, got, want, max(w.abs().max().item() for w in want)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", BWD_SHAPES)
+def test_flash_bwd_schedule_meets_the_bf16_criterion(B, S, Hq, Hkv, D, causal):
+    """bf16: the tensor-core schedule's outputs within one bf16 ulp plus
+    ``chip_smoke.BWD_TC_EXCESS`` of the largest |w| of w, the plain version
+    in float64 on the same bf16 inputs (the criterion the card's rows are
+    held to). The schedule stays within half the constant, which is pinned
+    here."""
+    import chip_smoke
+    assert chip_smoke.BWD_TC_EXCESS == 4e-3
+    rng = np.random.default_rng(S * 11 + D)
+    q, k, v, do = _bwd_inputs(rng, B, S, Hq, Hkv, D, torch.bfloat16)
+    _, got, want, top = _tc_case(B, S, Hq, Hkv, D, causal, q, k, v, do)
     for g, w in zip(got, want):
-        assert g.dtype == torch.bfloat16
-        assert chip_smoke.bwd_excess(g, w, top) <= chip_smoke.BWD_EXCESS / 10
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
+        assert chip_smoke.bwd_excess(g, w, top) <= chip_smoke.BWD_TC_EXCESS / 2
+
+
+# the shapes BWD_TC_EXCESS was derived at, inputs from a torch generator of
+# seed 0: phi3's and llama's training rows and whisper's encoder, cut in
+# batch and heads, and a ragged full row
+TC_DERIVATION = [
+    (1, 512, 4, 4, 96, True),
+    (1, 512, 8, 2, 128, True),
+    (1, 1500, 2, 2, 64, False),
+    (2, 100, 8, 2, 64, False),
+]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", TC_DERIVATION)
+def test_flash_bwd_tc_excess_at_the_derivation_shapes(B, S, Hq, Hkv, D, causal):
+    """Where ``BWD_TC_EXCESS`` comes from: the two bf16 roundings (P and dS)
+    put the tensor-core schedule 2.9e-4 to 1.48e-3 of the largest |value|
+    beyond one ulp at these shapes; the constant keeps more than twice
+    that."""
+    import chip_smoke
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(B, S, h, D, generator=gen).to(torch.bfloat16)
+                   for h in (Hq, Hkv, Hkv, Hq))
+    _, got, want, top = _tc_case(B, S, Hq, Hkv, D, causal, q, k, v, do)
+    worst = max(chip_smoke.bwd_excess(g, w, top) for g, w in zip(got, want))
+    assert 1e-4 < worst <= chip_smoke.BWD_TC_EXCESS / 2
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", BWD_SHAPES)
+def test_flash_bwd_tc_schedule_matches_the_references(B, S, Hq, Hkv, D, causal):
+    """The tensor-core schedule against ``attention_bwd_ref`` (float32) and
+    ``jax.vjp`` of ``repro.kernels.ref.attention_ref`` on the same bf16
+    values in float32, each within one bf16 ulp plus ``BWD_TC_EXCESS`` of
+    the largest |value|."""
+    import jax
+    import chip_smoke
+    rng = np.random.default_rng(S * 13 + D)
+    q, k, v, do = _bwd_inputs(rng, B, S, Hq, Hkv, D, torch.bfloat16)
+    o, got, _, _ = _tc_case(B, S, Hq, Hkv, D, causal, q, k, v, do)
+    plain = ref.attention_bwd_ref(*(x.float() for x in (q, k, v, o, do)),
+                                  causal=causal)
+    _, vjp = jax.vjp(lambda a, b, c: jax_ref.attention_ref(a, b, c, causal=causal),
+                     *(jnp.asarray(x.float().numpy()) for x in (q, k, v)))
+    jgrads = [torch.from_numpy(np.array(j))
+              for j in vjp(jnp.asarray(do.float().numpy()))]
+    for want in (plain, jgrads):
+        top = max(w.abs().max().item() for w in want)
+        for g, w in zip(got, want):
+            assert chip_smoke.bwd_excess(g, w, top) <= chip_smoke.BWD_TC_EXCESS
 
 
 def test_flash_bwd_padding_rows_write_nothing():
-    """The schedule writes rows 0 .. S-1 only, whatever the tiles cover: a
+    """The schedules write rows 0 .. S-1 only, whatever the tiles cover: a
     ragged S gives the plain version's gradient with no tail garbage."""
     rng = np.random.default_rng(5)
-    q, k, v = (torch.from_numpy(rng.normal(size=(1, 65, h, 16)).astype(np.float32))
-               for h in (2, 1, 1))
+    q, k, v, do = _bwd_inputs(rng, 1, 65, 2, 1, 16, torch.float32)
     o = ref.attention_ref(q, k, v, causal=True)
-    do = torch.from_numpy(rng.normal(size=(1, 65, 2, 16)).astype(np.float32))
-    for g, w in zip(flash_bwd_schedule(q, k, v, o, do, True),
+    lse = ref.attention_lse_ref(q, k, causal=True)
+    for g, w in zip(flash_bwd_schedule(q, k, v, o, lse, do, True),
                     ref.attention_bwd_ref(q, k, v, o, do, causal=True)):
         assert g.shape == w.shape and torch.isfinite(g).all()
         assert (g - w).abs().max() <= 1e-5
+
+
+def test_bwd_scratch_and_packing():
+    """The packed rows' plan: every (position, head) of a KV head's group in
+    exactly one row of one tile, rows past Gc * Mp none; the scratch holds
+    every tile's 64 pairs (float32 Di only for the f32 kernels)."""
+    for S, G in ((1, 1), (77, 4), (50, 3), (40, 128), (20, 96), (512, 1)):
+        Gc, Mp, nc, nt = fa.packing(S, G)
+        seen = np.zeros((S, G), np.int64)
+        for c in range(nc):
+            for t in range(nt):
+                pos, head, valid = _packed_rows(S, G, c, t)
+                np.add.at(seen, (pos[valid].numpy(), head[valid].numpy()), 1)
+        assert (seen == 1).all() and Gc * Mp <= 64 and Gc == min(G, 64)
+    assert fa.bwd_scratch_floats(2, 77, 8, 2, True) == 2 * 2 * 1 * 5 * 64 * 2
+    assert fa.bwd_scratch_floats(2, 77, 8, 2, False) == 2 * 8 * 77
 
 
 # ---------------------------------------------------------------------------
