@@ -33,6 +33,16 @@ Phases, each printed on its own line; any failed check exits nonzero:
               ``attention_lse_ref``); f32 within 1e-4 of the largest |plain|,
               bf16 within one ulp of a float64 run plus ``BWD_TC_EXCESS``;
               two calls bitwise equal, one call two device launches.
+              ``mamba2_ssd_bwd`` and ``rwkv6_scan_bwd`` (``check_scan_bwd``)
+              against their plain versions run in float64 at
+              ``SCAN_BWD_ROWS``: zamba2's and rwkv6's training shapes (bf16),
+              train_parity's smoke shapes (f32), one ragged chunk of 40 with
+              dims 20 and 72, rwkv6 at K = V = 128 (working sets in global
+              scratch); nonzero initial states and final-state cotangents,
+              the chunk states from the forward kernel's training launch
+              (output equal to the inference launch's); each kind of output
+              within ``SCAN_BWD_TOL`` (``scan_bwd_errors``); two calls
+              bitwise equal, one call one launch of the kernel.
   4. slice    the memory system's path through ``repro_torch.MemForestSystem``
               with its hashing encoder: ``ingest_batch`` of 500 sessions (about
               20k turns, 13k tree nodes) in batches of 16, then ``query_batch``
@@ -195,17 +205,31 @@ Phases, each printed on its own line; any failed check exits nonzero:
               the peak device memory against the 45.85 GB of states, the
               phase's seconds, and over one profiled step the device's idle
               share and the attention kernels' share of its device time.
-  19. train_parity  float32, 3 steps each, card against CPU from one initial
+  19. train_zamba2  the same on zamba2-7b at published width, its depth cut
+              from 81 to 36 layers (six groups of six, each followed by the
+              shared block; 81 layers need about 81 GB of train states):
+              ``mamba2_ssd`` launched 2 x 36 times a step (remat runs each
+              Mamba2 layer's forward twice), ``mamba2_ssd_bwd`` 36 times,
+              ``flash_attention`` and ``flash_attention_bwd`` 6 times (the
+              shared block is not rematerialised, as in the reference);
+              every parameter (``A_log``, ``dt_bias``, ``D_skip``,
+              ``conv_w``, the projections) a finite nonzero gradient; the
+              scans' share of the profiled step.
+  20. train_rwkv6  the same on rwkv6-1.6b at its published width and depth:
+              ``rwkv6_scan`` 2 x 24 times a step, ``rwkv6_scan_bwd`` 24.
+  21. train_parity  float32, 3 steps each, card against CPU from one initial
               state: whisper-base at full width and depth (B = 2, decoder
               S = 32), llama3-8b's smoke config with ``microbatch_size=2``
-              and top-k compression, olmoe-1b-7b's smoke config: losses and
+              and top-k compression, olmoe-1b-7b's, zamba2-7b's and
+              rwkv6-1.6b's smoke configs (the last two at S = 128, two
+              chunks of their scans): losses and
               ``grad_norm`` within 1e-4 relative, parameters within
               ``TRAIN_PARAM_ATOL``. Then a ``FaultTolerantRunner`` on the
               card, failures injected at steps 2 and 3, restoring from
               ``checkpoint.save``: it ends within 1e-6 of an uninterrupted
               run (not bitwise: the embedding gather's backward adds with
               atomics on the card).
-  20. kernels one line per kernel, and the JSON summary of all of them.
+  22. kernels one line per kernel, and the JSON summary of all of them.
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a
 visible CUDA device, or without the rest of the repository beside it, the
@@ -239,6 +263,10 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:103",
     "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:119",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:125",
+    # no Pallas counterparts: the reference differentiates its jnp chunked
+    # scans
+    "mamba2_ssd_bwd": "src/repro/kernels/ref.py:315",
+    "rwkv6_scan_bwd": "src/repro/kernels/ref.py:257",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
 SCAN_C = 512      # the bf16 scans' float32 error, in units of 2^-24 T
@@ -414,7 +442,8 @@ def record_row(torch, peaks, results, name, label, err, tol, fn, plain,
     peak = peaks["bytes"] / 1e12 if b_by == "bytes" else peaks[op] / 1e12
     unit = "TB/s" if b_by == "bytes" else f"TFLOP/s {op}"
     lib_txt = f"{lib_ms:.5f}" if lib_ms is not None else "none"
-    print(f"check: {name} {label} max_abs_err={err:.3e} (tol {tol:.0e}) "
+    tol_txt = f"tol {tol:.0e}" if tol is not None else "criteria above"
+    print(f"check: {name} {label} max_abs_err={err:.3e} ({tol_txt}) "
           f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib_txt} "
           f"bound_ms={b_ms:.5f} ({b_by} at {peak:g} {unit})", flush=True)
     if main:
@@ -1081,7 +1110,9 @@ def check_kernels(torch, peaks, seed: int):
 # train_parity's (llama3-8b's smoke config in microbatches of 2). The last
 # three (last, so the rows before them draw the inputs they drew without
 # them): a head dim the tensor maps pad (20 -> 24) and one whose last panel
-# is 16 wide (72), a group of 128 (two head chunks of 64).
+# is 16 wide (72), a group of 128 (two head chunks of 64); then zamba2's
+# shared attention in the train_zamba2 phase (head dim 112: seven k16 steps
+# a product).
 BWD_ROWS = (
     (8, 512, 32, 32, 96, True, "bf16", True, "phi3 train"),
     (8, 512, 32, 8, 128, True, "bf16", False, "llama GQA"),
@@ -1094,6 +1125,7 @@ BWD_ROWS = (
     (2, 33, 8, 8, 20, True, "bf16", False, "head dim padded to 24"),
     (2, 77, 8, 2, 72, True, "bf16", False, "head dim 72"),
     (1, 40, 128, 1, 64, True, "bf16", False, "group of 128"),
+    (8, 512, 32, 32, 112, True, "bf16", True, "zamba2 train"),
 )
 # the forward's log-sum-exp (log2 units) against attention_lse_ref: f32, the
 # same CUDA-core sums as the output; bf16, the tensor cores' f32 sums of D
@@ -1211,6 +1243,180 @@ def check_attention_bwd(torch, peaks, seed: int):
     return results
 
 
+# the scans' backward kernels' check rows: (kernel, B, T, H, P or K, N or
+# V, type, main, what, rwkv6's w ~ N(mean, 0.5)). The first row of each
+# kernel is its train phase's shape, the smoke rows train_parity's
+# (zamba2-smoke: 8 SSD heads of 16, N = 16; rwkv6-smoke: 4 heads of 16),
+# the ragged rows one chunk of 40 with dims 20 and 72 (the bf16 forward
+# pads 20 to 24 and trims the chunk states back). rwkv6's row at K = V =
+# 128 takes the working sets from global scratch (270 KB do not fit in
+# shared memory), in bf16 since the f32 forward kernel would need 247 KB of
+# shared memory there, past 227 KB; its last two rows are the forward's
+# strong and slow decays.
+SCAN_BWD_ROWS = (
+    ("mamba2_ssd", 8, 512, 112, 64, 64, "bf16", True, "zamba2 train", None),
+    ("mamba2_ssd", 4, 128, 8, 16, 16, "f32", True, "smoke", None),
+    ("mamba2_ssd", 2, 40, 4, 20, 72, "f32", False, "ragged", None),
+    ("mamba2_ssd", 2, 40, 4, 72, 20, "bf16", False, "ragged", None),
+    ("rwkv6_scan", 8, 512, 32, 64, 64, "bf16", True, "rwkv6 train", -0.5),
+    ("rwkv6_scan", 4, 128, 4, 16, 16, "f32", True, "smoke", -0.5),
+    ("rwkv6_scan", 2, 40, 4, 20, 72, "f32", False, "ragged", -0.5),
+    ("rwkv6_scan", 2, 40, 4, 72, 20, "bf16", False, "ragged", -0.5),
+    ("rwkv6_scan", 2, 128, 4, 128, 128, "bf16", False, "global working set",
+     -0.5),
+    ("rwkv6_scan", 2, 128, 32, 64, 64, "bf16", False, "strong decay", 1.5),
+    ("rwkv6_scan", 2, 128, 32, 64, 64, "bf16", False, "slow decay", -6.0),
+)
+
+
+def scan_bwd_inputs(torch, kernel, g, B, T, H, d1, d2, dt, w_mean=-0.5):
+    """A scan's inputs (the forward checks' distributions, a nonzero
+    initial state), the output's cotangent and a nonzero final-state
+    cotangent, from ``g`` on the card."""
+    dev = "cuda"
+
+    def n(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+    if kernel == "mamba2_ssd":
+        args = [n(B, T, H, d1).to(dt), torch.nn.functional.softplus(n(B, T, H)),
+                -torch.linspace(1.0, 16.0, H, device=dev), n(B, T, d2).to(dt),
+                n(B, T, d2).to(dt), 0.1 * n(B, H, d1, d2)]
+        return args, n(B, T, H, d1).to(dt), n(B, H, d1, d2)
+    args = [n(B, T, H, d1).to(dt), n(B, T, H, d1).to(dt), n(B, T, H, d2).to(dt),
+            w_mean + 0.5 * n(B, T, H, d1), (0.1 * n(H, d1)).to(dt),
+            0.1 * n(B, H, d1, d2)]
+    return args, n(B, T, H, d2).to(dt), n(B, H, d1, d2)
+
+
+def scan_chunk_states(plain, args, chunk=64):
+    """The state entering each chunk, (B, H, nc, ., .), from the plain
+    forward run chunk by chunk on ``args``."""
+    import torch
+    T = args[0].shape[1]
+    c = min(chunk, T)
+    out, s = [], args[5]
+    for t0 in range(0, T, c):
+        out.append(s)
+        part = [a[:, t0:t0 + c] if a.dim() >= 3 else a for a in args[:5]]
+        _, s = plain(*part, s, chunk=c)
+    return torch.stack(out, dim=2)
+
+
+def scan_bwd_cost(kernel, B, T, H, d1, d2, elem, peaks, op):
+    """(bytes, operations, their type) of one backward call: each input
+    read once (the chunk states included) and each output written once
+    (dB, dC and du after their sums); the products at the inputs' type, the
+    gate's exponentials (rwkv6) at float32's, whichever takes longer."""
+    C = min(64, T)
+    nc, tri, strict = T // C, C * (C + 1) // 2, C * (C - 1) // 2
+    if kernel == "mamba2_ssd":
+        P, N = d1, d2
+        nbytes = (3 * B * T * H * P + 4 * B * T * N) * elem + 2 * B * T * H * 4 \
+            + 2 * H * 4 + B * H * nc * P * N * 4 + 2 * B * H * P * N * 4
+        # C.B^T once per (batch, chunk); per head dG, dx's two products, dC's
+        # and dB's two each, and dS's, over the lower triangle where masked
+        prods = B * nc * (2 * tri * N + H * (4 * tri * P + 4 * tri * N
+                                             + 8 * C * P * N))
+        return nbytes, prods, op
+    K, V = d1, d2
+    nbytes = (3 * B * T * H * K + 3 * B * T * H * V + 2 * H * K) * elem \
+        + 2 * B * T * H * K * 4 + B * H * nc * K * V * 4 + 2 * B * H * K * V * 4
+    # per (batch, head, chunk): dA and A.do^T over the lower triangle, the
+    # gate's three sweeps (A, dr, dk: three operations a pair and key), and
+    # the four K x V products (k'.dS, do.S0^T, v.dS^T, the dS update)
+    prods = B * H * nc * (4 * tri * V + 9 * strict * K + 8 * C * K * V)
+    exps = B * H * nc * 3 * strict * K
+    if exps / peaks["fp32"] > prods / peaks[op]:
+        return nbytes, exps, "fp32"
+    return nbytes, prods, op
+
+
+def check_scan_bwd(torch, peaks, seed: int):
+    """``mamba2_ssd_bwd`` and ``rwkv6_scan_bwd`` against their plain
+    versions run in float64 on the card at ``SCAN_BWD_ROWS``, with nonzero
+    initial states and final-state cotangents, the chunk states from the
+    forward kernel's training launch (its output and final state equal to
+    the inference launch's, its chunk states within ``SCAN_BWD_TOL["f32"]``
+    of the plain forward's): each kind of output within ``SCAN_BWD_TOL``
+    (``scan_bwd_errors``). Two calls give equal bits (the cross-block sums
+    are per-block partials summed in one order); one call at the main shape
+    launches the kernel once. No single PyTorch call computes either
+    gradient: library_ms is none."""
+    from repro_torch.kernels import mamba2_ssd as M
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as R
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    mods = {"mamba2_ssd": (M, M.mamba2_ssd, M.mamba2_ssd_bwd,
+                           ref.mamba2_ssd_chunked, ref.mamba2_ssd_bwd_ref,
+                           "ssd_bwd_kernel"),
+            "rwkv6_scan": (R, R.rwkv6_scan, R.rwkv6_scan_bwd,
+                           ref.rwkv6_chunked, ref.rwkv6_scan_bwd_ref,
+                           "wkv_bwd_kernel")}
+    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    ops = {"bf16": "bf16", "f32": "fp32"}
+    results, mains = {}, {}
+    for kernel, B, T, H, d1, d2, dt_name, main, what, w_mean in SCAN_BWD_ROWS:
+        mod, fwd, bwd, plain, plain_bwd, kern = mods[kernel]
+        dt = types[dt_name]
+        args, dout, ds = scan_bwd_inputs(torch, kernel, g, B, T, H, d1, d2, dt,
+                                         w_mean)
+        label = f"{what} {B}x{T}x{H}x{d1}x{d2} {dt_name}" + (
+            f" w~N({w_mean},0.5)" if w_mean not in (None, -0.5) else "")
+        name = kernel + "_bwd"
+        with torch.no_grad():
+            y, s, states = mod._forward(*args, ref.scan_chunk(kernel, T),
+                                        keep_states=True)
+            y_inf, s_inf = fwd(*args)
+        need(torch.equal(y, y_inf) and torch.equal(s, s_inf), f"{kernel} "
+             f"{label}: the output differs when the launch also writes the "
+             "chunk states")
+        want_states = scan_chunk_states(plain, [a.double() for a in args])
+        st_err = ((states.double() - want_states).abs().max()
+                  / want_states.abs().max()).item()
+        need(st_err <= SCAN_BWD_TOL["f32"], f"{kernel} {label}: chunk "
+             f"states differ from the plain forward's by {st_err:.3e}")
+        del want_states
+
+        def call(bwd=bwd, args=args, dout=dout, ds=ds, states=states):
+            return bwd(*args, dout, ds, states=states)
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        need(all(torch.equal(a, b) for a, b in zip(got, again)),
+             f"{name} {label}: two calls differ")
+        need(all(a.dtype == t.dtype and a.shape == t.shape
+                 and bool(torch.isfinite(a.float()).all())
+                 for a, t in zip(got, args)), f"{name} {label}: not finite, "
+             "or not in the inputs' types and shapes")
+        want = plain_bwd(*(a.double() for a in args), dout.double(),
+                         ds.double())
+        worst = scan_bwd_errors(kernel, got, want, args)
+        print(f"check: {name} {label} chunk states {st_err:.3e}; " + " ".join(
+            f"{k}={e:.3e} (tol {SCAN_BWD_TOL[k]:.0e})"
+            for k, e in sorted(worst.items())), flush=True)
+        need(all(e <= SCAN_BWD_TOL[k] for k, e in worst.items()),
+             f"{name} {label}: beyond its tolerance: {worst}")
+        err = max((a.double() - w).abs().max().item()
+                  for a, w in zip(got, want))
+        del want, again
+        nbytes, flops, op = scan_bwd_cost(kernel, B, T, H, d1, d2,
+                                          args[0].element_size(), peaks,
+                                          ops[dt_name])
+        record_row(torch, peaks, results, name, label, err, None, call,
+                   lambda: plain_bwd(*args, dout, ds), nbytes, flops, main,
+                   None, op)
+        if main and name not in mains:
+            mains[name] = (call, kern)
+        del got
+    for name, (call, kern) in mains.items():
+        names = device_events(torch, call)
+        hits = sum(1 for n in names if kern in n)
+        print(f"check: {name} main shape launches per call: {hits} of "
+              f"{kern} ({len(names)} device operations with the wrapper's "
+              "sums and casts)", flush=True)
+        need(hits == 1, f"{name}: one call launched {kern} {hits} times")
+    return results
+
+
 def bf16_ulp(t):
     mag = t.abs().clamp_min(2.0 ** -126)
     return (mag.log2().floor() - 7).exp2()
@@ -1243,6 +1449,45 @@ def bf16_scan_excess(out, plain, args, signed, chunk=64) -> float:
                        for i, a in enumerate(args)), chunk=chunk)
     slack = bf16_ulp(want64) + SCAN_C * 2.0 ** -24 * terms
     return ((out.double() - want64).abs() - slack).max().item()
+
+
+# the scans' backward kernels against a float64 run of their plain versions
+# (``scan_bwd_errors``), the worst of each kind of output over a call.
+# "f32": a float32 output's error over its largest |value|. The kernels sum
+# in float32 in another order than the plain version, and ddt carries A
+# revcumsum(dcum), whose row and column sums of the pairs' terms cancel, so
+# at A = -16 it loses more than the other outputs: 2e-4. "bf16": a bf16
+# output's excess over one bf16 ulp, over its largest |value|: computed in
+# float32 and rounded once, only the float32 error shows beyond the ulp:
+# 2e-5. "sum": dA's error over the size of the B T terms it sums, which
+# cancel to a value far below them: 1e-5. tests/test_torch_scan_design.py
+# holds the kernels' emulated schedules within these.
+SCAN_BWD_TOL = {"f32": 2e-4, "bf16": 2e-5, "sum": 1e-5}
+
+
+def scan_bwd_errors(kernel, got, want64, args) -> dict:
+    """How far a scan backward's outputs ``got`` lie from ``want64``, its
+    plain version run in float64 on the same inputs ``args``: per kind of
+    output, the worst share (``SCAN_BWD_TOL`` bounds each). All sums run in
+    float32 in another order than the plain version's, and a bf16 output is
+    rounded once more; dA (mamba2) sums dt_t revcumsum(dcum)_t over batch
+    and time, terms that cancel to a value far below them, so its error is
+    taken over their size, sum_{b,t} |dt ddt| / |A| per head."""
+    worst = {}
+    for i, (g, w) in enumerate(zip(got, want64)):
+        w = w.double()
+        err = (g.double() - w).abs()
+        if kernel == "mamba2_ssd" and i == 2:
+            dt, A = args[1].double(), args[2].double()
+            terms = (dt * want64[1].double()).abs().sum(dim=(0, 1)) / A.abs()
+            kind, e = "sum", (err / terms).max().item()
+        elif g.element_size() == 2:                      # bf16
+            kind = "bf16"
+            e = (err - bf16_ulp(w)).max().item() / w.abs().max().item()
+        else:
+            kind, e = "f32", err.max().item() / w.abs().max().item()
+        worst[kind] = max(worst.get(kind, 0.0), e)
+    return worst
 
 
 def ssd_flops(B, T, H, P, N, C) -> int:
@@ -3570,19 +3815,53 @@ def run_family_parity(torch, seed):
 
 
 # ---------------------------------------------------------------------------
-# phases 18-19: training
+# phases 18-21: training
 # ---------------------------------------------------------------------------
 TRAIN_STEPS = 8
 TRAIN_SEQ = 512
 TRAIN_BATCH = 8
-TRAIN_STATE_GB = 45.85      # phi3-mini's bf16 params and grads, f32 m and v
 TRAIN_PARAM_ATOL = 1e-4     # train_parity: card against CPU after 3 steps
 PARITY_STEPS = 3
+STATE_BYTES = 12            # a parameter's train state: bf16 value and
+#                             gradient, float32 AdamW moments
+# phase: (arch, layers (None: the published depth), why the depth is cut).
+# zamba2-7b at 81 layers has about 6.75e9 parameters, 81 GB of states: 36
+# layers (six groups of six, each followed by the shared block) have about
+# 3.24e9 and 38.9 GB.
+TRAIN_RUNS = {
+    "train": ("phi3_mini", None, ""),
+    "train_zamba2": ("zamba2_7b", 36, "81 layers need about 81 GB of train "
+                     "states; 36 layers are six groups of six, each followed "
+                     "by the shared block"),
+    "train_rwkv6": ("rwkv6_1b6", None, ""),
+}
+# device kernels of each family's train step, by the name they run under
+TRAIN_DEVICE_KERNELS = {
+    "dense": ("flash_attention_tc", "bwd_dq_tc", "bwd_dkv_tc"),
+    "hybrid": ("ssd_bf16_kernel", "ssd_bwd_kernel", "flash_attention_tc",
+               "bwd_dq_tc", "bwd_dkv_tc"),
+    "ssm": ("wkv_bf16_kernel", "wkv_bwd_kernel"),
+}
 
 
-def run_train(torch, wl, seed):
-    """Phase 18: phi3-mini-3.8b through the port's train step on the card.
-    Returns the launch counts of the 8 steps."""
+def train_launches(cfg):
+    """Launches of each kernel of ``cfg``'s train step with remat, whose
+    rematerialised layers run their forward twice: every layer of the dense
+    family and rwkv6, zamba2's Mamba2 layers (not its shared block, as the
+    reference checkpoints the Mamba2 layers only)."""
+    L = cfg.num_layers
+    if cfg.family == "hybrid":
+        G = L // cfg.attn_every
+        return {"mamba2_ssd": 2 * L, "mamba2_ssd_bwd": L,
+                "flash_attention": G, "flash_attention_bwd": G}
+    if cfg.family == "ssm":
+        return {"rwkv6_scan": 2 * L, "rwkv6_scan_bwd": L}
+    return {"flash_attention": 2 * L, "flash_attention_bwd": L}
+
+
+def run_train(torch, wl, seed, phase="train"):
+    """Phases 18-20: one architecture of ``TRAIN_RUNS`` through the port's
+    train step on the card. Returns the launch counts of the 8 steps."""
     from repro_torch import kernels
     from repro_torch.config import TrainConfig
     from repro_torch.configs import get_config
@@ -3597,9 +3876,15 @@ def run_train(torch, wl, seed):
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config("phi3_mini")
-    need(cfg.remat and cfg.dtype == "bfloat16", "train: phi3-mini's config "
-         "must train in bf16 with remat")
+    arch, layers, why = TRAIN_RUNS[phase]
+    cfg = get_config(arch)
+    published = cfg.num_layers
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+        print(f"{phase}: {cfg.name} depth cut from {published} to {layers} "
+              f"layers at published width: {why}", flush=True)
+    need(cfg.remat and cfg.dtype == "bfloat16", f"{phase}: {cfg.name}'s "
+         "config must train in bf16 with remat")
     model = get_model(cfg)
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
                        total_steps=TRAIN_STEPS)
@@ -3638,37 +3923,35 @@ def run_train(torch, wl, seed):
             # the first step's gradients, before AdamW consumed them (the
             # check waits for the device, outside the timed steps' median)
             n_params = sum(1 for _ in leaves_with_paths(state["params"]))
-            need(len(seen) == n_params, f"train: {len(seen)} gradients for "
+            need(len(seen) == n_params, f"{phase}: {len(seen)} gradients for "
                  f"{n_params} parameters")
             bad = [path for path, g in seen
                    if g is None or not bool(torch.isfinite(g).all())
                    or not bool((g != 0).any())]
-            need(not bad, f"train: parameters without a finite nonzero "
+            need(not bad, f"{phase}: parameters without a finite nonzero "
                  f"gradient on the first step: {bad[:6]}")
-            attn = sum(1 for path, _ in seen if "attn" in path)
-            print(f"train: first step gradients present, finite and nonzero "
-                  f"for all {len(seen)} parameters ({attn} attention "
-                  "projections)", flush=True)
+            kinds = sorted({str(path[-1]) for path, _ in seen})
+            print(f"{phase}: first step gradients present, finite and nonzero "
+                  f"for all {len(seen)} parameters ({len(kinds)} kinds: "
+                  + ", ".join(kinds) + ")", flush=True)
             del seen[:]
         metrics.append(m)
     counts = read_counts(REPLACES)
     losses = torch.stack([m["loss"] for m in metrics]).tolist()
     gnorms = torch.stack([m["grad_norm"] for m in metrics]).tolist()
     need(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
-         f"train: a loss or grad_norm is not finite: {losses} {gnorms}")
-    L = cfg.num_layers
-    check_launches("train", counts, ("flash_attention",
-                                     "flash_attention_bwd"))
-    need(counts["flash_attention"][0] == 2 * L * TRAIN_STEPS,
-         f"train: flash_attention launched {counts['flash_attention'][0]} "
-         f"times in {TRAIN_STEPS} steps, want {2 * L * TRAIN_STEPS}")
-    need(counts["flash_attention_bwd"][0] == L * TRAIN_STEPS,
-         f"train: flash_attention_bwd launched "
-         f"{counts['flash_attention_bwd'][0]} times, want {L * TRAIN_STEPS}")
+         f"{phase}: a loss or grad_norm is not finite: {losses} {gnorms}")
+    want = train_launches(cfg)
+    check_launches(phase, counts, tuple(want))
+    for k, n in want.items():
+        need(counts[k][0] == n * TRAIN_STEPS, f"{phase}: {k} launched "
+             f"{counts[k][0]} times in {TRAIN_STEPS} steps, want "
+             f"{n * TRAIN_STEPS}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med = statistics.median(step_ms[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
     params = sum(t.numel() for _, t in leaves_with_paths(state["params"]))
+    states_gb = params * STATE_BYTES / 1e9
 
     # one more step under the profiler: the device's idle share
     with profile(activities=[ProfilerActivity.CPU,
@@ -3679,31 +3962,35 @@ def run_train(torch, wl, seed):
         prof_s = time.perf_counter() - t0
     busy_s, top = device_busy(prof)
     idle = max(0.0, 1.0 - busy_s / prof_s) if busy_s > 0 else None
-    print(f"train: {cfg.name} params={params} layers={L} B={TRAIN_BATCH} "
-          f"S={TRAIN_SEQ} steps={TRAIN_STEPS} losses=" + ",".join(
-              f"{x:.5f}" for x in losses) + " grad_norms=" + ",".join(
+    print(f"{phase}: {cfg.name} params={params} layers={cfg.num_layers} "
+          f"B={TRAIN_BATCH} S={TRAIN_SEQ} steps={TRAIN_STEPS} losses="
+          + ",".join(f"{x:.5f}" for x in losses) + " grad_norms=" + ",".join(
               f"{x:.4f}" for x in gnorms), flush=True)
-    print(f"train: step_ms={','.join(f'{x:.2f}' for x in step_ms)} "
+    print(f"{phase}: step_ms={','.join(f'{x:.2f}' for x in step_ms)} "
           f"median_step_ms={med:.3f} (steps 2-{TRAIN_STEPS}) "
           f"tokens_per_s={tokens / (med / 1e3):.1f} peak_gb={peak_gb:.3f} "
-          f"(states {TRAIN_STATE_GB} GB) card {card_line()}", flush=True)
-    print(f"train: profiled step s={prof_s:.4f} device_busy_s={busy_s:.4f} "
+          f"(states {states_gb:.2f} GB) card {card_line()}", flush=True)
+    print(f"{phase}: profiled step s={prof_s:.4f} device_busy_s={busy_s:.4f} "
           f"idle_share=" + (f"{idle:.4f}" if idle is not None else
                             "not measured (no device events)")
           + " top: " + ", ".join(f"{k[:40]}={us / 1e3:.2f}ms"
                                  for k, us in top), flush=True)
-    # the attention kernels' share of the profiled step's device time
+    # the family's kernels' share of the profiled step's device time
     by_name = device_us_by_name(prof)
     kern_ms = {kern: sum(us for k, us in by_name.items() if kern in k) / 1e3
-               for kern in ("flash_attention_tc", "bwd_dq_tc", "bwd_dkv_tc")}
-    print("train: profiled step attention kernels " + " ".join(
+               for kern in TRAIN_DEVICE_KERNELS.get(cfg.family,
+                                                    TRAIN_DEVICE_KERNELS["dense"])}
+    scans = sum(ms for k, ms in kern_ms.items()
+                if k.startswith(("ssd_", "wkv_")))
+    print(f"{phase}: profiled step kernels " + " ".join(
         f"{k}={ms:.2f}ms" for k, ms in kern_ms.items())
-        + (f" share={sum(kern_ms.values()) / (busy_s * 1e3):.4f} of device busy"
+        + (f" share={sum(kern_ms.values()) / (busy_s * 1e3):.4f} of device "
+           f"busy (scans {scans / (busy_s * 1e3):.4f})"
            if busy_s > 0 else ""), flush=True)
-    check_launches("train", counts, ())
+    check_launches(phase, counts, ())
     del state, batches, metrics
     torch.cuda.empty_cache()
-    print(f"train: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    print(f"{phase}: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
     return counts
 
 
@@ -3719,7 +4006,7 @@ def _parity_batch(cfg, rng, B, S):
 
 
 def run_train_parity(torch, seed):
-    """Phase 19: three float32 trainings on the card and on the CPU from one
+    """Phase 21: five float32 trainings on the card and on the CPU from one
     initial state (made on the CPU from a seeded generator, copied to the
     card), batches from a seeded numpy generator; then the runner's restart
     from a checkpoint on the card. Returns the card's launch counts."""
@@ -3744,7 +4031,12 @@ def run_train_parity(torch, seed):
         ("llama3-8b smoke", get_smoke_config("llama3_8b").replace(**f32), 4,
          64, dict(microbatch_size=2, grad_compression="topk")),
         ("olmoe-1b-7b smoke", get_smoke_config("olmoe_1b_7b").replace(**f32),
-         4, 64, {}))
+         4, 64, {}),
+        # two chunks of the scans, so the chunk carry is exercised
+        ("zamba2-7b smoke", get_smoke_config("zamba2_7b").replace(**f32), 4,
+         128, {}),
+        ("rwkv6-1.6b smoke", get_smoke_config("rwkv6_1b6").replace(**f32), 4,
+         128, {}))
     total = {k: 0 for k in REPLACES}
     for name, cfg, B, S, kw in cases:
         model = get_model(cfg)
@@ -3765,8 +4057,8 @@ def run_train_parity(torch, seed):
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
         counts = read_counts(REPLACES)
-        check_launches(f"train_parity {name}", counts,
-                       ("flash_attention", "flash_attention_bwd"))
+        family_kernels = tuple(train_launches(cfg))
+        check_launches(f"train_parity {name}", counts, family_kernels)
         for k in total:
             total[k] += counts[k][0]
         t0 = time.perf_counter()
@@ -3792,10 +4084,8 @@ def run_train_parity(torch, seed):
               + ",".join(f"{float(m['loss']):.6f}" for m in card_m)
               + f" worst_rel_loss_or_grad_norm={worst:.3e} (tol 1e-04) "
               f"param_max_abs_err={perr:.3e} (tol {TRAIN_PARAM_ATOL:.0e}) "
-              f"card_s={card_s:.3f} cpu_s={cpu_s:.3f} launches "
-              f"flash_attention={counts['flash_attention'][0]} "
-              f"flash_attention_bwd={counts['flash_attention_bwd'][0]}",
-              flush=True)
+              f"card_s={card_s:.3f} cpu_s={cpu_s:.3f} launches " + " ".join(
+                  f"{k}={counts[k][0]}" for k in family_kernels), flush=True)
         del cpu_state, card_state
 
     # the runner on the card: failures at steps 2 and 3 restore the last
@@ -3940,6 +4230,7 @@ def main() -> int:
     # 3. kernel checks ------------------------------------------------------
     results = check_kernels(torch, peaks, args.seed)
     results.update(check_attention_bwd(torch, peaks, args.seed))
+    results.update(check_scan_bwd(torch, peaks, args.seed))
     stamp("check")
 
     # 4. the main path ------------------------------------------------------
@@ -4054,9 +4345,12 @@ def main() -> int:
     run_family_parity(torch, args.seed)
     stamp("family_parity")
 
-    # 18-19. training: phi3-mini on the card, then card against CPU ---------
-    train_counts = run_train(torch, wl, args.seed)
-    stamp("train")
+    # 18-21. training: phi3-mini, zamba2-7b and rwkv6-1.6b on the card, then
+    # card against CPU ----------------------------------------------------
+    train_counts = {}
+    for phase in TRAIN_RUNS:
+        train_counts[phase] = run_train(torch, wl, args.seed, phase)
+        stamp(phase)
     train_parity_counts = run_train_parity(torch, args.seed)
     stamp("train_parity")
 
@@ -4074,7 +4368,7 @@ def main() -> int:
                    "residency": residency_counts[k][0],
                    "moe": moe_counts[k][0], "vlm": vlm_counts[k][0],
                    "whisper": whisper_counts[k][0],
-                   "train": train_counts[k][0],
+                   **{phase: c[k][0] for phase, c in train_counts.items()},
                    "train_parity": train_parity_counts[k][0]}
         print(f"kernels: {k} launches={sum(by_path.values())} ("
               + ", ".join(f"{p} {n}" for p, n in by_path.items())

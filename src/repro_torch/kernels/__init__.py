@@ -15,7 +15,9 @@ COUNTS: Dict[str, LaunchCount] = {
     "flash_attention_bwd": flash_attention.BWD_COUNT,
     "decode_attention": decode_attention.COUNT,
     "mamba2_ssd": mamba2_ssd.COUNT,
+    "mamba2_ssd_bwd": mamba2_ssd.BWD_COUNT,
     "rwkv6_scan": rwkv6_scan.COUNT,
+    "rwkv6_scan_bwd": rwkv6_scan.BWD_COUNT,
 }
 
 

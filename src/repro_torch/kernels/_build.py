@@ -30,8 +30,10 @@ import torch.nn.functional as F
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("tree_refresh.cu", "topk_sim.cu", "browse_scores.cu",
            "flash_attention.cu", "flash_attention_bwd.cu",
-           "decode_attention.cu", "mamba2_ssd.cu", "rwkv6_scan.cu")
-HEADERS = ("tma.cuh", "mma.cuh", "wgmma.cuh")  # included by the sources: hashed
+           "decode_attention.cu", "mamba2_ssd.cu", "mamba2_ssd_bwd.cu",
+           "rwkv6_scan.cu", "rwkv6_scan_bwd.cu")
+HEADERS = ("tma.cuh", "mma.cuh", "wgmma.cuh",  # included by the sources:
+           "tiles.cuh")                     # hashed
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,10 +56,12 @@ SIGNATURES: Dict[str, Tuple] = {
                                       _P),
     "memforest_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _I, _P),
-    "memforest_mamba2_ssd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _P),
-    "memforest_rwkv6_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _P),
+    "memforest_mamba2_ssd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _P),
+    "memforest_mamba2_ssd_bwd": (_P,) * 14 + (_I,) * 7 + (_P,),
+    "memforest_rwkv6_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _P),
+    "memforest_rwkv6_scan_bwd": (_P,) * 15 + (_L,) + (_I,) * 7 + (_P,),
 }
 
 

@@ -58,6 +58,11 @@
 // P's tiles unroll and the accumulators take only the registers they need.
 // Shared memory: 82 KiB at the main shape (two blocks an SM).
 //
+// Training: given ``s_chunks`` (null at inference), both paths also write
+// the f32 state that enters each chunk, (B, H, T / chunk, P, N), which the
+// backward kernel (mamba2_ssd_bwd.cu) reads; in the bf16 path each warp
+// writes the rows of its register panels, as it writes the final state.
+//
 // float32, on the CUDA cores (the first version, kept for the parity
 // phases). The Pallas grid walks (batch, head, chunk) with the chunk axis in
 // sequence and the state in VMEM scratch. Here one block owns one (head,
@@ -154,8 +159,8 @@ __global__ void __launch_bounds__(kThreads)
 mamba2_ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                   const float* __restrict__ A, const T* __restrict__ Bm,
                   const T* __restrict__ Cm, const float* __restrict__ s_in,
-                  T* __restrict__ y, float* __restrict__ s_out, int Tn, int H,
-                  int P, int N, int chunk) {
+                  T* __restrict__ y, float* __restrict__ s_out,
+                  float* __restrict__ s_chunks, int Tn, int H, int P, int N, int chunk) {
   extern __shared__ __align__(16) float smem[];
   const int NP = N + 1;                 // padded rows of S, B and C
   float* S = smem;                      // P x NP, the carried state
@@ -179,6 +184,10 @@ mamba2_ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   for (int t0 = 0; t0 < Tn; t0 += chunk) {
     __syncthreads();                    // the last chunk's readers are done
+    if (s_chunks) {                     // training: the state entering this chunk
+      float* dst = s_chunks + ((b * H + h) * (Tn / chunk) + t0 / chunk) * static_cast<long>(P) * N;
+      for (int i = tid; i < P * N; i += kThreads) dst[i] = S[(i / N) * NP + i % N];
+    }
     for (int i = tid; i < chunk * P; i += kThreads) {
       const int t = i / P, p = i % P;
       xs[i] = to_f32(x[((b * Tn + t0 + t) * H + h) * P + p]);
@@ -256,8 +265,8 @@ mamba2_ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
 template <typename E>
 int launch(const void* x, const float* dt, const float* A, const void* Bm, const void* Cm,
-           const float* s_in, void* y, float* s_out, int B, int T, int H, int P, int N,
-           int chunk, cudaStream_t stream) {
+           const float* s_in, void* y, float* s_out, float* s_chunks, int B, int T, int H,
+           int P, int N, int chunk, cudaStream_t stream) {
   const size_t bytes = smem_floats(P, N, chunk) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(mamba2_ssd_kernel<E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -265,7 +274,7 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm, const
   if (err != cudaSuccess) return static_cast<int>(err);
   mamba2_ssd_kernel<E><<<dim3(H, B), kThreads, bytes, stream>>>(
       static_cast<const E*>(x), dt, A, static_cast<const E*>(Bm), static_cast<const E*>(Cm),
-      s_in, static_cast<E*>(y), s_out, T, H, P, N, chunk);
+      s_in, static_cast<E*>(y), s_out, s_chunks, T, H, P, N, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -310,8 +319,8 @@ __global__ void __launch_bounds__(kBfThreads, NP2 <= 2 ? 3 : 2)
 ssd_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const __nv_bfloat16* __restrict__ Bm,
                 const __nv_bfloat16* __restrict__ Cm, const float* __restrict__ s_in,
-                __nv_bfloat16* __restrict__ y, float* __restrict__ s_out, int Tn, int H, int P,
-                int N, int chunk, int Pb) {
+                __nv_bfloat16* __restrict__ y, float* __restrict__ s_out,
+                float* __restrict__ s_chunks, int Tn, int H, int P, int N, int chunk, int Pb) {
   extern __shared__ __align__(128) unsigned char smem_bytes[];
   unsigned char* smem = smem_bytes;
   const int Np = (N + 15) & ~15;
@@ -398,12 +407,31 @@ ssd_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ d
     }
   };
 
+  // the state's panels to a (P, N) f32 state in global memory
+  auto store = [&](float* dst) {
+#pragma unroll
+    for (int i = 0; i < PW; ++i) {
+      const int pi = warp + 4 * i, prow = pi / npr, pcol = pi % npr;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int p = p0 + 16 * prow + g + 8 * hf, n = 32 * pcol + 8 * nt + 2 * q;
+          if (pi < npanels && p < P && n < N)
+            *reinterpret_cast<float2*>(dst + static_cast<long>(p) * N + n) =
+                make_float2(st[i][nt][2 * hf], st[i][nt][2 * hf + 1]);
+        }
+    }
+  };
+
   const int nchunks = Tn / chunk;
   load(0, 0);
   mma::cp_commit();
   write_split();
   for (int ci = 0; ci < nchunks; ++ci) {
     const int stage = ci & 1, t0 = ci * chunk;
+    if (s_chunks)                       // training: the state entering this chunk
+      store(s_chunks + ((b * H + h) * nchunks + ci) * static_cast<long>(P) * N);
     if (ci + 1 < nchunks) load(stage ^ 1, t0 + chunk);
     mma::cp_commit();
     mma::cp_wait<1>();                  // this chunk's copies (this thread's) are in
@@ -582,26 +610,13 @@ ssd_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ d
     __syncthreads();                    // every warp is done with the split state and the stage
     if (ci + 1 < nchunks) write_split();
   }
-
-#pragma unroll
-  for (int i = 0; i < PW; ++i) {
-    const int pi = warp + 4 * i, prow = pi / npr, pcol = pi % npr;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int p = p0 + 16 * prow + g + 8 * hf, n = 32 * pcol + 8 * nt + 2 * q;
-        if (pi < npanels && p < P && n < N)
-          *reinterpret_cast<float2*>(s_out + state0 + static_cast<long>(p) * N + n) =
-              make_float2(st[i][nt][2 * hf], st[i][nt][2 * hf + 1]);
-      }
-  }
+  store(s_out + state0);
 }
 
 template <int NP2, int PW>
 int launch_bf16(const void* x, const float* dt, const float* A, const void* Bm, const void* Cm,
-                const float* s_in, void* y, float* s_out, int B, int T, int H, int P, int N,
-                int chunk, int Pb, cudaStream_t stream) {
+                const float* s_in, void* y, float* s_out, float* s_chunks, int B, int T, int H,
+                int P, int N, int chunk, int Pb, cudaStream_t stream) {
   const SsdLayout L(Pb, (N + 15) & ~15);
   cudaError_t err = cudaFuncSetAttribute(ssd_bf16_kernel<NP2, PW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
@@ -609,8 +624,8 @@ int launch_bf16(const void* x, const float* dt, const float* A, const void* Bm, 
   const int slices = (P + Pb - 1) / Pb;
   ssd_bf16_kernel<NP2, PW><<<dim3(H * slices, B), kBfThreads, L.bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x), dt, A, static_cast<const __nv_bfloat16*>(Bm),
-      static_cast<const __nv_bfloat16*>(Cm), s_in, static_cast<__nv_bfloat16*>(y), s_out, T, H,
-      P, N, chunk, Pb);
+      static_cast<const __nv_bfloat16*>(Cm), s_in, static_cast<__nv_bfloat16*>(y), s_out,
+      s_chunks, T, H, P, N, chunk, Pb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -621,21 +636,24 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // bf16 launches the tensor-core kernel, with ``slice`` columns of P a block
 // (16, 32 or 64; P and N multiples of 8, every pointer 16-byte
 // aligned, else cudaErrorInvalidValue); float32 the CUDA-core kernel, which
-// ignores ``slice``.
+// ignores ``slice``. ``s_chunks`` (B, H, T / chunk, P, N) f32, or null,
+// takes the state entering each chunk.
 extern "C" int memforest_mamba2_ssd(const void* x, const float* dt, const float* A,
                                     const void* Bm, const void* Cm, const float* s_in,
-                                    void* y, float* s_out, int B, int T, int H, int P,
-                                    int N, int chunk, int bf16, int slice, void* stream) {
+                                    void* y, float* s_out, float* s_chunks, int B, int T,
+                                    int H, int P, int N, int chunk, int bf16, int slice,
+                                    void* stream) {
   if (B == 0 || H == 0 || T == 0) return static_cast<int>(cudaSuccess);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (!bf16) return launch<float>(x, dt, A, Bm, Cm, s_in, y, s_out, B, T, H, P, N, chunk, st);
+  if (!bf16)
+    return launch<float>(x, dt, A, Bm, Cm, s_in, y, s_out, s_chunks, B, T, H, P, N, chunk, st);
   if ((slice != 16 && slice != 32 && slice != 64) || P % 8 || N % 8 || N > 128 || chunk > kTile ||
       !aligned16(x) || !aligned16(Bm) || !aligned16(Cm) || !aligned16(y) || !aligned16(s_in) ||
-      !aligned16(s_out))
+      !aligned16(s_out) || !aligned16(s_chunks))
     return static_cast<int>(cudaErrorInvalidValue);
   const int panels = (slice / 16) * ((N + 31) / 32);   // of the state, 4 warps a block
 #define SSD_LAUNCH(NP2, PW) \
-  launch_bf16<NP2, PW>(x, dt, A, Bm, Cm, s_in, y, s_out, B, T, H, P, N, chunk, slice, st)
+  launch_bf16<NP2, PW>(x, dt, A, Bm, Cm, s_in, y, s_out, s_chunks, B, T, H, P, N, chunk, slice, st)
   if (slice == 16) return SSD_LAUNCH(1, 1);
   if (slice == 32) return panels <= 4 ? SSD_LAUNCH(2, 1) : SSD_LAUNCH(2, 2);
   return panels <= 4 ? SSD_LAUNCH(4, 1) : panels <= 8 ? SSD_LAUNCH(4, 2) : SSD_LAUNCH(4, 4);

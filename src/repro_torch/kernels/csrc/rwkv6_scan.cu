@@ -70,6 +70,11 @@
 // 2.4e-7, 2.4e-7 and 2.3e-5.
 // Shared memory: 132 KiB at Vb = 64, K = 64 (one block an SM).
 //
+// Training: given ``s_chunks`` (null at inference), both paths also write
+// the f32 state that enters each chunk, (B, H, T / chunk, K, V), which the
+// backward kernel (rwkv6_scan_bwd.cu) reads; in the bf16 path each warp
+// writes the rows of its register panels, as it writes the final state.
+//
 // float32, on the CUDA cores (the first version, kept for the parity
 // phases). The Pallas grid walks (batch, head, chunk) with the chunk axis in
 // sequence and materialises the (C, C, K) gate, a 1 MB VMEM tile. Here one
@@ -144,7 +149,8 @@ __global__ void __launch_bounds__(kThreads)
 rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
                   const float* __restrict__ w, const T* __restrict__ u,
                   const float* __restrict__ s_in, T* __restrict__ o,
-                  float* __restrict__ s_out, int Tn, int H, int K, int V, int chunk) {
+                  float* __restrict__ s_out, float* __restrict__ s_chunks, int Tn, int H,
+                  int K, int V, int chunk) {
   extern __shared__ __align__(16) float smem[];
   // At K = V = 64 and a chunk of 64 this is 28,928 floats (113 KB): two
   // blocks fit on one SM. A and ce are read two rows at a time by a warp
@@ -171,6 +177,10 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __r
 
   for (int t0 = 0; t0 < Tn; t0 += chunk) {
     __syncthreads();                    // the last chunk's readers are done
+    if (s_chunks) {                     // training: the state entering this chunk
+      float* dst = s_chunks + ((b * H + h) * (Tn / chunk) + t0 / chunk) * static_cast<long>(K) * V;
+      for (int i = tid; i < K * V; i += kThreads) dst[i] = S[i];
+    }
     for (int i = tid; i < chunk * K; i += kThreads) {
       const int t = i / K, c = i % K;
       const long g = ((b * Tn + t0 + t) * H + h) * K + c;
@@ -279,8 +289,8 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __r
 
 template <typename E>
 int launch(const void* r, const void* k, const void* v, const float* w, const void* u,
-           const float* s_in, void* o, float* s_out, int B, int T, int H, int K, int V,
-           int chunk, cudaStream_t stream) {
+           const float* s_in, void* o, float* s_out, float* s_chunks, int B, int T, int H,
+           int K, int V, int chunk, cudaStream_t stream) {
   const size_t bytes = smem_floats(K, V, chunk) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(rwkv6_scan_kernel<E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -288,7 +298,7 @@ int launch(const void* r, const void* k, const void* v, const float* w, const vo
   if (err != cudaSuccess) return static_cast<int>(err);
   rwkv6_scan_kernel<E><<<dim3(H, B), kThreads, bytes, stream>>>(
       static_cast<const E*>(r), static_cast<const E*>(k), static_cast<const E*>(v), w,
-      static_cast<const E*>(u), s_in, static_cast<E*>(o), s_out, T, H, K, V, chunk);
+      static_cast<const E*>(u), s_in, static_cast<E*>(o), s_out, s_chunks, T, H, K, V, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -341,8 +351,8 @@ __global__ void __launch_bounds__(kBfThreads)
 wkv_bf16_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, const float* __restrict__ w,
                 const __nv_bfloat16* __restrict__ u, const float* __restrict__ s_in,
-                __nv_bfloat16* __restrict__ o, float* __restrict__ s_out, int Tn, int H, int K,
-                int V, int chunk, int Vb) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ s_out,
+                float* __restrict__ s_chunks, int Tn, int H, int K, int V, int chunk, int Vb) {
   extern __shared__ __align__(128) unsigned char smem_bytes[];
   unsigned char* smem = smem_bytes;
   const int Kp = (K + 15) & ~15;
@@ -432,12 +442,31 @@ wkv_bf16_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __rest
     }
   };
 
+  // the state's panels to a (K, V) f32 state in global memory
+  auto store = [&](float* dst) {
+#pragma unroll
+    for (int i = 0; i < PW; ++i) {
+      const int pi = warp + 8 * i, prow = pi / ncp, pcol = pi % ncp;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int key = 16 * prow + g + 8 * hf, c = v0 + 32 * pcol + 8 * nt + 2 * q;
+          if (pi < npanels && key < K && c < V)
+            *reinterpret_cast<float2*>(dst + static_cast<long>(key) * V + c) =
+                make_float2(st[i][nt][2 * hf], st[i][nt][2 * hf + 1]);
+        }
+    }
+  };
+
   const int nchunks = Tn / chunk;
   load(0, 0);
   mma::cp_commit();
   write_split();
   for (int ci = 0; ci < nchunks; ++ci) {
     const int stage = ci & 1, t0 = ci * chunk;
+    if (s_chunks)                       // training: the state entering this chunk
+      store(s_chunks + ((b * H + h) * nchunks + ci) * static_cast<long>(K) * V);
     if (ci + 1 < nchunks) load(stage ^ 1, t0 + chunk);
     mma::cp_commit();
     mma::cp_wait<1>();                  // this chunk's copies (this thread's) are in
@@ -732,26 +761,13 @@ wkv_bf16_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __rest
     __syncthreads();                    // every warp is done with the exchange and the stage
     if (ci + 1 < nchunks) write_split();
   }
-
-#pragma unroll
-  for (int i = 0; i < PW; ++i) {
-    const int pi = warp + 8 * i, prow = pi / ncp, pcol = pi % ncp;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int key = 16 * prow + g + 8 * hf, c = v0 + 32 * pcol + 8 * nt + 2 * q;
-        if (pi < npanels && key < K && c < V)
-          *reinterpret_cast<float2*>(s_out + state0 + static_cast<long>(key) * V + c) =
-              make_float2(st[i][nt][2 * hf], st[i][nt][2 * hf + 1]);
-      }
-  }
+  store(s_out + state0);
 }
 
 template <int PW>
 int launch_bf16(const void* r, const void* k, const void* v, const float* w, const void* u,
-                const float* s_in, void* o, float* s_out, int B, int T, int H, int K, int V,
-                int chunk, int Vb, cudaStream_t stream) {
+                const float* s_in, void* o, float* s_out, float* s_chunks, int B, int T, int H,
+                int K, int V, int chunk, int Vb, cudaStream_t stream) {
   const WkvLayout L((K + 15) & ~15, Vb);
   cudaError_t err = cudaFuncSetAttribute(wkv_bf16_kernel<PW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
@@ -760,7 +776,8 @@ int launch_bf16(const void* r, const void* k, const void* v, const float* w, con
   using bf = __nv_bfloat16;
   wkv_bf16_kernel<PW><<<dim3(H * slices, B), kBfThreads, L.bytes, stream>>>(
       static_cast<const bf*>(r), static_cast<const bf*>(k), static_cast<const bf*>(v), w,
-      static_cast<const bf*>(u), s_in, static_cast<bf*>(o), s_out, T, H, K, V, chunk, Vb);
+      static_cast<const bf*>(u), s_in, static_cast<bf*>(o), s_out, s_chunks, T, H, K, V, chunk,
+      Vb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -771,19 +788,24 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // bf16 launches the tensor-core kernel, with ``slice`` columns of V a block
 // (32, or 64 where K <= 64; K and V multiples of 8, every pointer but u's
 // 16-byte aligned, else cudaErrorInvalidValue); float32 the CUDA-core
-// kernel, which ignores ``slice``.
+// kernel, which ignores ``slice``. ``s_chunks`` (B, H, T / chunk, K, V) f32,
+// or null, takes the state entering each chunk.
 extern "C" int memforest_rwkv6_scan(const void* r, const void* k, const void* v,
                                     const float* w, const void* u, const float* s_in,
-                                    void* o, float* s_out, int B, int T, int H, int K,
-                                    int V, int chunk, int bf16, int slice, void* stream) {
+                                    void* o, float* s_out, float* s_chunks, int B, int T,
+                                    int H, int K, int V, int chunk, int bf16, int slice,
+                                    void* stream) {
   if (B == 0 || H == 0 || T == 0) return static_cast<int>(cudaSuccess);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (!bf16) return launch<float>(r, k, v, w, u, s_in, o, s_out, B, T, H, K, V, chunk, st);
+  if (!bf16)
+    return launch<float>(r, k, v, w, u, s_in, o, s_out, s_chunks, B, T, H, K, V, chunk, st);
   if ((slice != 32 && (slice != 64 || K > 64)) || K % 8 || V % 8 || K > 128 || chunk > kTile ||
       !aligned16(r) || !aligned16(k) || !aligned16(v) || !aligned16(w) || !aligned16(o) ||
-      !aligned16(s_in) || !aligned16(s_out))
+      !aligned16(s_in) || !aligned16(s_out) || !aligned16(s_chunks))
     return static_cast<int>(cudaErrorInvalidValue);
   const int panels = (K + 15) / 16 * (slice / 32);   // of the state, 8 warps a block
-  if (panels <= 8) return launch_bf16<1>(r, k, v, w, u, s_in, o, s_out, B, T, H, K, V, chunk, slice, st);
-  return launch_bf16<2>(r, k, v, w, u, s_in, o, s_out, B, T, H, K, V, chunk, slice, st);
+  if (panels <= 8)
+    return launch_bf16<1>(r, k, v, w, u, s_in, o, s_out, s_chunks, B, T, H, K, V, chunk, slice,
+                          st);
+  return launch_bf16<2>(r, k, v, w, u, s_in, o, s_out, s_chunks, B, T, H, K, V, chunk, slice, st);
 }

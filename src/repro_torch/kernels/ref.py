@@ -397,3 +397,229 @@ def mamba2_ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ys.append(y_intra + y_inter)
     y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, T, H, P)
     return y.to(x.dtype), s.to(state.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the scans' gradients, which the JAX package gets by differentiating its
+# chunked forms (``ref.mamba2_ssd_chunked``, ``ref.rwkv6_chunked``)
+# ---------------------------------------------------------------------------
+def _revcumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """sum_{t' >= t} x[t'] along ``dim``."""
+    return torch.flip(torch.cumsum(torch.flip(x, (dim,)), dim), (dim,))
+
+
+def mamba2_ssd_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bm: torch.Tensor, C: torch.Tensor, state: torch.Tensor,
+                       dy: torch.Tensor, ds_out=None, *,
+                       chunk: int = SCAN_CHUNK):
+    """The gradient of ``mamba2_ssd_chunked``: its inputs, the output's
+    cotangent ``dy`` (B, T, H, P) and the final state's ``ds_out`` (B, H, P,
+    N; None means zeros) -> (dx, ddt, dA, dB, dC, dstate), each in its
+    input's type. Explicit float32 math (float64 for float64 inputs).
+
+    The chunks' entering states come from a forward sweep; the chunks are
+    then walked in reverse, carrying the state's cotangent dS. Per chunk,
+    with G = (C.B^T) L dt_s, L[t,s] = exp(min(cum_t - cum_s, 0)) (s <= t)
+    and w_s = dt_s exp(min(total - cum_s, 0)) the state update's weights:
+    dG = dy.x^T, dx = G^T.dy + w (B.dS^T), d(C.B^T) = dG L dt_s into dC and
+    dB, and the inter-chunk term exp(cum_t) C.S0^T into dC and dS0. Every
+    term's cotangent of the cumulative log-decay ``dcum`` is gathered, and
+    the reverse cumulative sum of dcum turns it into dt's, ``ddt += A
+    revcumsum(dcum)``. dA is sum dt revcumsum(dcum) = sum_t dcum_t D_t, D
+    the cumulative sum of dt (cum = A D), a small sum of large terms that
+    cancel: it is taken term by term instead, each pair (t, s) of the
+    intra-chunk term weighted by D_t - D_s and the state update's w_s by
+    D_last - D_s, which leaves its float32 error several times smaller. dB
+    and dC sum over the heads (which share B and C), dA over batch and
+    time. ``mamba2_ssd_bwd`` computes the same."""
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    chunk = scan_chunk("mamba2_ssd_bwd", T, chunk)
+    nc = T // chunk
+    ct = torch.promote_types(x.dtype, torch.float32)
+    dev = x.device
+
+    def heads(t, d):            # (nc, B, H, C, d)
+        return t.to(ct).reshape(B, nc, chunk, H, d).permute(1, 0, 3, 2, 4)
+
+    xf, dyf = heads(x, P), heads(dy, P)
+    dtf = dt.to(ct).reshape(B, nc, chunk, H).permute(1, 0, 3, 2)
+    Bf = Bm.to(ct).reshape(B, nc, chunk, N).permute(1, 0, 2, 3)
+    Cf = C.to(ct).reshape(B, nc, chunk, N).permute(1, 0, 2, 3)
+    Af = A.to(ct)
+    idx = torch.arange(chunk, device=dev)
+    lower = idx[:, None] >= idx[None, :]
+    zero = torch.zeros((), dtype=ct, device=dev)
+
+    def decays(c):
+        cum = torch.cumsum(dtf[c] * Af[None, :, None], dim=2)      # (B, H, C)
+        total = cum[:, :, -1]
+        ex = torch.exp(torch.clamp(total[:, :, None] - cum, max=0.0))
+        return cum, total, ex
+
+    states, s = [], state.to(ct)
+    for c in range(nc):                 # the chunks' entering states
+        states.append(s)
+        cum, total, ex = decays(c)
+        xw = xf[c] * (dtf[c] * ex)[..., None]
+        s = torch.exp(total)[..., None, None] * s + torch.einsum(
+            "bhcp,bcn->bhpn", xw, Bf[c])
+    dS = (torch.zeros_like(s) if ds_out is None else ds_out.to(ct))
+    dx = torch.empty_like(xf)
+    ddt = torch.empty_like(dtf)
+    dBm = torch.empty_like(Bf)
+    dCm = torch.empty_like(Cf)
+    dA = torch.zeros_like(Af)
+    for c in reversed(range(nc)):
+        xb, dyb, dtb, Bb, Cb, S0 = xf[c], dyf[c], dtf[c], Bf[c], Cf[c], states[c]
+        cum, total, ex = decays(c)
+        D = torch.cumsum(dtb, dim=2)    # cum / A: dcum's weight in dA
+        L = torch.where(lower, torch.exp(torch.clamp(
+            cum[..., :, None] - cum[..., None, :], max=0.0)), zero)  # (B,H,C,C)
+        cb = torch.einsum("btn,bsn->bts", Cb, Bb)[:, None]
+        G = cb * L * dtb[:, :, None, :]
+        dG = torch.where(lower, torch.einsum("bhtp,bhsp->bhts", dyb, xb), zero)
+        dcb = dG * L * dtb[:, :, None, :]
+        R = dG * cb * L                 # dG's share of dt_s, before dt_s
+        Q = R * dtb[:, :, None, :]      # its share of cum_t - cum_s
+        dxb = torch.einsum("bhts,bhtp->bhsp", G, dyb)
+        dCh = torch.einsum("bhts,bsn->bhtn", dcb, Bb)
+        dBh = torch.einsum("bhts,btn->bhsn", dcb, Cb)
+        ddtb = R.sum(dim=2)
+        dcum = Q.sum(dim=3) - Q.sum(dim=2)
+        dAb = torch.sum(Q * (D[..., :, None] - D[..., None, :]), dim=(2, 3))
+        # the carried state's term, exp(cum_t) (C_t . S0[p, :])
+        e = torch.exp(cum)
+        dyS = torch.einsum("bhtp,bhpn->bhtn", dyb, S0)
+        dCh = dCh + e[..., None] * dyS
+        dcum_i = e * torch.einsum("bhtn,btn->bht", dyS, Cb)
+        dcum = dcum + dcum_i
+        dS0 = torch.einsum("bhtp,btn->bhpn", dyb * e[..., None], Cb)
+        dAb = dAb + torch.sum(dcum_i * D, dim=2)
+        # the state update, exp(total) S0 + sum_s (x_s w_s) (x) B_s
+        w = dtb * ex
+        xdS = torch.einsum("bhsp,bhpn->bhsn", xb, dS)
+        dxb = dxb + w[..., None] * torch.einsum("bsn,bhpn->bhsp", Bb, dS)
+        dBh = dBh + w[..., None] * xdS
+        dw = torch.sum(Bb[:, None] * xdS, dim=-1)
+        ddtb = ddtb + ex * dw
+        dcum = dcum - w * dw
+        dtot = torch.exp(total) * torch.sum(dS * S0, dim=(-2, -1))
+        dcum[:, :, -1] += dtot + torch.sum(w * dw, dim=-1)
+        dAb = dAb + dtot * D[..., -1] + torch.sum(
+            w * dw * (D[..., -1:] - D), dim=2)
+        dS = torch.exp(total)[..., None, None] * dS + dS0
+        rc = _revcumsum(dcum, 2)
+        ddt[c] = ddtb + Af[None, :, None] * rc
+        dA = dA + dAb.sum(dim=0)
+        dx[c], dBm[c], dCm[c] = dxb, dBh.sum(dim=1), dCh.sum(dim=1)
+    return (dx.permute(1, 0, 3, 2, 4).reshape(B, T, H, P).to(x.dtype),
+            ddt.permute(1, 0, 3, 2).reshape(B, T, H).to(dt.dtype),
+            dA.to(A.dtype),
+            dBm.permute(1, 0, 2, 3).reshape(B, T, N).to(Bm.dtype),
+            dCm.permute(1, 0, 2, 3).reshape(B, T, N).to(C.dtype),
+            dS.to(state.dtype))
+
+
+def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+                       do: torch.Tensor, ds_out=None, *,
+                       chunk: int = SCAN_CHUNK):
+    """The gradient of ``rwkv6_chunked``: its inputs, the output's cotangent
+    ``do`` (B, T, H, V) and the final state's ``ds_out`` (B, H, K, V; None
+    means zeros) -> (dr, dk, dv, dw, du, dstate), each in its input's type.
+    Explicit float32 math (float64 for float64 inputs).
+
+    The chunks' entering states come from a forward sweep; the chunks are
+    then walked in reverse, carrying the state's cotangent dS. Per chunk,
+    with the gate E[t,s,k] = exp(min(ce_t - cum_s, 0)) (s < t) of the
+    forward's log-difference form (every exponent <= 0): dA = do.v^T, dv =
+    A^T.do + k'.dS (k' = k exp(min(total - cum, 0))), dr and dk from dA
+    through the gate and the bonus diagonal, the inter-chunk term (r
+    exp(ce)).S0 into dr and dS0, and the update's k'^T.v into dk. Every
+    term's cotangent of the inclusive sums ``cum`` and the exclusive ``ce =
+    cum - ld`` is gathered; a reverse cumulative sum turns them into the
+    log-decays' cotangent, ``dld = revcumsum(dcum + dce) - dce``, and dw =
+    dld (-exp(w)). du sums over batch and time. ``rwkv6_scan_bwd``
+    computes the same."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    chunk = scan_chunk("rwkv6_scan_bwd", T, chunk)
+    nc = T // chunk
+    ct = torch.promote_types(r.dtype, torch.float32)
+    dev = r.device
+
+    def resh(x, d):             # (nc, B, H, C, d)
+        return x.to(ct).reshape(B, nc, chunk, H, d).permute(1, 0, 3, 2, 4)
+
+    rc, kc, wc = resh(r, K), resh(k, K), resh(w, K)
+    vc, doc = resh(v, V), resh(do, V)
+    uf = u.to(ct)[None, :, None, :]
+    idx = torch.arange(chunk, device=dev)
+    strict = idx[:, None] > idx[None, :]
+    lower = idx[:, None] >= idx[None, :]
+    diag = idx[:, None] == idx[None, :]
+    zero = torch.zeros((), dtype=ct, device=dev)
+
+    def decays(c):
+        ld = -torch.exp(wc[c])
+        cum = torch.cumsum(ld, dim=2)
+        total = cum[:, :, -1]                                     # (B, H, K)
+        ex = torch.exp(torch.clamp(total[:, :, None, :] - cum, max=0.0))
+        return ld, cum, cum - ld, total, ex
+
+    states, s = [], state.to(ct)
+    for c in range(nc):                 # the chunks' entering states
+        states.append(s)
+        _, _, _, total, ex = decays(c)
+        s = torch.exp(total)[..., None] * s + torch.einsum(
+            "bhck,bhcv->bhkv", kc[c] * ex, vc[c])
+    dS = (torch.zeros_like(s) if ds_out is None else ds_out.to(ct))
+    dr, dk, dw = (torch.empty_like(rc) for _ in range(3))
+    dv = torch.empty_like(vc)
+    du = torch.zeros_like(u, dtype=ct)
+    for c in reversed(range(nc)):
+        rb, kb, vb, dob, S0 = rc[c], kc[c], vc[c], doc[c], states[c]
+        ld, cum, ce, total, ex = decays(c)
+        gate = torch.where(strict[..., None], torch.exp(torch.clamp(
+            ce[:, :, :, None, :] - cum[:, :, None, :, :], max=0.0)), zero)
+        bonus = torch.sum(rb * uf * kb, dim=-1)                   # (B, H, C)
+        Am = torch.einsum("bhtk,bhsk,bhtsk->bhts", rb, kb, gate)
+        Am = Am + torch.where(diag, bonus[..., None], zero)
+        dAm = torch.where(lower, torch.einsum("bhtv,bhsv->bhts", dob, vb),
+                          zero)
+        dAd = torch.diagonal(dAm, dim1=-2, dim2=-1)               # (B, H, C)
+        dAs = torch.where(strict, dAm, zero)
+        dvb = torch.einsum("bhts,bhtv->bhsv", Am, dob)
+        dr_g = torch.einsum("bhts,bhsk,bhtsk->bhtk", dAs, kb, gate)
+        dk_g = torch.einsum("bhts,bhtk,bhtsk->bhsk", dAs, rb, gate)
+        drb = dAd[..., None] * uf * kb + dr_g
+        dkb = dAd[..., None] * uf * rb + dk_g
+        du = du + torch.sum(dAd[..., None] * rb * kb, dim=(0, 2))
+        dce = rb * dr_g
+        dcum = -kb * dk_g
+        # the carried state's term, (r exp(ce)).S0
+        ece = torch.exp(ce)
+        doS = torch.einsum("bhtv,bhkv->bhtk", dob, S0)
+        drb = drb + ece * doS
+        dce = dce + rb * ece * doS
+        dS0 = torch.einsum("bhtk,bhtv->bhkv", rb * ece, dob)
+        # the state update, exp(total) S0 + k'^T.v
+        ks = kb * ex
+        dks = torch.einsum("bhsv,bhkv->bhsk", vb, dS)
+        dvb = dvb + torch.einsum("bhsk,bhkv->bhsv", ks, dS)
+        dkb = dkb + ex * dks
+        Y = ks * dks
+        dcum = dcum - Y
+        dcum[:, :, -1] += (torch.exp(total) * torch.sum(dS * S0, dim=-1)
+                           + torch.sum(Y, dim=2))
+        dS = torch.exp(total)[..., None] * dS + dS0
+        dld = _revcumsum(dcum + dce, 2) - dce
+        dr[c], dk[c], dv[c], dw[c] = drb, dkb, dvb, dld * ld
+
+    def back(x, d):
+        return x.permute(1, 0, 3, 2, 4).reshape(B, T, H, d)
+
+    return (back(dr, K).to(r.dtype), back(dk, K).to(k.dtype),
+            back(dv, V).to(v.dtype), back(dw, K).to(w.dtype), du.to(u.dtype),
+            dS.to(state.dtype))

@@ -10,9 +10,10 @@ the kernels). ``--smoke`` (the default) selects the reduced config,
 ``--full`` the published one. ``--resume`` restores the newest checkpoint of
 ``--ckpt-dir`` and carries on from its step; the batches come from
 ``TokenPipeline.batch_at(step)``, so a resumed run sees the batches an
-uninterrupted one would. The dense, MoE and VLM families train on token
-batches; whisper needs frames, which this driver does not make, as the
-reference's does not.
+uninterrupted one would. The dense, MoE, VLM, ``hybrid`` (zamba2) and
+``ssm`` (rwkv6) families train on token batches (the scans take ``--seq``
+of at most 64 or a multiple of 64); whisper needs frames, which this
+entry point does not make, as the reference's does not.
 """
 from __future__ import annotations
 

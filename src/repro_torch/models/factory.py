@@ -10,9 +10,8 @@
 Counterpart of the JAX package's ``models/factory.py``: the dense, ``moe``
 and ``vlm`` families run in ``transformer``, ``ssm`` in ``rwkv6``,
 ``hybrid`` in ``zamba2`` and ``encdec`` in ``whisper``. ``make_batch``
-builds a seeded random batch of any family. ``loss`` trains the dense,
-``moe``, ``vlm`` and ``encdec`` families; for ``ssm`` and ``hybrid`` it
-raises on every device, because their scans have no backward kernel yet.
+builds a seeded random batch of any family. ``loss`` trains every family;
+on a card the scans of ``ssm`` and ``hybrid`` run their backward kernels.
 The dry-run tooling (``cache_specs``, ``param_specs``, ``input_specs``) is
 not ported (ROADMAP.md, queue 1).
 """
@@ -40,18 +39,6 @@ class Model(NamedTuple):
 
 _MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": rwkv6, "hybrid": zamba2, "encdec": whisper}
-TRAINABLE = ("dense", "moe", "vlm", "encdec")
-
-
-def _no_loss(cfg: ModelConfig):
-    def loss(params, batch):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family waits for backward "
-            "kernels of mamba2_ssd and rwkv6_scan (ROADMAP.md, queue 1, item "
-            "7); the port trains the dense, moe, vlm and encdec families")
-    return loss
-
-
 def get_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _MODULES:
         raise ValueError(cfg.family)
@@ -59,8 +46,7 @@ def get_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=functools.partial(mod.init_params, cfg),
-        loss=((lambda params, batch: mod.loss_fn(params, cfg, batch))
-              if cfg.family in TRAINABLE else _no_loss(cfg)),
+        loss=lambda params, batch: mod.loss_fn(params, cfg, batch),
         prefill=lambda params, batch, max_len: mod.prefill(params, cfg, batch,
                                                            max_len),
         decode=lambda params, batch, cache: mod.decode_step(params, cfg, batch,

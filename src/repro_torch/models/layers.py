@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops, ref
@@ -332,6 +333,16 @@ def moe_block(p: Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------
+def remat(fn, on: bool, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``) when ``on``: its activations are recomputed in the
+    backward pass instead of kept."""
+    if on:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """logits (B, S, V), labels (B, S) int. Log-softmax in float32, then the

@@ -17,6 +17,9 @@ reference's keys and shapes: ``wkv`` (L, B, H, K, K) float32, ``shift_t``
 and ``shift_c`` (L, B, D) in cfg.dtype, ``lengths`` (B,) int32.
 ``decode_step`` updates ``wkv``, ``shift_t`` and ``shift_c`` IN PLACE and
 returns a dict with the same tensors and new ``lengths``.
+
+``loss_fn`` trains it: on a card the scans run the ``rwkv6_scan`` kernels
+forward and backward.
 """
 from __future__ import annotations
 
@@ -156,6 +159,28 @@ def _layer_seq(cfg, p, x, state, shift_t, shift_c):
     shifted = torch.cat([shift_c[:, None, :], h[:, :-1]], dim=1)
     x = x + _channel_mix(p, h, shifted)
     return x, s_new, new_shift_t, h[:, -1]
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """(loss, {"xent"}): the token cross-entropy over ``labels`` (B, T) (and
+    ``loss_mask``), as the reference's ``loss_fn``. Every layer starts from
+    zero states, which nothing writes (autograd keeps the tensors it saved
+    intact) and which the loss drops. ``cfg.remat`` recomputes each layer
+    in the backward pass."""
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    x = L.rms_norm(params["embed"][tokens], params["ln_in"], cfg.norm_eps)
+    D, hs = cfg.d_model, cfg.rwkv_head_size
+    wkv0 = torch.zeros((B, D // hs, hs, hs), dtype=torch.float32,
+                       device=x.device)
+    shift0 = torch.zeros((B, D), dtype=L.torch_dtype(cfg.dtype),
+                         device=x.device)
+    for p in params["layers"]:
+        x = L.remat(_layer_seq, cfg.remat, cfg, p, x, wkv0, shift0, shift0)[0]
+    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    loss = L.softmax_xent(h @ params["unembed"], batch["labels"],
+                          batch.get("loss_mask"))
+    return loss, {"xent": loss}
 
 
 def init_state(cfg: ModelConfig, batch: int, *,

@@ -21,7 +21,6 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.config import ModelConfig
@@ -87,15 +86,6 @@ def position_table(params, cfg: ModelConfig, n: int) -> torch.Tensor:
     return table[:n]
 
 
-def _remat(fn, remat: bool, *args):
-    """``fn(*args)``, under ``torch.utils.checkpoint`` (the reference's
-    ``jax.checkpoint``) when ``remat``."""
-    if remat:
-        return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False)
-    return fn(*args)
-
-
 def _enc_layer(cfg: ModelConfig, p, x, positions):
     h = L.layer_norm(x, p["ln1"], p["ln1b"], cfg.norm_eps)
     x = x + L.attention_prefill(p["attn"], h, cfg, positions, causal=False)
@@ -111,7 +101,7 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor, *,
     x = frames + position_table(params, cfg, S).to(frames.dtype)[None]
     positions = torch.arange(S, device=x.device)[None, :]
     for p in params["enc_layers"]:
-        x = _remat(_enc_layer, remat, cfg, p, x, positions)
+        x = L.remat(_enc_layer, remat, cfg, p, x, positions)
     return L.layer_norm(x, params["enc_norm"], params["enc_norm_b"],
                         cfg.norm_eps)
 
@@ -161,7 +151,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
         return _dec_layer(cfg, p, x, positions, enc_out)[0]
 
     for p in params["dec_layers"]:
-        x = _remat(layer, cfg.remat, p, x)
+        x = L.remat(layer, cfg.remat, p, x)
     h = L.layer_norm(x, params["dec_norm"], params["dec_norm_b"],
                      cfg.norm_eps)
     logits = h @ params["embed"].T

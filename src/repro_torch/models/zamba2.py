@@ -11,6 +11,10 @@ Parameters: ``embed``, ``layers`` (one dict per layer: ``ln``, ``mamba``),
 ``shared_attn`` (``ln1``, ``ln2``, ``attn``, ``mlp``; one dict),
 ``final_norm``, ``unembed``.
 
+``loss_fn`` trains it: on a card the Mamba2 layers' scans run the
+``mamba2_ssd`` kernels forward and backward, the shared block's attention
+the ``flash_attention`` kernels.
+
 The cache keeps the reference's keys and shapes: ``ssd`` (L, B, H, P, N)
 float32, ``conv`` (L, B, W-1, conv_dim), ``kv_k`` and ``kv_v`` (G, B, Smax,
 Hkv, Dh) in cfg.dtype, ``lengths`` (B,) int32. ``decode_step`` updates
@@ -72,13 +76,16 @@ def _layer_order(cfg: ModelConfig):
         yield i, None
 
 
-def _shared_attn_seq(cfg, sp, x, positions):
+def _shared_attn_seq(cfg, sp, x, positions, return_kv=True):
     h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
-    att, kv = L.attention_prefill(sp["attn"], h, cfg, positions,
-                                  return_kv=True)
+    att = L.attention_prefill(sp["attn"], h, cfg, positions,
+                              return_kv=return_kv)
+    if return_kv:
+        att, kv = att
     x = x + att
     h = L.rms_norm(x, sp["ln2"], cfg.norm_eps)
-    return x + L.mlp_block(sp["mlp"], h, cfg), kv
+    x = x + L.mlp_block(sp["mlp"], h, cfg)
+    return (x, kv) if return_kv else x
 
 
 def _run_seq(params, cfg: ModelConfig, x: torch.Tensor, states):
@@ -94,14 +101,45 @@ def _run_seq(params, cfg: ModelConfig, x: torch.Tensor, states):
             x, kv = _shared_attn_seq(cfg, sp, x, positions)
             kvs.append(kv)
             continue
-        p = params["layers"][i]
-        h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-        y, s_new, c_new = M.mamba2_seq(p["mamba"], h, cfg, states["ssd"][i],
-                                       states["conv"][i])
-        x = x + y
-        states["ssd"][i] = s_new
-        states["conv"][i] = c_new
+        x, states["ssd"][i], states["conv"][i] = _mamba_layer(
+            cfg, params["layers"][i], x, states["ssd"][i], states["conv"][i])
     return x, kvs
+
+
+def _mamba_layer(cfg: ModelConfig, p, x, ssd_state, conv_state):
+    """One Mamba2 layer: (x + mamba2(rms_norm(x)), new ssd state, new conv
+    state)."""
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    y, s_new, c_new = M.mamba2_seq(p["mamba"], h, cfg, ssd_state, conv_state)
+    return x + y, s_new, c_new
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """(loss, {"xent"}): the token cross-entropy over ``labels`` (B, T) (and
+    ``loss_mask``), as the reference's ``loss_fn``. Every layer starts from
+    zero states, which nothing writes (autograd keeps the tensors it saved
+    intact) and which the loss drops. ``cfg.remat`` recomputes each Mamba2
+    layer in the backward pass; the shared block is kept, as the reference
+    checkpoints the Mamba2 layers only."""
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    x = params["embed"][tokens]
+    ssd_shape, conv_shape = M.state_shapes(cfg, B)
+    ssd0 = torch.zeros(ssd_shape, dtype=torch.float32, device=x.device)
+    conv0 = torch.zeros(conv_shape, dtype=L.torch_dtype(cfg.dtype),
+                        device=x.device)
+    positions = torch.arange(T, device=x.device)[None, :]
+    for i, _g in _layer_order(cfg):
+        if i is None:
+            x = _shared_attn_seq(cfg, params["shared_attn"], x, positions,
+                                 return_kv=False)
+        else:
+            x = L.remat(_mamba_layer, cfg.remat, cfg, params["layers"][i], x,
+                        ssd0, conv0)[0]
+    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    loss = L.softmax_xent(h @ params["unembed"], batch["labels"],
+                          batch.get("loss_mask"))
+    return loss, {"xent": loss}
 
 
 def init_state(cfg: ModelConfig, batch: int, *,

@@ -345,7 +345,7 @@ def test_kernel_parity_holds_on_the_real_sources():
     res = run_paths([os.path.join(REPO, "src", "repro_torch", "kernels",
                                   "_build.py")], rules=["kernel-parity"],
                     repo_root=REPO)
-    assert res.clean and len(_build.SOURCES) == 8
+    assert res.clean and len(_build.SOURCES) == 10
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,16 @@ section pins ``SCAN_C`` and shows the rule passing the three-term schedule
 at the stress shape, where the earlier criterion is tighter than float32
 allows, and failing a one-term schedule. Inputs come from numpy with fixed
 seeds.
+
+The backward kernels (``csrc/mamba2_ssd_bwd.cu``, ``csrc/rwkv6_scan_bwd.cu``,
+f32 on the CUDA cores) are emulated block by block as well
+(``ssd_bwd_schedule``, ``rwkv_bwd_schedule``): the chunks in reverse from
+the forward's chunk states, the log-decay sums in row order, the column
+sums through 16 row partials, the per-block partials of dA, du, dB and dC
+that the wrappers sum, the reverse sums for ddt and dw. In float64 they
+equal the plain backward (1e-10: the same math in another order); in
+float32 and with bf16 inputs they meet ``chip_smoke.SCAN_BWD_TOL``
+against a float64 run, as the kernels must on the card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -494,6 +504,291 @@ def test_scan_wrappers_never_fall_back_off_the_cpu(device, dtype):
     with pytest.raises(ValueError):
         ops.rwkv6_scan(*wkv)
     assert {k: kernels.COUNTS[k].plain_calls for k in before} == before
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (csrc/mamba2_ssd_bwd.cu, csrc/rwkv6_scan_bwd.cu)
+# ---------------------------------------------------------------------------
+def _rows16(x):
+    """Sum over dim -2 as the kernels' column partials take it: thread row g
+    of the 16 x 16 grid adds rows g, g + 16, ... in order, then the 16
+    partials are added in order g = 0..15."""
+    c = x.shape[-2]
+    part = []
+    for g in range(16):
+        acc = torch.zeros_like(x[..., 0, :])
+        for t in range(g, c, 16):
+            acc = acc + x[..., t, :]
+        part.append(acc)
+    out = part[0]
+    for g in range(1, 16):
+        out = out + part[g]
+    return out
+
+
+def ssd_bwd_schedule(x, dt, A, Bm, C, states, dy, ds_out=None, chunk=64):
+    """``mamba2_ssd_bwd``'s schedule, vectorised over its (head, batch)
+    blocks: each block walks its chunks in reverse from dS = ds_out, reading
+    the chunk's entering state from ``states`` (B, H, nc, P, N). cum and D
+    (the sums of dt.A and of dt) in row order, one thread; C.B^T and dy.x^T
+    per chunk, G, d(C.B^T), the row sums of Q and the column sums of R in
+    16 row partials; dx, dC (with the inter-chunk term), dB and w's
+    cotangent (with the state's terms); the state's cotangent; then one
+    thread walks the rows in reverse for ddt and dA's terms. Returns the
+    kernel's outputs: dx, ddt, dA per (batch, head), dB and dC per (batch,
+    time, head) (the heads not yet summed) and dstate."""
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    c = ref.scan_chunk("mamba2_ssd_bwd", T, chunk)
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf, dyf, dtf, Bf, Cf = (t.to(ct) for t in (x, dy, dt, Bm, C))
+    a = A.to(ct)[None, :]
+    dS = (torch.zeros(B, H, P, N, dtype=ct) if ds_out is None
+          else ds_out.to(ct).clone())
+    dx, dBp, dCp = (torch.empty(B, T, H, d, dtype=ct) for d in (P, N, N))
+    ddt = torch.empty(B, T, H, dtype=ct)
+    dA = torch.zeros(B, H, dtype=ct)
+    idx = torch.arange(c)
+    lower = idx[:, None] >= idx[None, :]
+    zero = torch.zeros((), dtype=ct)
+    for ci in reversed(range(T // c)):
+        t0 = ci * c
+        xs, dys = (t[:, t0:t0 + c].permute(0, 2, 1, 3) for t in (xf, dyf))
+        dts = dtf[:, t0:t0 + c].permute(0, 2, 1)                   # (B, H, c)
+        Bs, Cs = Bf[:, None, t0:t0 + c], Cf[:, None, t0:t0 + c]
+        S0 = states[:, :, ci].to(ct)
+        cum, D = torch.empty_like(dts), torch.empty_like(dts)
+        run, rd = torch.zeros(B, H, dtype=ct), torch.zeros(B, H, dtype=ct)
+        for t in range(c):
+            run = run + dts[..., t] * a
+            rd = rd + dts[..., t]
+            cum[..., t], D[..., t] = run, rd
+        total = cum[..., c - 1]
+        ex = torch.exp(torch.clamp(total[..., None] - cum, max=0.0))
+        wt = dts * ex
+        L = torch.where(lower, torch.exp(torch.clamp(
+            cum[..., :, None] - cum[..., None, :], max=0.0)), zero)
+        CB = Cs @ Bs.transpose(-1, -2)
+        dG = dys @ xs.transpose(-1, -2)
+        G = CB * L * dts[..., None, :]
+        dCB = dG * L * dts[..., None, :]
+        R = dG * CB * L
+        Q = R * dts[..., None, :]
+        rowQ, colR = Q.sum(-1), _rows16(R)
+        dAq = (Q * (D[..., :, None] - D[..., None, :])).sum((-2, -1))
+        dxc = G.transpose(-1, -2) @ dys + wt[..., None] * (Bs @ dS.transpose(-1, -2))
+        dyS = dys @ S0
+        e = torch.exp(cum)
+        dCc = dCB @ Bs + e[..., None] * dyS
+        dcumI = e * (Cs * dyS).sum(-1)
+        xdS = xs @ dS
+        dBc = dCB.transpose(-1, -2) @ Cs + wt[..., None] * xdS
+        dwt = (Bs * xdS).sum(-1)
+        dtot = torch.exp(total) * (dS * S0).sum((-2, -1))
+        dS = torch.exp(total)[..., None, None] * dS + (
+            e[..., None] * dys).transpose(-1, -2) @ Cs
+        swd = torch.zeros(B, H, dtype=ct)
+        for s in range(c):
+            swd = swd + wt[..., s] * dwt[..., s]
+        run, dAs = torch.zeros(B, H, dtype=ct), torch.zeros(B, H, dtype=ct)
+        ddtc = torch.empty_like(dts)
+        for s in reversed(range(c)):
+            dc = (rowQ[..., s] - dts[..., s] * colR[..., s] + dcumI[..., s]
+                  - wt[..., s] * dwt[..., s])
+            if s == c - 1:
+                dc = dc + dtot + swd
+            run = run + dc
+            ddtc[..., s] = colR[..., s] + ex[..., s] * dwt[..., s] + a * run
+            dAs = dAs + dcumI[..., s] * D[..., s] + wt[..., s] * dwt[..., s] * (
+                D[..., c - 1] - D[..., s])
+        dA = dA + dAq + dAs + dtot * D[..., c - 1]
+        dx[:, t0:t0 + c] = dxc.permute(0, 2, 1, 3)
+        ddt[:, t0:t0 + c] = ddtc.permute(0, 2, 1)
+        dBp[:, t0:t0 + c], dCp[:, t0:t0 + c] = (t.permute(0, 2, 1, 3) for t in (dBc, dCc))
+    return dx.to(x.dtype), ddt, dA, dBp, dCp, dS
+
+
+def rwkv_bwd_schedule(r, k, v, w, u, states, do, ds_out=None, chunk=64):
+    """``rwkv6_scan_bwd``'s schedule, vectorised over its (head, batch)
+    blocks: each block walks its chunks in reverse from dS = ds_out, reading
+    the chunk's entering state from ``states`` (B, H, nc, K, V). The
+    log-decays' sums down each key column in row order and ce = cum - ld;
+    dA = do.v^T and A (the gate's exponentials pair by pair); dv; du's
+    diagonal terms in row order; dr and ce's cotangent; dk and cum's
+    cotangent, the column sums of Y in 16 row partials; the state's
+    cotangent; then one thread a key column walks the rows in reverse for
+    dw. Returns the kernel's outputs: dr, dk, dv, dw, du per (batch, head)
+    (not yet summed over the batch) and dstate."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    c = ref.scan_chunk("rwkv6_scan_bwd", T, chunk)
+    ct = torch.promote_types(r.dtype, torch.float32)
+    rf, kf, vf, wf, dof = (t.to(ct) for t in (r, k, v, w, do))
+    uf = u.to(ct)[None, :, None, :]
+    dS = (torch.zeros(B, H, K, V, dtype=ct) if ds_out is None
+          else ds_out.to(ct).clone())
+    dr, dk, dw = (torch.empty(B, T, H, K, dtype=ct) for _ in range(3))
+    dv = torch.empty(B, T, H, V, dtype=ct)
+    du = torch.zeros(B, H, K, dtype=ct)
+    idx = torch.arange(c)
+    strict = idx[:, None] > idx[None, :]
+    lower = idx[:, None] >= idx[None, :]
+    zero = torch.zeros((), dtype=ct)
+    for ci in reversed(range(T // c)):
+        t0 = ci * c
+        rs, ks, ws, vs, dos = (t[:, t0:t0 + c].permute(0, 2, 1, 3)
+                               for t in (rf, kf, wf, vf, dof))
+        S0 = states[:, :, ci].to(ct)
+        ld = -torch.exp(ws)
+        cum = torch.empty_like(ld)
+        run = torch.zeros(B, H, K, dtype=ct)
+        for t in range(c):
+            run = run + ld[..., t, :]
+            cum[..., t, :] = run
+        ce = cum - ld
+        total = cum[..., c - 1, :]
+        ex = torch.exp(torch.clamp(total[..., None, :] - cum, max=0.0))
+        dAm = torch.where(lower, dos @ vs.transpose(-1, -2), zero)
+        dAd = torch.diagonal(dAm, dim1=-2, dim2=-1)
+        gate = torch.where(strict[..., None], torch.exp(torch.clamp(
+            ce[..., :, None, :] - cum[..., None, :, :], max=0.0)), zero)
+        Am = torch.einsum("bhtk,bhsk,bhtsk->bhts", rs, ks, gate)
+        Am = Am + torch.diag_embed((rs * uf * ks).sum(-1))
+        dvc = Am.transpose(-1, -2) @ dos + (ks * ex) @ dS
+        for t in range(c):
+            du = du + dAd[..., t, None] * rs[..., t, :] * ks[..., t, :]
+        dAs = torch.where(strict, dAm, zero)
+        dr_g = torch.einsum("bhts,bhsk,bhtsk->bhtk", dAs, ks, gate)
+        ece = torch.exp(ce)
+        doS = dos @ S0.transpose(-1, -2)
+        drc = dAd[..., None] * uf * ks + dr_g + ece * doS
+        dce = rs * dr_g + rs * ece * doS
+        dk_g = torch.einsum("bhts,bhtk,bhtsk->bhsk", dAs, rs, gate)
+        dks = vs @ dS.transpose(-1, -2)
+        dkc = dAd[..., None] * uf * rs + dk_g + ex * dks
+        Y = ks * ex * dks
+        dcum = -ks * dk_g - Y
+        dtot = torch.exp(total) * (dS * S0).sum(-1) + _rows16(Y)
+        dS = torch.exp(total)[..., None] * dS + (rs * ece).transpose(-1, -2) @ dos
+        run_c, run_e = torch.zeros(B, H, K, dtype=ct), torch.zeros(B, H, K, dtype=ct)
+        dwc = torch.empty_like(ld)
+        for s in reversed(range(c)):
+            run_c = run_c + dcum[..., s, :] + (dtot if s == c - 1 else 0)
+            dwc[..., s, :] = (run_c + run_e) * ld[..., s, :]
+            run_e = run_e + dce[..., s, :]
+        for out, val in ((dr, drc), (dk, dkc), (dv, dvc), (dw, dwc)):
+            out[:, t0:t0 + c] = val.permute(0, 2, 1, 3)
+    return dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du, dS
+
+
+def ssd_states(x, dt, A, Bm, C, state, chunk=64):
+    """The state entering each chunk, (B, H, nc, P, N), as the training
+    forward writes it: the plain version run chunk by chunk."""
+    c = ref.scan_chunk("mamba2_ssd", x.shape[1], chunk)
+    out, s = [], state
+    for t0 in range(0, x.shape[1], c):
+        out.append(s)
+        sl = slice(t0, t0 + c)
+        _, s = ref.mamba2_ssd_chunked(x[:, sl], dt[:, sl], A, Bm[:, sl], C[:, sl], s, chunk=c)
+    return torch.stack(out, dim=2)
+
+
+def rwkv_states(r, k, v, w, u, state, chunk=64):
+    c = ref.scan_chunk("rwkv6_scan", r.shape[1], chunk)
+    out, s = [], state
+    for t0 in range(0, r.shape[1], c):
+        out.append(s)
+        sl = slice(t0, t0 + c)
+        _, s = ref.rwkv6_chunked(r[:, sl], k[:, sl], v[:, sl], w[:, sl], u, s, chunk=c)
+    return torch.stack(out, dim=2)
+
+
+def bwd_args(kernel, seed, B, T, H, d1, d2, dtype=torch.float32, w_mean=-0.5):
+    """A scan's inputs, the output's cotangent and the final state's, drawn
+    with numpy from the distributions of ``chip_smoke.scan_bwd_inputs``."""
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))  # noqa: E731
+    if kernel == "mamba2_ssd":
+        args = [f(B, T, H, d1).to(dtype), torch.nn.functional.softplus(f(B, T, H)),
+                -torch.linspace(1.0, 16.0, H), f(B, T, d2).to(dtype), f(B, T, d2).to(dtype),
+                0.1 * f(B, H, d1, d2)]
+        return args, f(B, T, H, d1).to(dtype), f(B, H, d1, d2)
+    args = [f(B, T, H, d1).to(dtype), f(B, T, H, d1).to(dtype), f(B, T, H, d2).to(dtype),
+            w_mean + 0.5 * f(B, T, H, d1), (0.1 * f(H, d1)).to(dtype), 0.1 * f(B, H, d1, d2)]
+    return args, f(B, T, H, d2).to(dtype), f(B, H, d1, d2)
+
+
+BWD = {"mamba2_ssd": (ssd_bwd_schedule, ssd_states, ref.mamba2_ssd_bwd_ref),
+       "rwkv6_scan": (rwkv_bwd_schedule, rwkv_states, ref.rwkv6_scan_bwd_ref)}
+
+
+def bwd_sums(kernel, outs):
+    """The wrapper's sums of the kernel's partials: dA over the batch, dB
+    and dC over the heads; du over the batch."""
+    if kernel == "mamba2_ssd":
+        dx, ddt, dA, dB, dC, ds = outs
+        return dx, ddt, dA.sum(0), dB.sum(2), dC.sum(2), ds
+    dr, dk, dv, dw, du, ds = outs
+    return dr, dk, dv, dw, du.sum(0), ds
+
+
+BWD_CASES = [
+    # kernel, B, T, H, P or K, N or V: several chunks, one ragged chunk of
+    # 40 with dims 20 and 72, one chunk of 64
+    ("mamba2_ssd", 2, 192, 3, 16, 24), ("mamba2_ssd", 1, 40, 2, 20, 72),
+    ("mamba2_ssd", 2, 64, 2, 72, 20), ("rwkv6_scan", 2, 192, 3, 16, 24),
+    ("rwkv6_scan", 1, 40, 2, 20, 72), ("rwkv6_scan", 2, 64, 2, 72, 20),
+]
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("kernel,B,T,H,d1,d2", BWD_CASES)
+def test_bwd_schedule_matches_the_plain_backward_in_float64(kernel, B, T, H, d1, d2,
+                                                            with_state):
+    """In float64 the schedule (its order of sums, its partials, its dA
+    terms) and the plain backward are the same math: 1e-10 of each
+    gradient's largest value."""
+    schedule, states, plain = BWD[kernel]
+    args, dout, ds = bwd_args(kernel, T + d1, B, T, H, d1, d2)
+    args = [a.double() for a in args]
+    if not with_state:
+        args[5] = torch.zeros_like(args[5])
+    dout, ds = dout.double(), (ds.double() if with_state else None)
+    got = bwd_sums(kernel, schedule(*args[:5], states(*args), dout, ds))
+    want = plain(*args, dout, ds)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-10 * w.abs().max().item())
+
+
+@pytest.mark.parametrize("kernel,B,T,H,d1,d2,w_mean",
+                         [c + (-0.5,) for c in BWD_CASES[:2]]
+                         + [c + (w,) for c in BWD_CASES[3:5] for w in W_MEANS])
+def test_bwd_schedule_meets_the_card_criterion(kernel, B, T, H, d1, d2, w_mean):
+    """In float32, and with bf16 inputs, the schedule meets the criteria
+    chip_smoke.py holds the kernels to against a float64 run of the plain
+    backward (``chip_smoke.scan_bwd_errors``); rwkv6 also at its strong and
+    slow decays."""
+    schedule, states, plain = BWD[kernel]
+    for dtype in (torch.float32, BF16):
+        args, dout, ds = bwd_args(kernel, T + d1, B, T, H, d1, d2, dtype, w_mean)
+        got = bwd_sums(kernel, schedule(*args[:5], states(*args), dout, ds))
+        want = plain(*(a.double() for a in args), dout.double(), ds.double())
+        worst = chip_smoke.scan_bwd_errors(kernel, got, want, args)
+        assert all(e <= chip_smoke.SCAN_BWD_TOL[kind] for kind, e in worst.items()), worst
+
+
+def test_bwd_partials_are_summed_in_one_order():
+    """The partials (dA per batch row, du per batch row, dB and dC per
+    head) come out of the blocks before any sum: two runs give the same
+    bits, and the sums over them are the wrapper's."""
+    for kernel, case in (("mamba2_ssd", BWD_CASES[0]), ("rwkv6_scan", BWD_CASES[3])):
+        schedule, states, _ = BWD[kernel]
+        args, dout, ds = bwd_args(kernel, 3, *case[1:])
+        runs = [schedule(*args[:5], states(*args), dout, ds) for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        part = runs[0][2] if kernel == "mamba2_ssd" else runs[0][4]
+        assert part.shape[:2] == (case[1], case[3])
 
 
 if __name__ == "__main__":

@@ -10,17 +10,19 @@ smoke configs run in float32. Checked:
   1, 2 and 4, S in {1, 17, 64}, D in {16, 64, 96}: within 1e-5 (float32
   sums in another order). ``FlashAttention``'s plumbing (saved output,
   a non-contiguous output gradient) on CPU tensors.
-- ``loss_fn`` and every gradient leaf of four families (llama3: dense,
-  olmoe: moe, pixtral: vlm, whisper: encdec), with and without remat: the
-  loss within 1e-5 relative, each gradient leaf within 1e-4 of its norm,
-  layer by layer against the reference's stacked leaves.
+- ``loss_fn`` and every gradient leaf of six families (llama3: dense,
+  olmoe: moe, pixtral: vlm, whisper: encdec, zamba2: hybrid, rwkv6: ssm;
+  the last two at S = 128, two chunks of their scans), with and without
+  remat: the loss within 1e-5 relative, each gradient leaf within 1e-4 of
+  its norm, layer by layer against the reference's stacked leaves.
 - ``lr_schedule``, ``clip_by_global_norm`` and ``adamw_update`` on the same
   numpy trees (1e-6 relative: float32 in both); ``compress`` with ``topk``
   (ties planted at the threshold) and ``int8`` over three steps of error
   feedback, the port's per-layer tensors grouped as the reference's stacked
   leaves (1e-6); ``TokenPipeline.batch_at`` array-equal.
-- Three whole train steps against ``jax.jit(make_train_step)``, microbatch
-  {0, 2} x compression {none, topk, int8}: loss and ``grad_norm`` within
+- Three whole train steps against ``jax.jit(make_train_step)``, llama3's
+  smoke config with microbatch {0, 2} x compression {none, topk, int8},
+  zamba2's and rwkv6's without either: loss and ``grad_norm`` within
   1e-4 relative, every parameter within 1e-4 absolute. With int8
   compression a gradient value within float32 noise of a rounding boundary
   can round to the neighbouring level in one package only, and Adam's
@@ -37,8 +39,7 @@ smoke configs run in float32. Checked:
   reference-written checkpoint restores in the port, a port-written one in
   the reference, and both write the same manifest and shard payloads.
 - ``launch.train.main`` on the CPU, then ``--resume``; ``refuse_grad``;
-  ``train_state_specs`` on ``meta``; the ssm and hybrid families' ``loss``
-  refusing.
+  ``train_state_specs`` on ``meta``.
 """
 import json
 import os
@@ -63,9 +64,11 @@ from repro.training.train_loop import make_train_step as jax_make_step
 from repro_torch import compression
 from repro_torch.config import TrainConfig
 from repro_torch.configs import get_smoke_config
-from repro_torch.convert import (train_state_from_numpy,
+from repro_torch.convert import (rwkv6_params_from_numpy,
+                                 train_state_from_numpy,
                                  transformer_params_from_numpy,
-                                 whisper_params_from_numpy)
+                                 whisper_params_from_numpy,
+                                 zamba2_params_from_numpy)
 from repro_torch.core import codec
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.kernels import _build, ref
@@ -110,9 +113,13 @@ def _cfgs(arch):
             get_smoke_config(arch).replace(**F32))
 
 
+CONVERTERS = {"encdec": whisper_params_from_numpy,
+              "hybrid": zamba2_params_from_numpy,
+              "ssm": rwkv6_params_from_numpy}
+
+
 def _convert(jparams, tc):
-    conv = (whisper_params_from_numpy if tc.family == "encdec"
-            else transformer_params_from_numpy)
+    conv = CONVERTERS.get(tc.family, transformer_params_from_numpy)
     return conv(jax.tree.map(np.asarray, jparams), tc, device="cpu")
 
 
@@ -183,10 +190,15 @@ def test_flash_attention_function_on_cpu_tensors(dtype):
 # losses and gradients of four families
 # ---------------------------------------------------------------------------
 FAMILIES = {"dense": "llama3_8b", "moe": "olmoe_1b_7b", "vlm": "pixtral_12b",
-            "encdec": "whisper_base"}
+            "encdec": "whisper_base", "hybrid": "zamba2_7b",
+            "ssm": "rwkv6_1b6"}
+# the scan families take two chunks of 64, so the chunk carry is exercised
+SCAN_FAMILIES = ("hybrid", "ssm")
 
 
 def _train_batch(tc, rng, B=2, S=16):
+    if tc.family in SCAN_FAMILIES:
+        S = 128
     b = {"tokens": rng.integers(3, tc.vocab_size, size=(B, S)).astype(np.int32),
          "labels": rng.integers(3, tc.vocab_size, size=(B, S)).astype(np.int32)}
     if tc.family == "vlm":
@@ -227,13 +239,6 @@ def test_loss_and_gradients_match_jax(family, remat):
         assert g.shape == want.shape, path
         tol = 1e-4 * np.linalg.norm(want)
         assert np.abs(g.numpy() - want).max() <= tol, path
-
-
-@pytest.mark.parametrize("arch", ["zamba2_7b", "rwkv6_1b6"])
-def test_loss_of_the_scan_families_refuses(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg).loss({}, {})
 
 
 # ---------------------------------------------------------------------------
@@ -355,10 +360,15 @@ def test_token_pipeline_batches_equal_the_reference(seed, corpus):
 # ---------------------------------------------------------------------------
 # whole train steps against jax.jit(make_train_step)
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("compress", ["none", "topk", "int8"])
-@pytest.mark.parametrize("microbatch", [0, 2])
-def test_train_steps_match_jax(microbatch, compress):
-    jc, tc = _cfgs("llama3_8b")
+STEP_CASES = [pytest.param("llama3_8b", mb, comp, id=f"{mb}-{comp}")
+              for comp in ("none", "topk", "int8") for mb in (0, 2)] + [
+    pytest.param(arch, 0, "none", id=arch)
+    for arch in ("zamba2_7b", "rwkv6_1b6")]
+
+
+@pytest.mark.parametrize("arch,microbatch,compress", STEP_CASES)
+def test_train_steps_match_jax(arch, microbatch, compress):
+    jc, tc = _cfgs(arch)
     kw = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10,
               microbatch_size=microbatch, grad_compression=compress)
     jt, tt = JaxTrainConfig(**kw), TrainConfig(**kw)
