@@ -37,12 +37,16 @@ Phases, each printed on its own line; any failed check exits nonzero:
               against their plain versions run in float64 at
               ``SCAN_BWD_ROWS``: zamba2's and rwkv6's training shapes (bf16),
               train_parity's smoke shapes (f32), one ragged chunk of 40 with
-              dims 20 and 72, rwkv6 at K = V = 128 (working sets in global
-              scratch); nonzero initial states and final-state cotangents,
+              dims 20 and 72, rwkv6 at K = V = 128 in bf16 and in f32
+              (working sets in global scratch; the f32 forward's state in
+              global memory there), rwkv6's strong and slow decays; nonzero
+              initial states and final-state cotangents,
               the chunk states from the forward kernel's training launch
               (output equal to the inference launch's); each kind of output
               within ``SCAN_BWD_TOL`` (``scan_bwd_errors``); two calls
-              bitwise equal, one call one launch of the kernel.
+              bitwise equal, one call one launch of the kernel. ``rwkv6_scan``
+              also in f32 at 2x128x4x128x128, where the kernel carries its
+              state in global memory.
   4. slice    the memory system's path through ``repro_torch.MemForestSystem``
               with its hashing encoder: ``ingest_batch`` of 500 sessions (about
               20k turns, 13k tree nodes) in batches of 16, then ``query_batch``
@@ -241,6 +245,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -970,13 +975,13 @@ def check_kernels(torch, peaks, seed: int):
                   ssd_flops(B, T, H, P, N, c), main, dt,
                   SCAN_SIGNED["mamba2_ssd"])
 
-    def rwkv_case(B, T, H, K, V, chunk, dt, main, what, w_mean=-0.5):
-        r, k = (torch.randn(B, T, H, K, generator=g, device=dev).to(dt)
+    def rwkv_case(B, T, H, K, V, chunk, dt, main, what, w_mean=-0.5, gen=g):
+        r, k = (torch.randn(B, T, H, K, generator=gen, device=dev).to(dt)
                 for _ in range(2))
-        v = torch.randn(B, T, H, V, generator=g, device=dev).to(dt)
-        w = w_mean + 0.5 * torch.randn(B, T, H, K, generator=g, device=dev)
-        u = (0.1 * torch.randn(H, K, generator=g, device=dev)).to(dt)
-        s0 = 0.1 * torch.randn(B, H, K, V, generator=g, device=dev)
+        v = torch.randn(B, T, H, V, generator=gen, device=dev).to(dt)
+        w = w_mean + 0.5 * torch.randn(B, T, H, K, generator=gen, device=dev)
+        u = (0.1 * torch.randn(H, K, generator=gen, device=dev)).to(dt)
+        s0 = 0.1 * torch.randn(B, H, K, V, generator=gen, device=dev)
         c = min(chunk, T)
         elem = r.element_size()
         nbytes = (2 * B * T * H * K + 2 * B * T * H * V + H * K) * elem \
@@ -1033,6 +1038,11 @@ def check_kernels(torch, peaks, seed: int):
               w_mean=1.5)
     rwkv_case(8, 128, 32, 64, 64, 64, bf16, False, "slow decay w~N(-6,0.5)",
               w_mean=-6.0)
+    # float32 at K = V = 128: 247 KB of shared memory with the state, past
+    # 227 KB, so the kernel carries the state in global memory (the final
+    # state's output); drawn from g_new
+    rwkv_case(2, 128, 4, 128, 128, 64, f32, False, "state in global memory",
+              gen=g_new)
     # one call of each bf16 scan at its main shape is one device launch
     x = torch.randn(8, 128, 112, 64, generator=g, device=dev).to(bf16)
     dts = F.softplus(torch.randn(8, 128, 112, generator=g, device=dev))
@@ -1248,11 +1258,14 @@ def check_attention_bwd(torch, peaks, seed: int):
 # kernel is its train phase's shape, the smoke rows train_parity's
 # (zamba2-smoke: 8 SSD heads of 16, N = 16; rwkv6-smoke: 4 heads of 16),
 # the ragged rows one chunk of 40 with dims 20 and 72 (the bf16 forward
-# pads 20 to 24 and trims the chunk states back). rwkv6's row at K = V =
-# 128 takes the working sets from global scratch (270 KB do not fit in
-# shared memory), in bf16 since the f32 forward kernel would need 247 KB of
-# shared memory there, past 227 KB; its last two rows are the forward's
-# strong and slow decays.
+# pads 20 to 24 and trims the chunk states back). rwkv6's rows at K = V =
+# 128 take the working sets from global scratch (in f32 270 KB do not fit
+# in shared memory; in bf16 the log-decay sums and the exchange tiles), and
+# the f32 forward carries its state in global memory there (247 KB); then
+# the forward's strong and slow decays. The f32 row at K = V = 128 and
+# mamba2's bf16 row at P = N = 128 (one stage of copies, S0 from global
+# memory, no cluster: the bf16 kernel's form for the widest dims) come
+# last, so the rows before them draw the inputs they drew without them.
 SCAN_BWD_ROWS = (
     ("mamba2_ssd", 8, 512, 112, 64, 64, "bf16", True, "zamba2 train", None),
     ("mamba2_ssd", 4, 128, 8, 16, 16, "f32", True, "smoke", None),
@@ -1266,6 +1279,9 @@ SCAN_BWD_ROWS = (
      -0.5),
     ("rwkv6_scan", 2, 128, 32, 64, 64, "bf16", False, "strong decay", 1.5),
     ("rwkv6_scan", 2, 128, 32, 64, 64, "bf16", False, "slow decay", -6.0),
+    ("rwkv6_scan", 2, 128, 4, 128, 128, "f32", False, "global working set",
+     -0.5),
+    ("mamba2_ssd", 2, 128, 4, 128, 128, "bf16", False, "P=N=128", None),
 )
 
 
@@ -1322,10 +1338,15 @@ def scan_bwd_cost(kernel, B, T, H, d1, d2, elem, peaks, op):
     nbytes = (3 * B * T * H * K + 3 * B * T * H * V + 2 * H * K) * elem \
         + 2 * B * T * H * K * 4 + B * H * nc * K * V * 4 + 2 * B * H * K * V * 4
     # per (batch, head, chunk): dA and A.do^T over the lower triangle, the
-    # gate's three sweeps (A, dr, dk: three operations a pair and key), and
-    # the four K x V products (k'.dS, do.S0^T, v.dS^T, the dS update)
+    # gate's three terms (A, dr, dk: three operations a pair and key), and
+    # the four K x V products (k'.dS, do.S0^T, v.dS^T, the dS update); the
+    # gate's exponentials: the pairs of the diagonal 16 x 16 blocks once,
+    # and below them per-element factors of r and k (about 4 C K), as the
+    # sub-chunk form needs them
     prods = B * H * nc * (4 * tri * V + 9 * strict * K + 8 * C * K * V)
-    exps = B * H * nc * 3 * strict * K
+    sub = 16
+    diag = -(-C // sub) * sub * (sub - 1) // 2
+    exps = B * H * nc * (diag * K + 4 * C * K)
     if exps / peaks["fp32"] > prods / peaks[op]:
         return nbytes, exps, "fp32"
     return nbytes, prods, op
@@ -1348,10 +1369,10 @@ def check_scan_bwd(torch, peaks, seed: int):
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
     mods = {"mamba2_ssd": (M, M.mamba2_ssd, M.mamba2_ssd_bwd,
                            ref.mamba2_ssd_chunked, ref.mamba2_ssd_bwd_ref,
-                           "ssd_bwd_kernel"),
+                           "ssd_bwd_bf16_kernel"),
             "rwkv6_scan": (R, R.rwkv6_scan, R.rwkv6_scan_bwd,
                            ref.rwkv6_chunked, ref.rwkv6_scan_bwd_ref,
-                           "wkv_bwd_kernel")}
+                           "wkv_bwd_bf16_kernel")}
     types = {"bf16": torch.bfloat16, "f32": torch.float32}
     ops = {"bf16": "bf16", "f32": "fp32"}
     results, mains = {}, {}
@@ -3838,9 +3859,9 @@ TRAIN_RUNS = {
 # device kernels of each family's train step, by the name they run under
 TRAIN_DEVICE_KERNELS = {
     "dense": ("flash_attention_tc", "bwd_dq_tc", "bwd_dkv_tc"),
-    "hybrid": ("ssd_bf16_kernel", "ssd_bwd_kernel", "flash_attention_tc",
+    "hybrid": ("ssd_bf16_kernel", "ssd_bwd_bf16_kernel", "flash_attention_tc",
                "bwd_dq_tc", "bwd_dkv_tc"),
-    "ssm": ("wkv_bf16_kernel", "wkv_bwd_kernel"),
+    "ssm": ("wkv_bf16_kernel", "wkv_bwd_bf16_kernel"),
 }
 
 
@@ -4148,6 +4169,22 @@ def roofline_line(phase, cfg, batch, context, ms_per_step) -> None:
           f"measured_over_memory={ms_per_step / memory_ms:.2f}", flush=True)
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name, which
+    nests it in one (anonymous) namespace: ``ssd_bwd_bf16_kernel<Li1>``."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled[:72]
+    pos = m.end() + int(m.group(1))
+    n = re.match(r"\d+", mangled[pos:])
+    if not n:
+        return mangled[:72]
+    start = pos + n.end()
+    name = mangled[start:start + int(n.group())]
+    targs = re.match(r"I(.*?)E(?=E)", mangled[start + int(n.group()):])
+    return name + (f"<{targs.group(1)}>" if targs else "")
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -4219,7 +4256,12 @@ def main() -> int:
 
     # 2. build --------------------------------------------------------------
     lib = _build.library()
-    regs = [ln.strip() for ln in lib.ptxas.splitlines() if "registers" in ln]
+    regs, entry = [], ""
+    for ln in lib.ptxas.splitlines():          # each kernel's registers and spills
+        if "Compiling entry function" in ln:
+            entry = kernel_name(ln.split("'")[1] if "'" in ln else ln.strip())
+        elif "registers" in ln or "spill" in ln:
+            regs.append(f"{entry}: {ln.strip()}")
     print(f"build: {' '.join(p.name for p in lib.paths)} "
           f"nvcc_s={lib.build_s:.2f}", flush=True)
     for ln in regs:

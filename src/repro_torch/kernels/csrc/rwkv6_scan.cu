@@ -79,7 +79,11 @@
 // phases). The Pallas grid walks (batch, head, chunk) with the chunk axis in
 // sequence and materialises the (C, C, K) gate, a 1 MB VMEM tile. Here one
 // block owns one (head, batch) and a loop inside it walks the chunks in
-// order; the (K, V) state stays in shared memory for the whole scan. Per
+// order; the (K, V) state stays in shared memory for the whole scan, or,
+// where the working set would pass 227 KB (K = V = 128 at a chunk of 64:
+// 247 KB), in the final state's output in global memory, one state a block
+// (read and written in place through L1 and L2; the wrapper's
+// fwd_state_in_global mirrors the choice). Per
 // chunk: one thread per key column scans the log-decays; the 256 threads,
 // as a 16 x 16 grid each owning a 4 x 4 tile of (t, s), form A directly,
 // the gate's exponentials computed and summed in registers (the gate tensor
@@ -139,6 +143,13 @@ __device__ __forceinline__ void tile_mma(float (&acc)[4][4], const float* A, int
   }
 }
 
+constexpr int kMaxSmem = 227 * 1024;   // the most shared memory a block may take (H100)
+
+// Floats of the float32 kernel's shared memory: the carried (K, V) state,
+// then r, k and cum (chunk x (K + 1)), ce, v, A and the bonus. The wrapper's
+// ``fwd_smem_floats`` is the same count. Past kMaxSmem (K = V = 128: 247
+// KB) the state moves to global memory: it is carried in the final state's
+// output itself, one state a block, and shared memory holds the rest.
 size_t smem_floats(int K, int V, int chunk) {
   const size_t c = chunk, KP = K + 1;
   return static_cast<size_t>(K) * V + 3 * c * KP + c * K + c * V + c * c + K;
@@ -149,15 +160,17 @@ __global__ void __launch_bounds__(kThreads)
 rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
                   const float* __restrict__ w, const T* __restrict__ u,
                   const float* __restrict__ s_in, T* __restrict__ o,
-                  float* __restrict__ s_out, float* __restrict__ s_chunks, int Tn, int H,
-                  int K, int V, int chunk) {
+                  float* s_out, float* __restrict__ s_chunks, int Tn, int H,
+                  int K, int V, int chunk, bool state_in_global) {
   extern __shared__ __align__(16) float smem[];
   // At K = V = 64 and a chunk of 64 this is 28,928 floats (113 KB): two
   // blocks fit on one SM. A and ce are read two rows at a time by a warp
   // and left unpadded for that (a two-way bank conflict on those loads).
   const int KP = K + 1;                 // padded rows of r, k and cum
-  float* S = smem;                      // K x V, the carried state
-  float* rs = S + K * V;                // chunk x KP: r, then r * exp(ce)
+  const long state0 = (blockIdx.y * static_cast<long>(H) + blockIdx.x) * K * V;
+  // K x V, the carried state: in shared memory, or in s_out (global memory)
+  float* S = state_in_global ? s_out + state0 : smem;
+  float* rs = (state_in_global ? smem : smem + K * V);   // chunk x KP: r, then r * exp(ce)
   float* ks = rs + chunk * KP;          // chunk x KP: k, then the update's k
   float* cm = ks + chunk * KP;          // chunk x KP: -exp(w), then its sums
   float* ce = cm + chunk * KP;          // chunk x K: exclusive log-decay sums
@@ -170,7 +183,6 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __r
   const long b = blockIdx.y;
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
-  const long state0 = (b * H + h) * static_cast<long>(K) * V;
 
   for (int i = tid; i < K * V; i += kThreads) S[i] = s_in[state0 + i];
   for (int i = tid; i < K; i += kThreads) us[i] = to_f32(u[h * K + i]);
@@ -284,21 +296,25 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __r
       }
   }
   __syncthreads();
-  for (int i = tid; i < K * V; i += kThreads) s_out[state0 + i] = S[i];
+  if (!state_in_global)
+    for (int i = tid; i < K * V; i += kThreads) s_out[state0 + i] = S[i];
 }
 
 template <typename E>
 int launch(const void* r, const void* k, const void* v, const float* w, const void* u,
            const float* s_in, void* o, float* s_out, float* s_chunks, int B, int T, int H,
            int K, int V, int chunk, cudaStream_t stream) {
-  const size_t bytes = smem_floats(K, V, chunk) * sizeof(float);
+  size_t bytes = smem_floats(K, V, chunk) * sizeof(float);
+  const bool state_in_global = bytes > static_cast<size_t>(kMaxSmem);
+  if (state_in_global) bytes -= static_cast<size_t>(K) * V * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(rwkv6_scan_kernel<E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   rwkv6_scan_kernel<E><<<dim3(H, B), kThreads, bytes, stream>>>(
       static_cast<const E*>(r), static_cast<const E*>(k), static_cast<const E*>(v), w,
-      static_cast<const E*>(u), s_in, static_cast<E*>(o), s_out, s_chunks, T, H, K, V, chunk);
+      static_cast<const E*>(u), s_in, static_cast<E*>(o), s_out, s_chunks, T, H, K, V, chunk,
+      state_in_global);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,9 +21,12 @@ With grad enabled and an input that requires grad, the call goes through
 launches the same forward kernel, asking it for the state that enters each
 chunk, and its backward launches ``csrc/mamba2_ssd_bwd.cu``
 (``mamba2_ssd_bwd``), which reads those states and computes the gradient
-the reference gets by differentiating its jnp chunked scan. On CPU tensors
-the Function runs the plain forward and the plain backward
-(``ref.mamba2_ssd_bwd_ref``).
+the reference gets by differentiating its jnp chunked scan: in bf16 on the
+tensor cores (``mma.sync`` on three-term splits, dS in registers, the
+heads' dB and dC summed over a cluster of up to 8 heads in the launch; P
+and N zero-padded to a multiple of 8 where they are not), in float32 on the
+CUDA cores. On CPU tensors the Function runs the plain forward and the
+plain backward (``ref.mamba2_ssd_bwd_ref``).
 """
 from __future__ import annotations
 
@@ -154,6 +157,20 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return _run(*args, chunk)[:2]
 
 
+def ssd_bwd_cluster(H: int, P: int, N: int) -> int:
+    """Blocks of a cluster in the bf16 backward kernel (``bwd_cluster`` in
+    ``csrc/mamba2_ssd_bwd.cu``): neighbouring heads of one batch row, whose
+    dB and dC the cluster sums in head order, so the kernel writes (B, T,
+    H / cluster, N) partials. The largest divisor of H up to 8 where N,
+    padded to 8 and then 16, is at most 64 (the exchange holds one 64-column
+    pass), else 1. ``P`` and ``N`` are the dims the kernel gets (multiples
+    of 8)."""
+    Np = -(-N // 16) * 16
+    if Np > 64:
+        return 1
+    return next((c for c in range(8, 1, -1) if H % c == 0), 1)
+
+
 def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bm: torch.Tensor, C: torch.Tensor, state: torch.Tensor,
                    dy: torch.Tensor, ds_out=None, *, chunk: int = SCAN_CHUNK,
@@ -163,8 +180,9 @@ def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (zeros) -> (dx, ddt, dA, dB, dC, dstate), each in its input's type. On
     CUDA tensors one launch of ``csrc/mamba2_ssd_bwd.cu``, which reads
     ``states`` (B, H, T / chunk, P, N) float32, the state entering each
-    chunk as the training forward writes it; the heads' partial dB and dC
-    and the batch rows' partial dA are summed here. On CPU tensors
+    chunk as the training forward writes it; the partial dB and dC (one
+    per head in float32, one per cluster of heads in bf16:
+    ``ssd_bwd_cluster``) and the batch rows' partial dA are summed here. On CPU tensors
     ``mamba2_ssd_bwd_ref`` runs (it recomputes the states from
     ``state``)."""
     _check_shapes("mamba2_ssd_bwd", x, dt, A, Bm, C, state)
@@ -191,17 +209,31 @@ def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if _build.check_cuda_inputs("mamba2_ssd_bwd", dy,
                                 dtypes=(x.dtype,)) != dev:
         raise ValueError("mamba2_ssd_bwd: dy must lie on x's device")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:                    # 16-byte rows for the asynchronous copies
+        x, dy, Bm8, C8 = (_build.tma_ready(t) for t in (x, dy, Bm, C))
+        states = _build.tma_ready(states, 2)
+        if ds_out is not None:
+            ds_out = _build.tma_ready(ds_out, 2)
+    else:
+        Bm8, C8 = Bm, C
+    P8, N8 = x.shape[-1], Bm8.shape[-1]
+    cl = ssd_bwd_cluster(H, P8, N8) if bf16 else 1
     f = dict(dtype=torch.float32, device=dev)
-    dx, ddt, dstate = (torch.empty_like(t) for t in (x, dt, state))
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dstate = torch.empty((B, H, P8, N8), **f)
     dA_part = torch.empty((B, H), **f)
-    dB_part, dC_part = (torch.empty((B, T, H, N), **f) for _ in range(2))
+    dB_part, dC_part = (torch.empty((B, T, H // cl, N8), **f) for _ in range(2))
     _build.launch("mamba2_ssd_bwd", "memforest_mamba2_ssd_bwd", dev,
-                  x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                  C.data_ptr(), states.data_ptr(), dy.data_ptr(),
+                  x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm8.data_ptr(),
+                  C8.data_ptr(), states.data_ptr(), dy.data_ptr(),
                   None if ds_out is None else ds_out.data_ptr(),
                   dx.data_ptr(), ddt.data_ptr(), dA_part.data_ptr(),
                   dB_part.data_ptr(), dC_part.data_ptr(), dstate.data_ptr(),
-                  B, T, H, P, N, chunk, int(x.dtype == torch.bfloat16))
+                  B, T, H, P8, N8, chunk, int(bf16))
     BWD_COUNT.launched()
-    return (dx, ddt, dA_part.sum(dim=0), dB_part.sum(dim=2).to(Bm.dtype),
-            dC_part.sum(dim=2).to(C.dtype), dstate)
+    if P8 != P or N8 != N:
+        dx, dstate = dx[..., :P].contiguous(), dstate[..., :P, :N].contiguous()
+    return (dx, ddt, dA_part.sum(dim=0),
+            dB_part.sum(dim=2)[..., :N].to(Bm.dtype),
+            dC_part.sum(dim=2)[..., :N].to(C.dtype), dstate)

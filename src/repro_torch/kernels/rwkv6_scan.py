@@ -16,14 +16,20 @@ columns of V, batch), 64 only where K <= 64, as shared memory allows; K and
 V zero-padded to a multiple of 8 where they are not), float32 the
 CUDA-core kernel. Either launches or raises: nothing falls back.
 
+The float32 kernel keeps its (K, V) state in shared memory, or, where the
+whole working set would pass 227 KB (K = V = 128), in the final state's
+output in global memory (``fwd_state_in_global``).
+
 With grad enabled and an input that requires grad, the call goes through
 ``RWKV6Scan``, a ``torch.autograd.Function``. On CUDA tensors its forward
 launches the same forward kernel, asking it for the state that enters each
 chunk, and its backward launches ``csrc/rwkv6_scan_bwd.cu``
 (``rwkv6_scan_bwd``), which reads those states and computes the gradient
-the reference gets by differentiating its jnp chunked scan. On CPU tensors
-the Function runs the plain forward and the plain backward
-(``ref.rwkv6_scan_bwd_ref``).
+the reference gets by differentiating its jnp chunked scan: in bf16 on the
+tensor cores (16-token sub-chunks, ``mma.sync`` on three-term splits, dS in
+registers; K and V zero-padded to a multiple of 8 where they are not), in
+float32 on the CUDA cores. On CPU tensors the Function runs the plain
+forward and the plain backward (``ref.rwkv6_scan_bwd_ref``).
 """
 from __future__ import annotations
 
@@ -153,6 +159,22 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _run(*args, chunk)[:2]
 
 
+def fwd_smem_floats(K: int, V: int, chunk: int) -> int:
+    """Floats of shared memory the float32 forward kernel needs
+    (``smem_floats`` in ``csrc/rwkv6_scan.cu``): the carried (K, V) state,
+    r, k and the log-decay sums (chunk x (K + 1) each), ce (chunk x K), v
+    (chunk x V), A (chunk x chunk) and the bonus (K)."""
+    c = chunk
+    return K * V + 3 * c * (K + 1) + c * K + c * V + c * c + K
+
+
+def fwd_state_in_global(K: int, V: int, chunk: int) -> bool:
+    """Whether the float32 forward kernel carries its state in global memory
+    (the final state's output, one state a block) because the whole working
+    set would pass ``MAX_SMEM``: K = V = 128 at a chunk of 64 (247 KB)."""
+    return 4 * fwd_smem_floats(K, V, chunk) > MAX_SMEM
+
+
 def bwd_block_floats(K: int, V: int, chunk: int) -> int:
     """Floats of one block's working set in ``csrc/rwkv6_scan_bwd.cu``
     (``block_floats`` there): r, k, the inclusive and exclusive log-decay
@@ -163,10 +185,42 @@ def bwd_block_floats(K: int, V: int, chunk: int) -> int:
     return 5 * c * (K + 1) + 2 * c * (V + 1) + 2 * c * (c + 1) + 3 * K + 1024
 
 
-def bwd_scratch_floats(B: int, H: int, K: int, V: int, chunk: int) -> int:
-    """Floats of global scratch one ``rwkv6_scan_bwd`` call needs: 0 where a
-    block's working set fits in shared memory (K = V = 64: 150 KB), else
-    one working set per (head, batch) block. The C entry refuses less."""
+def bwd_tc_layout(K: int, V: int):
+    """(bytes of shared memory, w and S0 staged, the f32 tiles in shared
+    memory) of one block of the bf16 backward kernel (``BwdLayout`` in
+    ``csrc/rwkv6_scan_bwd.cu``), K and V multiples of 8: the chunk's r, k,
+    v and do, and where staged its w and S0 (f32); dS's three bf16 terms
+    and, where staged, S0's; u, dA's diagonal and its 16 x 16 blocks, the
+    key halves' A there, the per-key partials of dtotal; and where they fit
+    cum, ce and the exchange tiles (64 x (Kp + 4) f32 each). The first of
+    (staged, in shared memory), (not staged, in shared memory), (neither)
+    within ``MAX_SMEM``."""
+    Kp, Vp = -(-K // 16) * 16, -(-V // 16) * 16
+    KS, VS, WS, SV = Kp + 8, Vp + 8, Kp + 4, Vp + 4
+    for staged, f32_smem in ((True, True), (False, True), (False, False)):
+        n = 2 * 64 * KS * 2 + 2 * 64 * VS * 2
+        if staged:
+            n += 64 * WS * 4 + Kp * SV * 4
+        n += 3 * Kp * VS * 2 * (2 if staged else 1)
+        n += Kp * 4 + 64 * 4 + 4 * 256 * 4 + 8 * 256 * 4 + 2 * 4 * Kp * 4
+        if f32_smem:
+            n += 4 * 64 * WS * 4
+        if n <= MAX_SMEM:
+            break
+    return n, staged, f32_smem
+
+
+def bwd_scratch_floats(B: int, H: int, K: int, V: int, chunk: int,
+                       bf16: bool = False) -> int:
+    """Floats of global scratch one ``rwkv6_scan_bwd`` call needs. float32:
+    0 where a block's working set fits in shared memory (K = V = 64: 150
+    KB), else one working set per (head, batch) block. bf16 (``K``, ``V``
+    multiples of 8): 0 where shared memory holds the f32 tiles
+    (``bwd_tc_layout``), else, per block, cum, ce and dr's and dk's
+    diagonal gate terms (64 x (Kp + 4) each). The C entry refuses less."""
+    if bf16:
+        WS = -(-K // 16) * 16 + 4
+        return 0 if bwd_tc_layout(K, V)[2] else B * H * 4 * 64 * WS
     n = bwd_block_floats(K, V, chunk)
     return 0 if 4 * n <= MAX_SMEM else B * H * n
 
@@ -180,8 +234,9 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (zeros) -> (dr, dk, dv, dw, du, dstate), each in its input's type. On
     CUDA tensors one launch of ``csrc/rwkv6_scan_bwd.cu``, which reads
     ``states`` (B, H, T / chunk, K, V) float32, the state entering each
-    chunk as the training forward writes it; the batch rows' partial du
-    are summed here. On CPU tensors ``rwkv6_scan_bwd_ref`` runs (it
+    chunk as the training forward writes it (bf16: the inputs zero-padded
+    to K and V multiples of 8, the outputs cut back); the batch rows'
+    partial du are summed here. On CPU tensors ``rwkv6_scan_bwd_ref`` runs (it
     recomputes the states from ``state``)."""
     _check_shapes("rwkv6_scan_bwd", r, k, v, w, u, state)
     B, T, H, K = r.shape
@@ -207,10 +262,17 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _build.check_cuda_inputs("rwkv6_scan_bwd", do,
                                 dtypes=(r.dtype,)) != dev:
         raise ValueError("rwkv6_scan_bwd: do must lie on r's device")
-    dr, dk, dv, dw, dstate = (torch.empty_like(t)
-                              for t in (r, k, v, w, state))
-    du_part = torch.empty((B, H, K), dtype=torch.float32, device=dev)
-    n = bwd_scratch_floats(B, H, K, V, chunk)
+    bf16 = r.dtype == torch.bfloat16
+    if bf16:                    # 16-byte rows for the asynchronous copies
+        r, k, v, w, u, do = (_build.tma_ready(t) for t in (r, k, v, w, u, do))
+        states = _build.tma_ready(states, 2)
+        if ds_out is not None:
+            ds_out = _build.tma_ready(ds_out, 2)
+    K8, V8 = r.shape[-1], v.shape[-1]
+    dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
+    dstate = torch.empty((B, H, K8, V8), dtype=torch.float32, device=dev)
+    du_part = torch.empty((B, H, K8), dtype=torch.float32, device=dev)
+    n = bwd_scratch_floats(B, H, K8, V8, chunk, bf16)
     scratch = torch.empty(max(n, 1), dtype=torch.float32, device=dev)
     _build.launch("rwkv6_scan_bwd", "memforest_rwkv6_scan_bwd", dev,
                   r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
@@ -218,6 +280,10 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   None if ds_out is None else ds_out.data_ptr(),
                   dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
                   du_part.data_ptr(), dstate.data_ptr(), scratch.data_ptr(),
-                  n, B, T, H, K, V, chunk, int(r.dtype == torch.bfloat16))
+                  n, B, T, H, K8, V8, chunk, int(bf16))
     BWD_COUNT.launched()
+    if K8 != K or V8 != V:
+        dr, dk, dw = (t[..., :K].contiguous() for t in (dr, dk, dw))
+        dv, dstate = dv[..., :V].contiguous(), dstate[..., :K, :V].contiguous()
+        du_part = du_part[..., :K]
     return dr, dk, dv, dw, du_part.sum(dim=0).to(u.dtype), dstate

@@ -33,15 +33,19 @@ at the stress shape, where the earlier criterion is tighter than float32
 allows, and failing a one-term schedule. Inputs come from numpy with fixed
 seeds.
 
-The backward kernels (``csrc/mamba2_ssd_bwd.cu``, ``csrc/rwkv6_scan_bwd.cu``,
-f32 on the CUDA cores) are emulated block by block as well
-(``ssd_bwd_schedule``, ``rwkv_bwd_schedule``): the chunks in reverse from
-the forward's chunk states, the log-decay sums in row order, the column
-sums through 16 row partials, the per-block partials of dA, du, dB and dC
-that the wrappers sum, the reverse sums for ddt and dw. In float64 they
-equal the plain backward (1e-10: the same math in another order); in
-float32 and with bf16 inputs they meet ``chip_smoke.SCAN_BWD_TOL``
-against a float64 run, as the kernels must on the card.
+The backward kernels' bf16 paths (``csrc/mamba2_ssd_bwd.cu``,
+``csrc/rwkv6_scan_bwd.cu``: ``mma.sync`` on three-term splits) are emulated
+block by block as well (``ssd_bwd_schedule``, ``rwkv_bwd_schedule``): the
+chunks in reverse from the forward's chunk states, the log-decay sums in
+row order, the products on bf16 operands with the f32 ones split, mamba2's
+c x c products in the row form and again transposed in the column form,
+rwkv6's gate by 16-token sub-chunks (the diagonal blocks' exponentials pair
+by pair, the blocks below as products of rescaled r and k), the heads' dB
+and dC summed in head order over a cluster, du per batch row, the reverse
+sums for ddt and dw. In float64 they equal the plain backward (1e-10: the
+same math in another order, no splits); in float32 and with bf16 inputs
+they meet ``chip_smoke.SCAN_BWD_TOL`` against a float64 run, as the kernels
+must on the card; with one bf16 term they do not.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -54,6 +58,7 @@ from repro_torch.kernels import ref
 from repro_torch import kernels
 from repro_torch.kernels import ops
 from repro_torch.kernels._build import scan_slice, tma_ready
+from repro_torch.kernels.mamba2_ssd import ssd_bwd_cluster
 
 import chip_smoke
 
@@ -509,48 +514,57 @@ def test_scan_wrappers_never_fall_back_off_the_cpu(device, dtype):
 # ---------------------------------------------------------------------------
 # the backward kernels (csrc/mamba2_ssd_bwd.cu, csrc/rwkv6_scan_bwd.cu)
 # ---------------------------------------------------------------------------
-def _rows16(x):
-    """Sum over dim -2 as the kernels' column partials take it: thread row g
-    of the 16 x 16 grid adds rows g, g + 16, ... in order, then the 16
-    partials are added in order g = 0..15."""
-    c = x.shape[-2]
-    part = []
-    for g in range(16):
-        acc = torch.zeros_like(x[..., 0, :])
-        for t in range(g, c, 16):
-            acc = acc + x[..., t, :]
-        part.append(acc)
-    out = part[0]
-    for g in range(1, 16):
-        out = out + part[g]
+def bsplit(a, terms):
+    """An f32 operand the backward kernels split: ``split(a, terms)``; in
+    float64 (the schedule run as math, against the plain backward) the
+    operand as it is."""
+    return [a] if a.dtype == torch.float64 else split(a, terms)
+
+
+def mmf(a_terms, b_terms):
+    """``mm`` in the operands' type (float64 when the schedule runs as math)."""
+    out = 0
+    for i, a in enumerate(a_terms):
+        for j, b in enumerate(b_terms):
+            if i + j < 3:
+                out = out + a @ b
     return out
 
 
-def ssd_bwd_schedule(x, dt, A, Bm, C, states, dy, ds_out=None, chunk=64):
-    """``mamba2_ssd_bwd``'s schedule, vectorised over its (head, batch)
-    blocks: each block walks its chunks in reverse from dS = ds_out, reading
-    the chunk's entering state from ``states`` (B, H, nc, P, N). cum and D
-    (the sums of dt.A and of dt) in row order, one thread; C.B^T and dy.x^T
-    per chunk, G, d(C.B^T), the row sums of Q and the column sums of R in
-    16 row partials; dx, dC (with the inter-chunk term), dB and w's
-    cotangent (with the state's terms); the state's cotangent; then one
-    thread walks the rows in reverse for ddt and dA's terms. Returns the
-    kernel's outputs: dx, ddt, dA per (batch, head), dB and dC per (batch,
-    time, head) (the heads not yet summed) and dstate."""
+def ssd_bwd_schedule(x, dt, A, Bm, C, states, dy, ds_out=None, chunk=64, terms=3):
+    """``mamba2_ssd_bwd``'s bf16 schedule (``csrc/mamba2_ssd_bwd.cu``),
+    vectorised over its (head, batch) blocks: each block walks its chunks in
+    reverse from dS = ds_out, reading the chunk's entering state from
+    ``states`` (B, H, nc, P, N). cum and D (the sums of dt.A and of dt) in
+    row order, one thread. The row form (warps 0-3, rows t): C.B^T and
+    dy.x^T, Q, R's masked values, rowQ, dA's pair terms, dC = exp(cum) (dy.S0)
+    + d(C.B^T).B and the carried state's dcum term from dy.S0. The column
+    form (warps 4-7, rows s): B.C^T and x.dy^T computed again, transposed,
+    colR, dB = wt (x.dS) + d(C.B^T)^T.C with w's cotangent from x.dS, dx =
+    wt (B.dS^T) + G^T.dy. Every product on bf16 operands with f32 sums: x,
+    dy, B and C enter as they are, d(C.B^T), G^T, S0, dS and exp(cum) dy as
+    ``terms`` bf16 terms (as themselves in float64). Then the state's
+    cotangent and one thread walks the rows in reverse for ddt and dA's
+    terms. The heads' dB and dC are summed in head order over clusters of
+    ``ssd_bwd_cluster`` heads. Returns the kernel's outputs: dx, ddt, dA
+    per (batch, head), dB and dC per (batch, time, cluster) (the clusters
+    not yet summed) and dstate."""
     B, T, H, P = x.shape
     N = Bm.shape[-1]
     c = ref.scan_chunk("mamba2_ssd_bwd", T, chunk)
+    cl = ssd_bwd_cluster(H, up(P, 8), up(N, 8))
     ct = torch.promote_types(x.dtype, torch.float32)
     xf, dyf, dtf, Bf, Cf = (t.to(ct) for t in (x, dy, dt, Bm, C))
     a = A.to(ct)[None, :]
     dS = (torch.zeros(B, H, P, N, dtype=ct) if ds_out is None
           else ds_out.to(ct).clone())
-    dx, dBp, dCp = (torch.empty(B, T, H, d, dtype=ct) for d in (P, N, N))
+    dx, dBh, dCh = (torch.empty(B, T, H, d, dtype=ct) for d in (P, N, N))
     ddt = torch.empty(B, T, H, dtype=ct)
     dA = torch.zeros(B, H, dtype=ct)
     idx = torch.arange(c)
     lower = idx[:, None] >= idx[None, :]
     zero = torch.zeros((), dtype=ct)
+    tr = lambda t: t.transpose(-1, -2)  # noqa: E731
     for ci in reversed(range(T // c)):
         t0 = ci * c
         xs, dys = (t[:, t0:t0 + c].permute(0, 2, 1, 3) for t in (xf, dyf))
@@ -566,59 +580,78 @@ def ssd_bwd_schedule(x, dt, A, Bm, C, states, dy, ds_out=None, chunk=64):
         total = cum[..., c - 1]
         ex = torch.exp(torch.clamp(total[..., None] - cum, max=0.0))
         wt = dts * ex
+        ec = torch.exp(cum)
         L = torch.where(lower, torch.exp(torch.clamp(
             cum[..., :, None] - cum[..., None, :], max=0.0)), zero)
-        CB = Cs @ Bs.transpose(-1, -2)
-        dG = dys @ xs.transpose(-1, -2)
-        G = CB * L * dts[..., None, :]
+        # the row form
+        CB, dG = Cs @ tr(Bs), dys @ tr(xs)
         dCB = dG * L * dts[..., None, :]
-        R = dG * CB * L
-        Q = R * dts[..., None, :]
-        rowQ, colR = Q.sum(-1), _rows16(R)
+        Q = dG * CB * L * dts[..., None, :]
+        rowQ = Q.sum(-1)
         dAq = (Q * (D[..., :, None] - D[..., None, :])).sum((-2, -1))
-        dxc = G.transpose(-1, -2) @ dys + wt[..., None] * (Bs @ dS.transpose(-1, -2))
-        dyS = dys @ S0
-        e = torch.exp(cum)
-        dCc = dCB @ Bs + e[..., None] * dyS
-        dcumI = e * (Cs * dyS).sum(-1)
-        xdS = xs @ dS
-        dBc = dCB.transpose(-1, -2) @ Cs + wt[..., None] * xdS
+        dyS = mmf([dys], bsplit(S0, terms))
+        dcumI = ec * (Cs * dyS).sum(-1)
+        dCc = ec[..., None] * dyS + mmf(bsplit(dCB, terms), [Bs])
+        # the column form: the transposes computed again
+        BC, xd = Bs @ tr(Cs), xs @ tr(dys)
+        LT = tr(L)
+        colR = (xd * BC * LT).sum(-1)
+        dCBT = xd * LT * dts[..., :, None]
+        xdS = mmf([xs], bsplit(dS, terms))
         dwt = (Bs * xdS).sum(-1)
+        dBc = wt[..., None] * xdS + mmf(bsplit(dCBT, terms), [Cs])
+        GT = BC * LT * dts[..., :, None]
+        dxc = wt[..., None] * mmf([Bs], bsplit(tr(dS), terms)) + mmf(bsplit(GT, terms), [dys])
+        # the state's cotangent
         dtot = torch.exp(total) * (dS * S0).sum((-2, -1))
-        dS = torch.exp(total)[..., None, None] * dS + (
-            e[..., None] * dys).transpose(-1, -2) @ Cs
+        dS = torch.exp(total)[..., None, None] * dS + mmf(
+            bsplit(tr(ec[..., None] * dys), terms), [Cs])
         swd = torch.zeros(B, H, dtype=ct)
         for s in range(c):
             swd = swd + wt[..., s] * dwt[..., s]
         run, dAs = torch.zeros(B, H, dtype=ct), torch.zeros(B, H, dtype=ct)
         ddtc = torch.empty_like(dts)
         for s in reversed(range(c)):
-            dc = (rowQ[..., s] - dts[..., s] * colR[..., s] + dcumI[..., s]
-                  - wt[..., s] * dwt[..., s])
+            dcv = (rowQ[..., s] - dts[..., s] * colR[..., s] + dcumI[..., s]
+                   - wt[..., s] * dwt[..., s])
             if s == c - 1:
-                dc = dc + dtot + swd
-            run = run + dc
+                dcv = dcv + dtot + swd
+            run = run + dcv
             ddtc[..., s] = colR[..., s] + ex[..., s] * dwt[..., s] + a * run
             dAs = dAs + dcumI[..., s] * D[..., s] + wt[..., s] * dwt[..., s] * (
                 D[..., c - 1] - D[..., s])
         dA = dA + dAq + dAs + dtot * D[..., c - 1]
         dx[:, t0:t0 + c] = dxc.permute(0, 2, 1, 3)
         ddt[:, t0:t0 + c] = ddtc.permute(0, 2, 1)
-        dBp[:, t0:t0 + c], dCp[:, t0:t0 + c] = (t.permute(0, 2, 1, 3) for t in (dBc, dCc))
+        dBh[:, t0:t0 + c], dCh[:, t0:t0 + c] = (t.permute(0, 2, 1, 3) for t in (dBc, dCc))
+    # the cluster's sum in head order, from zero
+    dBp, dCp = (torch.zeros(B, T, H // cl, N, dtype=ct) for _ in range(2))
+    for hh in range(cl):
+        heads = [grp * cl + hh for grp in range(H // cl)]
+        dBp, dCp = dBp + dBh[:, :, heads], dCp + dCh[:, :, heads]
     return dx.to(x.dtype), ddt, dA, dBp, dCp, dS
 
 
-def rwkv_bwd_schedule(r, k, v, w, u, states, do, ds_out=None, chunk=64):
-    """``rwkv6_scan_bwd``'s schedule, vectorised over its (head, batch)
-    blocks: each block walks its chunks in reverse from dS = ds_out, reading
-    the chunk's entering state from ``states`` (B, H, nc, K, V). The
-    log-decays' sums down each key column in row order and ce = cum - ld;
-    dA = do.v^T and A (the gate's exponentials pair by pair); dv; du's
-    diagonal terms in row order; dr and ce's cotangent; dk and cum's
-    cotangent, the column sums of Y in 16 row partials; the state's
-    cotangent; then one thread a key column walks the rows in reverse for
-    dw. Returns the kernel's outputs: dr, dk, dv, dw, du per (batch, head)
-    (not yet summed over the batch) and dstate."""
+def rwkv_bwd_schedule(r, k, v, w, u, states, do, ds_out=None, chunk=64, terms=3):
+    """``rwkv6_scan_bwd``'s bf16 schedule (``csrc/rwkv6_scan_bwd.cu``),
+    vectorised over its (head, batch) blocks: each block walks its chunks
+    in reverse from dS = ds_out, reading the chunk's entering state from
+    ``states`` (B, H, nc, K, V). The log-decays' sums down each key column
+    in row order and ce = cum - ld. dA = do.v^T (row form) and v.do^T
+    (column form). The diagonal 16 x 16 blocks (the sweep): the gate's
+    exponentials of the pairs s < t, each once, for A (each half of the
+    keys summed, then the halves added), dr's and dk's gate terms and du's
+    diagonal terms. Below the diagonal the gate is exp(ce_t - cum_b)
+    exp(cum_b - cum_s) for any b with s <= b < t: dr's gate term is
+    exp(ce_t - cum_b) (dA.k') with b = 16 m - 1 the token before t's
+    sub-chunk m; A^T = k'.r'^T and dk's term exp(cum_b - cum_s) (dA^T.r')
+    with b = 16 (i + 1) - 1 the last token of s's sub-chunk i; k' = k
+    exp(cum_b - cum_s), r' = r exp(ce_t - cum_b), both sides split into
+    ``terms`` bf16 terms. dv = (k ex).dS + A^T.do, dr, dk, the
+    cotangents of ce and cum, dtotal from the sub-chunks' sums of Y in
+    order, the state's cotangent; then one thread a key column walks the
+    rows in reverse for dw. Returns the kernel's outputs: dr, dk, dv, dw, du
+    per (batch, head) (not yet summed over the batch) and dstate."""
     B, T, H, K = r.shape
     V = v.shape[-1]
     c = ref.scan_chunk("rwkv6_scan_bwd", T, chunk)
@@ -630,10 +663,11 @@ def rwkv_bwd_schedule(r, k, v, w, u, states, do, ds_out=None, chunk=64):
     dr, dk, dw = (torch.empty(B, T, H, K, dtype=ct) for _ in range(3))
     dv = torch.empty(B, T, H, V, dtype=ct)
     du = torch.zeros(B, H, K, dtype=ct)
-    idx = torch.arange(c)
-    strict = idx[:, None] > idx[None, :]
-    lower = idx[:, None] >= idx[None, :]
+    half0 = torch.arange(K) < up(up(K, 8), 16) // 2
     zero = torch.zeros((), dtype=ct)
+    tr = lambda t: t.transpose(-1, -2)  # noqa: E731
+    idx = torch.arange(SUB)
+    strict = (idx[:, None] > idx[None, :])[..., None]
     for ci in reversed(range(T // c)):
         t0 = ci * c
         rs, ks, ws, vs, dos = (t[:, t0:t0 + c].permute(0, 2, 1, 3)
@@ -648,28 +682,59 @@ def rwkv_bwd_schedule(r, k, v, w, u, states, do, ds_out=None, chunk=64):
         ce = cum - ld
         total = cum[..., c - 1, :]
         ex = torch.exp(torch.clamp(total[..., None, :] - cum, max=0.0))
-        dAm = torch.where(lower, dos @ vs.transpose(-1, -2), zero)
+        dAm = dos @ tr(vs)                       # row form: rows t
+        dAT = vs @ tr(dos)                       # column form: rows s
         dAd = torch.diagonal(dAm, dim1=-2, dim2=-1)
-        gate = torch.where(strict[..., None], torch.exp(torch.clamp(
-            ce[..., :, None, :] - cum[..., None, :, :], max=0.0)), zero)
-        Am = torch.einsum("bhtk,bhsk,bhtsk->bhts", rs, ks, gate)
-        Am = Am + torch.diag_embed((rs * uf * ks).sum(-1))
-        dvc = Am.transpose(-1, -2) @ dos + (ks * ex) @ dS
-        for t in range(c):
-            du = du + dAd[..., t, None] * rs[..., t, :] * ks[..., t, :]
-        dAs = torch.where(strict, dAm, zero)
-        dr_g = torch.einsum("bhts,bhsk,bhtsk->bhtk", dAs, ks, gate)
+        AT = torch.zeros(B, H, c, c, dtype=ct)
+        drg, dkg = torch.zeros_like(rs), torch.zeros_like(ks)
+        nsub = -(-c // SUB)
+        for i in range(nsub):                    # the sweep of block i
+            ri = slice(SUB * i, min(SUB * (i + 1), c))
+            n = ri.stop - ri.start
+            gate = torch.where(strict[:n, :n], torch.exp(torch.clamp(
+                ce[..., ri, None, :] - cum[..., None, ri, :], max=0.0)), zero)
+            prod = rs[..., ri, None, :] * ks[..., None, ri, :] * gate
+            Ad = (prod * half0).sum(-1) + (prod * ~half0).sum(-1)
+            bonus = rs[..., ri, :] * uf * ks[..., ri, :]
+            Ad = Ad + torch.diag_embed((bonus * half0).sum(-1) + (bonus * ~half0).sum(-1))
+            AT[..., ri, ri] = tr(Ad)
+            dblk = torch.where(strict[:n, :n, 0], dAm[..., ri, ri], zero)
+            drg[..., ri, :] = torch.einsum("bhts,bhsk,bhtsk->bhtk", dblk, ks[..., ri, :], gate)
+            dkg[..., ri, :] = torch.einsum("bhts,bhtk,bhtsk->bhsk", dblk, rs[..., ri, :], gate)
+        du = du + (dAd[..., None] * rs * ks).sum(-2)
+        # below the diagonal. dr: t in sub-chunk m, s <= b = 16 m - 1 (the
+        # token before t's sub-chunk); A^T and dk: s in sub-chunk i, t > b =
+        # 16 (i + 1) - 1 (the last token of s's sub-chunk)
+        gr, gk = torch.zeros_like(rs), torch.zeros_like(ks)
+        for m in range(1, nsub):
+            rm, rj, bref = slice(SUB * m, min(SUB * (m + 1), c)), slice(0, SUB * m), SUB * m - 1
+            cb = cum[..., bref, None, :]
+            fr = torch.exp(torch.clamp(ce[..., rm, :] - cb, max=0.0))
+            kp = ks[..., rj, :] * torch.exp(torch.clamp(cb - cum[..., rj, :], max=0.0))
+            gr[..., rm, :] = fr * mmf(bsplit(dAm[..., rm, rj], terms), bsplit(kp, terms))
+        for i in range(nsub - 1):
+            ri, rt, bref = slice(SUB * i, SUB * (i + 1)), slice(SUB * (i + 1), c), SUB * (i + 1) - 1
+            cb = cum[..., bref, None, :]
+            fk = torch.exp(torch.clamp(cb - cum[..., ri, :], max=0.0))
+            kp = ks[..., ri, :] * fk
+            rp = rs[..., rt, :] * torch.exp(torch.clamp(ce[..., rt, :] - cb, max=0.0))
+            AT[..., ri, rt] = mmf(bsplit(kp, terms), [tr(t) for t in bsplit(rp, terms)])
+            gk[..., ri, :] = fk * mmf(bsplit(dAT[..., ri, rt], terms), bsplit(rp, terms))
+        dvc = mmf(bsplit(ks * ex, terms), bsplit(dS, terms)) + mmf(bsplit(AT, terms), [dos])
         ece = torch.exp(ce)
-        doS = dos @ S0.transpose(-1, -2)
-        drc = dAd[..., None] * uf * ks + dr_g + ece * doS
-        dce = rs * dr_g + rs * ece * doS
-        dk_g = torch.einsum("bhts,bhtk,bhtsk->bhsk", dAs, rs, gate)
-        dks = vs @ dS.transpose(-1, -2)
-        dkc = dAd[..., None] * uf * rs + dk_g + ex * dks
-        Y = ks * ex * dks
-        dcum = -ks * dk_g - Y
-        dtot = torch.exp(total) * (dS * S0).sum(-1) + _rows16(Y)
-        dS = torch.exp(total)[..., None] * dS + (rs * ece).transpose(-1, -2) @ dos
+        Tr = gr + ece * mmf([dos], bsplit(tr(S0), terms))
+        drc = dAd[..., None] * uf * ks + drg + Tr
+        dce = rs * (drg + Tr)
+        vds = mmf([vs], bsplit(tr(dS), terms))
+        gate_k = dkg + gk
+        dkc = dAd[..., None] * uf * rs + gate_k + ex * vds
+        Y = ks * ex * vds
+        dcum = -ks * gate_k - Y
+        ycol = 0
+        for i in range(nsub):
+            ycol = ycol + Y[..., SUB * i:SUB * (i + 1), :].sum(-2)
+        dtot = torch.exp(total) * (dS * S0).sum(-1) + ycol
+        dS = torch.exp(total)[..., None] * dS + mmf(bsplit(tr(rs * ece), terms), [dos])
         run_c, run_e = torch.zeros(B, H, K, dtype=ct), torch.zeros(B, H, K, dtype=ct)
         dwc = torch.empty_like(ld)
         for s in reversed(range(c)):
@@ -724,7 +789,8 @@ BWD = {"mamba2_ssd": (ssd_bwd_schedule, ssd_states, ref.mamba2_ssd_bwd_ref),
 
 def bwd_sums(kernel, outs):
     """The wrapper's sums of the kernel's partials: dA over the batch, dB
-    and dC over the heads; du over the batch."""
+    and dC over the clusters of heads (``ssd_bwd_cluster``); du over the
+    batch."""
     if kernel == "mamba2_ssd":
         dx, ddt, dA, dB, dC, ds = outs
         return dx, ddt, dA.sum(0), dB.sum(2), dC.sum(2), ds
@@ -791,6 +857,70 @@ def test_bwd_partials_are_summed_in_one_order():
         assert part.shape[:2] == (case[1], case[3])
 
 
+@pytest.mark.parametrize("kernel,case,w_mean", [("mamba2_ssd", 0, -0.5), ("rwkv6_scan", 3, -0.5),
+                                                ("rwkv6_scan", 3, -6.0)])
+def test_bwd_one_term_fails_the_card_criterion(kernel, case, w_mean):
+    """The backward kernels split every f32 operand (d(C.B^T), G^T, S0, dS,
+    exp(cum) dy; the rescaled r and k, A, dA, dS, S0) into three bf16 terms.
+    With one term the emulated schedule lies beyond ``SCAN_BWD_TOL`` (the
+    ``__main__`` table: about 2e-3 to 3e-2 of the largest value where the
+    tolerances are 2e-5 and 2e-4); with two it passes at these shapes, and
+    the kernels keep the forwards' three."""
+    schedule, states, plain = BWD[kernel]
+    _, B, T, H, d1, d2 = BWD_CASES[case]
+    args, dout, ds = bwd_args(kernel, T + d1, B, T, H, d1, d2, BF16, w_mean)
+    want = plain(*(a.double() for a in args), dout.double(), ds.double())
+    got = bwd_sums(kernel, schedule(*args[:5], states(*args), dout, ds, terms=1))
+    worst = chip_smoke.scan_bwd_errors(kernel, got, want, args)
+    assert any(e > chip_smoke.SCAN_BWD_TOL[k] for k, e in worst.items()), worst
+
+
+def test_rwkv_bwd_factors_never_exceed_one():
+    """Every rescale factor of the backward is exp of a sum of log-decays <=
+    0 (up to rounding where the kernel clamps): below the diagonal dr's
+    pair, about b = 16 m - 1 (t in sub-chunk m, s <= b), and A^T's and dk's,
+    about b = 16 (i + 1) - 1 (s in sub-chunk i, t > b); dv's and dk's
+    exp(total - cum) and the state update's exp(ce). Nothing overflows, and a
+    factor that underflows to 0 stands for a product at least as small."""
+    for w_mean in W_MEANS:
+        w = w_mean + 0.5 * torch.from_numpy(
+            np.random.default_rng(6).standard_normal((TILE, 8)).astype(np.float32))
+        ld = -torch.exp(w)
+        cum = torch.cumsum(ld, 0)
+        ce = cum - ld
+        ulps = lambda x: 4 * torch.finfo(torch.float32).eps * x.abs()  # noqa: E731
+        for m in range(1, TILE // SUB):            # dr: t in sub-chunk m
+            b = SUB * m - 1
+            assert (ce[SUB * m:SUB * (m + 1)] - cum[b] <= ulps(cum[b])).all()
+            assert (cum[b] - cum[:SUB * m] <= 0).all()
+        for i in range(TILE // SUB - 1):           # A^T and dk: s in sub-chunk i
+            b = SUB * (i + 1) - 1
+            assert (cum[b] - cum[SUB * i:SUB * (i + 1)] <= 0).all()
+            assert (ce[b + 1:] - cum[b] <= ulps(cum[b])).all()
+        assert (cum[-1] - cum <= 0).all() and (ce <= 0).all()
+
+
+def test_bwd_launch_plans():
+    """The wrappers' mirrors of the backward kernels' plans: the cluster of
+    heads whose dB and dC ``mamba2_ssd_bwd`` sums in the launch (the largest
+    divisor of H up to 8 while N fits one 64-column pass), and
+    ``rwkv6_scan_bwd``'s shared memory (w and S0 staged and the f32 tiles
+    there at K = V = 64; neither at K = V = 128, which takes a global
+    scratch of four 64 x (Kp + 4) tiles a block)."""
+    from repro_torch.kernels.rwkv6_scan import bwd_scratch_floats, bwd_tc_layout
+    assert ssd_bwd_cluster(112, 64, 64) == 8        # zamba2: 14 partials of 8 heads
+    assert ssd_bwd_cluster(4, 72, 24) == 4
+    assert ssd_bwd_cluster(3, 16, 24) == 3
+    assert ssd_bwd_cluster(9, 64, 64) == 3
+    assert ssd_bwd_cluster(4, 24, 72) == 1          # N = 72: 80 columns, two passes
+    assert ssd_bwd_cluster(112, 128, 128) == 1
+    assert bwd_tc_layout(64, 64) == (211456, True, True)
+    assert bwd_tc_layout(72, 24)[1:] == (True, True)
+    assert bwd_tc_layout(128, 128) == (191232, False, False)
+    assert bwd_scratch_floats(8, 32, 64, 64, 64, bf16=True) == 0
+    assert bwd_scratch_floats(2, 4, 128, 128, 64, bf16=True) == 2 * 4 * 4 * 64 * 132
+
+
 if __name__ == "__main__":
     # the table the kernels' notes cite: how far each schedule lies beyond
     # the card's criterion with 1, 2 and 3 bf16 terms (output, state)
@@ -807,6 +937,20 @@ if __name__ == "__main__":
             o, s = rwkv_schedule(*args, terms=terms)
             print(f"rwkv6_scan 1x128x4x64x64 w~N({w_mean}, 0.5) terms={terms}: output "
                   f"{excess(o, want[0]):.2e} state {excess(s, want[1]):.2e}")
+    # the backward schedules beyond SCAN_BWD_TOL's kinds with 1, 2 and 3
+    # bf16 terms (bf16 inputs; the kernels' notes cite it)
+    for kernel, B, T, H, d1, d2 in BWD_CASES:
+        for w_mean in ([-0.5] if kernel == "mamba2_ssd" else W_MEANS):
+            schedule, states, plain = BWD[kernel]
+            args, dout, ds = bwd_args(kernel, T + d1, B, T, H, d1, d2, BF16, w_mean)
+            want = plain(*(a.double() for a in args), dout.double(), ds.double())
+            cells = []
+            for terms in (1, 2, 3):
+                got = bwd_sums(kernel, schedule(*args[:5], states(*args), dout, ds, terms=terms))
+                worst = chip_smoke.scan_bwd_errors(kernel, got, want, args)
+                cells.append(" ".join(f"{k}={e:.2e}" for k, e in sorted(worst.items())))
+            print(f"{kernel}_bwd {B}x{T}x{H}x{d1}x{d2} w~N({w_mean}, 0.5): "
+                  + " | ".join(f"terms={n}: {c}" for n, c in zip((1, 2, 3), cells)))
     # the ratios test_the_rule_constant cites: the least c each schedule and
     # the float32 plain version pass the rule with, over eight draws at the
     # stress shapes, and one-term schedules at the main shapes

@@ -92,6 +92,26 @@ def test_rwkv6_scan_plain(B, T, H, K, V, chunk, dtype):
     _close(ts, exact[1])
 
 
+def test_rwkv6_scan_plain_at_k_v_128():
+    """The shape the float32 kernel carries its state in global memory at
+    (K = V = 128: 247 KB of shared memory with the state, past 227 KB): the
+    plain version the wrapper takes on the CPU equals the JAX reference's
+    chunked scan there, and the wrapper's mirror of the kernel's shared
+    memory sends this shape, and no narrower one, to global memory."""
+    from repro_torch.kernels.rwkv6_scan import (MAX_SMEM, fwd_smem_floats,
+                                                fwd_state_in_global)
+    J, Tt = _rwkv_inputs(128, 2, 128, 4, 128, 128, "float32")
+    o, s = ops.rwkv6_scan(*Tt)
+    jo, js = jax_ref.rwkv6_chunked(*J, chunk=64)
+    _close(o, jo)
+    _close(s, js)
+    assert fwd_smem_floats(128, 128, 64) == 61760
+    assert 4 * fwd_smem_floats(128, 128, 64) > MAX_SMEM
+    assert fwd_state_in_global(128, 128, 64)
+    assert not fwd_state_in_global(64, 64, 64)
+    assert not fwd_state_in_global(112, 112, 64)
+
+
 def test_rwkv6_decode_step():
     rng = np.random.default_rng(11)
     B, H, K, V = 3, 2, 8, 16
