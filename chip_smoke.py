@@ -58,6 +58,26 @@ Phases, each printed on its own line; any failed check exits nonzero:
               card (no children, no query matrix) and launch one kernel. The
               same run on the CPU must give the same facts, trees, answers and
               evidence, and embeddings within 1e-5.
+  4a. sharded the slice's memory served through ``DataMesh``es of shards on
+              the card (``MemForestSystem.set_mesh``, ``kernels/shard_ops``):
+              S = 2 on the 500 sessions, S = 4 on 64, 128 and 192 sessions,
+              queried after each (the sharded fact index grows: no
+              re-upload), and S = 2 and S = every card over distinct cards
+              where more than one is visible; each held to the
+              same sessions without a mesh (``compare_systems``, answers and
+              evidence exact in the six modes, node embeddings and the root
+              index bit for bit), with S ``topk_sim`` launches a fact recall
+              plus 1 for the roots, S ``tree_refresh`` a flush level and S
+              ``browse_scores`` a browse depth, and no plain version. One
+              sharded browse level uploads one buffer per distinct device.
+              ``topk_sim`` sharded at a shape where a shard's own plan would
+              take another cluster than the whole index's equals the whole
+              index's launch bit for bit. Then ``repro_torch.launch.serve``
+              with the JAX package's default flags on the card and on the
+              CPU: the same answers. In the serve phase, after its traffic,
+              its llama3-8b memory (D = 4096) answers the queries again
+              through a mesh of 2 shards, as it did without one. The
+              phase's seconds are printed.
   4b. ablations  ``benchmarks/bench_tree_scaling.py``'s sweeps of the paper's
               Figure 6 on the card at D = 256, through the port's ``Forest``:
               (a) lazy flush against eager per-insert refresh at 64, 256 and
@@ -708,6 +728,10 @@ def check_kernels(torch, peaks, seed: int):
     for (cap, nv), k in zip(OLMOE_TOPK, (24, 16)):
         topk_case(64, cap, 2048, k, nv, main=True, plant=True, gen=g_new,
                   pairs=[(0, 5, 6), (1, 3, nv - 1)])
+    # a shard of the sharded fact index that owns no valid row (the sharded
+    # phase's fewer-rows-than-shards case) at the slice's fact shape: every
+    # slot -1e30 / -1
+    topk_case(64, 256, 256, 16, 0, gen=g_new)
 
     # -- flash_attention ----------------------------------------------------
     # bf16 rows: tests/test_kernels.py's bf16 criterion, |err| <= 2e-2 +
@@ -1705,6 +1729,358 @@ def span_totals(sink):
 # ---------------------------------------------------------------------------
 # phase 4b: the write-path ablations of the paper's Figure 6
 # ---------------------------------------------------------------------------
+# -- the sharded phase ---------------------------------------------------
+SHARDED_GROWTH = (64, 64, 64)   # S = 4: sessions ingested before each query
+                                # round (the fact index grows after the first)
+CLUSTER_CHECK = (64, 3000, 256, 16, 4)   # Q, N, D, k, S: the plans differ
+
+
+def span_count(sink, name) -> int:
+    return len(sink.spans(name))
+
+
+def sharded_calls(sink, before):
+    """Flush levels, recalls and browse depths since ``before`` (span
+    counts: one ``forest.tree_refresh`` a flush level, one
+    ``retrieve.recall`` a recall, one ``retrieve.browse_scores`` a browse
+    depth)."""
+    names = ("forest.tree_refresh", "retrieve.recall",
+             "retrieve.browse_scores")
+    return {n: span_count(sink, n) - before.get(n, 0) for n in names}
+
+
+def check_mesh_launches(label, counts, calls, S) -> None:
+    """S ``topk_sim`` launches a fact recall plus 1 for the roots, S
+    ``tree_refresh`` a flush level, S ``browse_scores`` a browse depth; no
+    plain version."""
+    want = {"tree_refresh": S * calls["forest.tree_refresh"],
+            "topk_sim": (S + 1) * calls["retrieve.recall"],
+            "browse_scores": S * calls["retrieve.browse_scores"]}
+    print(f"{label}: launches " + " ".join(
+        f"{k}={counts[k][0]} (want {want[k]}) plain={counts[k][1]}"
+        for k in SLICE_KERNELS) + f" calls={calls}", flush=True)
+    for k in SLICE_KERNELS:
+        need(counts[k][0] == want[k] and want[k] > 0,
+             f"{label}: {k} launched {counts[k][0]} times, want {want[k]}")
+        need(counts[k][1] == 0, f"{label}: {k} ran its plain version")
+
+
+def same_bits(label, a, b) -> None:
+    """Node embeddings and the root index equal bit for bit."""
+    for key, ta in a.forest.trees.items():
+        tb = b.forest.trees[key]
+        n = ta._n
+        need(np.array_equal(ta.emb[:n], tb.emb[:n]),
+             f"{label}: tree {key}'s node embeddings differ in bits")
+    nt = len(a.forest._tree_order)
+    need(np.array_equal(a.forest._root_matrix[:nt],
+                        b.forest._root_matrix[:nt]),
+         f"{label}: the root index differs in bits")
+
+
+def sharded_memory(torch, sessions, queries, mesh, obs, sink):
+    """A ``MemForestSystem`` on the card with ``mesh``: the sessions in
+    batches of 16, then the queries in the six modes; launch counts checked
+    per call. Returns (system, answers, counts)."""
+    from repro_torch import MemForestSystem, kernels
+
+    mf = MemForestSystem(device="cuda", obs=obs)
+    mf.set_mesh(mesh)
+    before = sharded_calls(sink, {})
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    for i in range(0, len(sessions), 16):
+        mf.ingest_batch(sessions[i:i + 16])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    answers = {m: [(r.answer, r.evidence)
+                   for r in mf.query_batch(queries, mode=m)] for m in MODES}
+    torch.cuda.synchronize()
+    query_s = time.perf_counter() - t0 - ingest_s
+    counts = read_counts(REPLACES)
+    label = (f"sharded: S={mesh.size} on "
+             f"{'/'.join(str(d) for d in mesh.distinct())}")
+    print(f"{label}: {len(sessions)} sessions ingest_s={ingest_s:.4f} "
+          f"sessions_per_s={len(sessions) / ingest_s:.1f} six modes "
+          f"query_s={query_s:.4f}", flush=True)
+    check_mesh_launches(label, counts, sharded_calls(sink, before),
+                        mesh.size)
+    return mf, answers, counts
+
+
+def add_counts(total, counts):
+    for k, (n, p) in counts.items():
+        n0, p0 = total.get(k, (0, 0))
+        total[k] = (n0 + n, p0 + p)
+    return total
+
+
+def check_cluster_plan(torch) -> None:
+    """A shard of a sharded index launches ``topk_sim`` with the cluster of
+    the whole index's launch: at 64 queries over 3000 keys of 256 the
+    index's plan takes a cluster of 2 and a shard's own rows one of 8. The
+    sharded result must equal the whole index's launch bit for bit; the
+    shards' own plans are run too, and how many scores they change is
+    printed."""
+    from repro_torch.kernels import _build, ref, shard_ops
+    from repro_torch.kernels.topk_sim import plan_cluster, topk_sim
+    from repro_torch.launch.mesh import DataMesh
+
+    Q, N, D, k, S = CLUSTER_CHECK
+    g = torch.Generator().manual_seed(7)
+    host = torch.randn(N, D, generator=g).numpy()
+    q = ref.normalize_rows(torch.randn(Q, D, generator=g).cuda())
+    mesh = DataMesh(("cuda:0",) * S)
+    cap = shard_ops.pad_rows(N, S)
+    sk = shard_ops.upload_sharded(host, cap, mesh)
+    dense = ref.normalize_rows(torch.from_numpy(
+        np.pad(host, ((0, cap - N), (0, 0)))).cuda())
+    v0, i0 = topk_sim(q, dense, k, normalize=False, num_valid=N)
+    v1, i1 = shard_ops.sharded_topk_sim(q, sk, k, mesh=mesh, num_valid=N)
+    sms = _build.sm_count(torch.device("cuda", 0))
+    whole, own = plan_cluster(Q, N, D, sms), plan_cluster(Q, -(-N // S), D,
+                                                         sms)
+    # the shards' own plans, merged the same way
+    vals, ids = [], []
+    for s, shard in enumerate(sk.shards):
+        v, i = topk_sim(q, shard, k, normalize=False,
+                        num_valid=max(-(-(N - s) // S), 0))
+        ids.append(torch.where(i >= 0, i * S + s, torch.full_like(i, -1)))
+        vals.append(v)
+    v2, i2 = ref.merge_topk(torch.cat(vals, 1), torch.cat(ids, 1), k)
+    torch.cuda.synchronize()
+    print(f"sharded: topk_sim cluster check {Q}x{N}x{D} k={k} S={S}: "
+          f"clusters whole={whole} shard_own={own}; with the whole index's "
+          f"cluster ids_equal={bool(torch.equal(i0, i1))} "
+          f"values_equal={bool(torch.equal(v0, v1))}; with the shards' own "
+          f"plans values_differing={int((v2 != v0).sum())} "
+          f"ids_differing={int((i2 != i0).sum())} of {v0.numel()}",
+          flush=True)
+    need(whole != own, "the cluster check's plans no longer differ")
+    need(torch.equal(i0, i1) and torch.equal(v0, v1),
+         "sharded topk_sim differs from the whole index's launch")
+
+
+def check_sharded_level_upload(torch, mf, wl) -> None:
+    """One browse level of a sharded memory: one upload buffer per
+    distinct device of the mesh (at most F*K*8 + F*4 + 64 bytes each, F
+    padded to a power of two and a shard multiple), a ``browse_scores``
+    launch per shard and at most the concatenation of their outputs."""
+    from repro_torch.core import retrieval
+    calls = []
+    real = retrieval.Retriever._score_frontier
+
+    def spy(self, frontier, *rest):
+        calls.append((self, frontier, rest))
+        return real(self, frontier, *rest)
+
+    retrieval.Retriever._score_frontier = spy
+    try:
+        mf.query_batch(wl.queries, mode="llm")
+    finally:
+        retrieval.Retriever._score_frontier = real
+    need(bool(calls), "the sharded browse scored no level")
+    r, frontier, rest = max(calls, key=lambda c: len(c[1]))
+    S, n_dev = mf.forest.mesh.size, len(mf.forest.mesh.distinct())
+    kmax = max(len(lane.tree.children[n]) for lane, n in frontier)
+    F, K = 8, 4
+    while F < len(frontier):
+        F *= 2
+    while K < kmax:
+        K *= 2
+    F = -(-F // S) * S
+    prof = profiled(torch, lambda: real(r, frontier, *rest))
+    path = ROOT / "build" / "chip_smoke_sharded_level.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    copies = [(e["name"], (e.get("args") or {}).get("bytes")) for e in events
+              if e.get("cat") == "gpu_memcpy"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    h2d = [b for n, b in copies if "HtoD" in n]
+    limit = F * K * 8 + F * 4 + 64
+    browse = [k for k in kernels if "browse" in k]
+    others = [k for k in kernels if "browse" not in k]
+    print(f"sharded: one browse level S={S} F={len(frontier)} padded {F}x{K}:"
+          f" host-to-device copies {h2d} bytes (limit {limit} each, "
+          f"{n_dev} buffer(s)), all copies {copies}, kernels "
+          f"{[k[:40] for k in kernels]}", flush=True)
+    need(len(h2d) == n_dev and all(b is not None and b <= limit for b in h2d),
+         f"a sharded browse level copied {h2d} bytes to the card")
+    need(len(browse) == S and len(others) <= 1
+         and all("Cat" in k for k in others),
+         f"a sharded browse level made the device launches {kernels}")
+
+
+def serve_cli_lines(text):
+    return [ln for ln in text.splitlines() if ln.startswith(" [")]
+
+
+def check_serve_cli() -> None:
+    """``repro_torch.launch.serve.main`` with the JAX package's default
+    flags on the card, then on the CPU: the same answers."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    out = {}
+    for argv in ([], ["--device", "cpu"]):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv)
+        out[tuple(argv)] = (buf.getvalue(), time.perf_counter() - t0)
+    (card, card_s), (cpu, cpu_s) = out[()], out[("--device", "cpu")]
+    acc = [ln for ln in card.splitlines() if ln.startswith("accuracy")]
+    scale = [ln for ln in card.splitlines() + cpu.splitlines()
+             if ln.startswith("memory scale")]
+    print(f"sharded: serve CLI on the card {card_s:.2f} s, on the CPU "
+          f"{cpu_s:.2f} s; {acc}; {scale}", flush=True)
+    need(len(serve_cli_lines(card)) == 20,
+         "the serve CLI did not answer its 20 queries")
+    need(serve_cli_lines(card) == serve_cli_lines(cpu),
+         "the serve CLI's answers differ between the card and the CPU")
+
+
+def run_sharded(torch, wl, base, base_answers):
+    """Phase 4a: the slice memory through ``DataMesh``es on the card,
+    held to the slice phase's memory (mesh=None): S = 2 on the 500
+    sessions; S = 4 on 64, 128 and 192 sessions, queried after each (the
+    fact index grows past its first capacity: no re-upload), held to the
+    192 sessions without a mesh; S = 2 over distinct cards where more than
+    one is visible; then the topk_sim cluster check and the serve CLI."""
+    from repro_torch import MemForestSystem
+    from repro_torch.launch.mesh import DataMesh, make_data_mesh
+    from repro_torch.obs import MemorySink, Observability, Tracer
+
+    t_phase = time.perf_counter()
+    total = {}
+    sink = MemorySink()
+    obs = Observability(tracer=Tracer(sink=sink, enabled=True))
+
+    # S = 2 on one card, the whole slice
+    t0 = time.perf_counter()
+    mesh = DataMesh(("cuda:0",) * 2)
+    mf, answers, counts = sharded_memory(torch, wl.sessions, wl.queries,
+                                         mesh, obs, sink)
+    add_counts(total, counts)
+    print(f"sharded: S=2 slice {time.perf_counter() - t0:.2f} s "
+          f"device_bytes={mf.device_bytes()} (mesh=None "
+          f"{base.device_bytes()}) matches: "
+          + compare_systems(base, mf, base_answers, answers), flush=True)
+    same_bits("sharded S=2", base, mf)
+    check_sharded_level_upload(torch, mf, wl)
+    del mf
+
+    # S = 4 on one card: growth under the mesh, no re-upload
+    t0 = time.perf_counter()
+    stages = np.cumsum((0,) + SHARDED_GROWTH)
+    ref4 = MemForestSystem(device="cuda")
+    for i in range(0, stages[-1], 16):
+        ref4.ingest_batch(wl.sessions[i:i + 16])
+    ref_answers = {m: [(r.answer, r.evidence)
+                       for r in ref4.query_batch(wl.queries, mode=m)]
+                   for m in MODES}
+    mesh = DataMesh(("cuda:0",) * 4)
+    mf, _, counts = sharded_memory(torch, wl.sessions[:stages[1]], wl.queries,
+                                   mesh, obs, sink)
+    add_counts(total, counts)
+    f = mf.forest
+    up0, gr0, cap0 = f.index_uploads, f.index_grows, f.fact_emb.shape[0]
+    from repro_torch import kernels
+    for lo, hi in zip(stages[1:-1], stages[2:]):
+        before = sharded_calls(sink, {})
+        kernels.reset_counts()
+        for i in range(lo, hi, 16):
+            mf.ingest_batch(wl.sessions[i:i + 16])
+        answers = {m: [(r.answer, r.evidence)
+                       for r in mf.query_batch(wl.queries, mode=m)]
+                   for m in MODES}
+        torch.cuda.synchronize()
+        counts = read_counts(REPLACES)
+        check_mesh_launches(f"sharded: S=4 growth to {hi} sessions", counts,
+                            sharded_calls(sink, before), 4)
+        add_counts(total, counts)
+    fact_dev, _ = f.fact_index_device()
+    print(f"sharded: S=4 growth {'+'.join(map(str, SHARDED_GROWTH))} sessions "
+          f"{time.perf_counter() - t0:.2f} s index_uploads {up0} -> "
+          f"{f.index_uploads} index_grows {gr0} -> {f.index_grows} fact "
+          f"capacity {cap0} -> {f.fact_emb.shape[0]} (shards "
+          f"{[t.shape[0] for t in fact_dev.shards]}) matches: "
+          + compare_systems(ref4, mf, ref_answers, answers), flush=True)
+    need(f.index_uploads == up0, "growth under the mesh re-uploaded")
+    need(f.fact_emb.shape[0] > cap0 and f.index_grows > gr0,
+         "the sharded fact index did not grow under the mesh")
+    same_bits("sharded S=4", ref4, mf)
+    del mf, ref4
+
+    # over distinct cards: S = 2, and make_data_mesh's mesh of every card
+    n_cards = torch.cuda.device_count()
+    meshes = [DataMesh(("cuda:0", "cuda:1"))] if n_cards > 1 else []
+    if n_cards > 2:
+        meshes.append(make_data_mesh())
+    for mesh in meshes:
+        t0 = time.perf_counter()
+        mf, answers, counts = sharded_memory(torch, wl.sessions, wl.queries,
+                                             mesh, obs, sink)
+        add_counts(total, counts)
+        print(f"sharded: S={mesh.size} over {n_cards} cards "
+              f"{time.perf_counter() - t0:.2f} s matches: "
+              + compare_systems(base, mf, base_answers, answers), flush=True)
+        same_bits(f"sharded S={mesh.size} over cards", base, mf)
+        del mf
+    if not meshes:
+        print(f"sharded: {n_cards} card visible: no mesh over distinct cards")
+
+    check_cluster_plan(torch)
+    check_serve_cli()
+    print(f"sharded: phase_s={time.perf_counter() - t_phase:.2f}", flush=True)
+    return total
+
+
+def run_sharded_serve_memory(torch, mf, wl, sink):
+    """The serve phase's llama3-8b ``ModelEncoder`` memory (D = 4096): its
+    queries in the six modes without a mesh, then through a mesh of 2
+    shards on the card: equal answers and evidence, S launches of each
+    forest kernel per call. Returns the mesh run's counts."""
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import DataMesh
+
+    t0 = time.perf_counter()
+    base = {m: [(r.answer, r.evidence)
+                for r in mf.query_batch(wl.queries, mode=m)] for m in MODES}
+    mesh = DataMesh(("cuda:0",) * 2)
+    mf.set_mesh(mesh)
+    before = sharded_calls(sink, {})
+    kernels.reset_counts()
+    got = {m: [(r.answer, r.evidence)
+               for r in mf.query_batch(wl.queries, mode=m)] for m in MODES}
+    torch.cuda.synchronize()
+    counts = read_counts(REPLACES)
+    calls = sharded_calls(sink, before)
+    print(f"sharded: serve memory D={mf.config.embed_dim} facts="
+          f"{len(mf.forest.facts)} launches " + " ".join(
+              f"{k}={counts[k][0]} plain={counts[k][1]}"
+              for k in SLICE_KERNELS) + f" calls={calls}", flush=True)
+    need(counts["tree_refresh"][0] == 0 == calls["forest.tree_refresh"],
+         "a query under the mesh refreshed a tree")
+    need(counts["topk_sim"][0] == 3 * calls["retrieve.recall"]
+         and counts["browse_scores"][0] == 2 * calls["retrieve.browse_scores"]
+         and calls["retrieve.recall"] > 0,
+         "the serve memory's launches under the mesh are off")
+    need(all(counts[k][1] == 0 for k in SLICE_KERNELS),
+         "the serve memory ran a plain version under the mesh")
+    for m in MODES:
+        need(got[m] == base[m], f"serve memory under the mesh: answers or "
+             f"evidence differ in mode {m}")
+    mf.set_mesh(None)
+    print(f"sharded: serve memory S=2 matches mesh=None in {len(MODES)} "
+          f"modes, {time.perf_counter() - t0:.2f} s", flush=True)
+    return counts
+
+
 ABLATION_DIM = 256                # benchmarks/common.py's EMB_DIM
 ABLATION_SIZES = (64, 256, 1024)  # facts in one tree (Fig. 6a and 6c)
 K_SWEEP = (3, 4, 8, 16, 32, 64)   # branching factors (Fig. 6d/e)
@@ -2125,7 +2501,9 @@ def read_counts(names):
 
 
 def run_serve(torch, wl, seed):
-    """Phase 5 on llama3-8b (bf16, published width and depth)."""
+    """Phase 5 on llama3-8b (bf16, published width and depth); then its
+    memory's queries through a mesh of 2 shards (``run_sharded_serve_memory``).
+    Returns the traffic's launch counts and the mesh run's."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
@@ -2190,6 +2568,7 @@ def run_serve(torch, wl, seed):
          "encoder output has the wrong shape or is not finite")
     need(e1.tobytes() == e2.tobytes(), "two encodes of one batch differ")
     print(f"serve: encoder repeatable, {len(texts)} texts bitwise equal")
+    mesh_counts = run_sharded_serve_memory(torch, mf, wl, sink)
     del engine, mf
 
     # device busy time over a profiled repeat of the same traffic
@@ -2200,7 +2579,7 @@ def run_serve(torch, wl, seed):
         ingest_s + query_s, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     del engine, params
     torch.cuda.empty_cache()
-    return counts
+    return counts, mesh_counts
 
 
 def run_parity(torch, seed):
@@ -4324,15 +4703,21 @@ def main() -> int:
     cpu_mf, cpu_answers, cpu_ingest_s, cpu_query_s = run_slice(torch, wl, "cpu")
     print(f"slice: cpu rerun ingest_s={cpu_ingest_s:.4f} matches: "
           + compare_systems(mf, cpu_mf, answers, cpu_answers), flush=True)
-    del mf, cpu_mf
+    del cpu_mf
     stamp("slice")
+
+    # 4a. the slice memory through meshes on the card -----------------------
+    sharded_counts = run_sharded(torch, wl, mf, answers)
+    del mf
+    stamp("sharded")
 
     # 4b. the write-path ablations of Figure 6 ------------------------------
     ablation_counts = run_ablations(torch, wl)
     stamp("ablations")
 
     # 5. the serve engine on llama3-8b ---------------------------------------
-    serve_counts = run_serve(torch, wl, args.seed)
+    serve_counts, serve_mesh_counts = run_serve(torch, wl, args.seed)
+    add_counts(sharded_counts, serve_mesh_counts)
     stamp("serve")
 
     # 6. the same engine on the card and on the CPU --------------------------
@@ -4401,6 +4786,7 @@ def main() -> int:
     for k in REPLACES:
         r = results[k]
         by_path = {"slice": counts[k][0],
+                   "sharded": sharded_counts[k][0],
                    "ablations": ablation_counts[k][0],
                    "serve": serve_counts[k][0],
                    **{phase: c[k][0] for phase, c in ssm_counts.items()},

@@ -18,6 +18,12 @@ node embeddings stay host numpy, as in the JAX package, and the host
 ``tree.emb`` stays the source of truth; the node arena (``node_arena``) keeps
 a copy of every node embedding on the device, from which the browse's
 ``browse_scores_rows`` gathers a level's children by row id.
+
+Multi-device serve (``set_mesh``): with a ``DataMesh`` attached, the fact
+index is sharded round-robin over the mesh (``kernels/shard_ops.py``), the
+root index and the node arena are kept once per distinct device of the mesh,
+and each flush level's ``tree_refresh`` batch launches once per shard. The
+persistent state and the host derived state do not change with the mesh.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ import torch
 from repro_torch.config import MemForestConfig
 from repro_torch.core.memtree import TreeArena
 from repro_torch.core.types import CanonicalFact, DialogueCell
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, shard_ops
+from repro_torch.launch.mesh import DataMesh
 from repro_torch.obs import Observability, get_obs
 
 
@@ -77,12 +84,19 @@ class Forest:
         # of nodes synced; node ids below that count whose embedding the
         # host rewrote are dirty. Synced lazily by node_arena(): new rows in
         # a block copy per tree, rewritten rows in one scatter, capacity
-        # grown geometrically on the device.
-        self._arena = None
+        # grown geometrically on the device. One arena per device that reads
+        # it (``cache_devices()``); every sync writes each of them alike.
+        self._arenas: Dict[torch.device, torch.Tensor] = {}
         self._arena_used = 0
         self._arena_rows: Dict[int, np.ndarray] = {}
         self._arena_synced: Dict[int, int] = {}
         self._arena_dirty: Dict[int, Set[int]] = {}
+        # multi-device serve: when a mesh is attached (set_mesh), the fact
+        # index cache is ShardedRows (round-robin over the mesh's data axis),
+        # the root index cache is Replicated, as is the node arena (one per
+        # distinct device). mesh=None is the single-device path.
+        self.mesh: Optional[DataMesh] = None
+        self.mesh_axis = "data"
         # counters
         self.summary_refreshes = 0
         self.flush_levels = 0
@@ -242,6 +256,10 @@ class Forest:
         cap = 1
         while cap < P:
             cap *= 2
+        if self.mesh is not None:
+            # with a mesh the bucket pads up to a shard multiple, so the
+            # cross-tree batch splits evenly over the data axis
+            cap = shard_ops.pad_rows(cap, self._shards())
         with self.obs.span("forest.tree_refresh", parents=P, padded=cap):
             child_emb = np.zeros((cap, K, dim), np.float32)
             mask = np.zeros((cap, K), np.float32)
@@ -250,9 +268,13 @@ class Forest:
                 for j, c in enumerate(kids):
                     child_emb[i, j] = tree.emb[c]
                     mask[i, j] = 1.0
-            out = ops.tree_refresh(
-                torch.from_numpy(child_emb).to(self.device),
-                torch.from_numpy(mask).to(self.device))
+            if self.mesh is not None:
+                out = shard_ops.sharded_tree_refresh(
+                    child_emb, mask, mesh=self.mesh, axis=self.mesh_axis)
+            else:
+                out = ops.tree_refresh(
+                    torch.from_numpy(child_emb).to(self.device),
+                    torch.from_numpy(mask).to(self.device))
             # node embeddings live on the host: one copy back (and one wait
             # for the device) per tree level
             out = out.cpu().numpy()
@@ -301,15 +323,56 @@ class Forest:
         self._root_dev_dirty.add(tree.tree_id)
 
     # ------------------------------------------------------------------
+    # multi-device serve (mesh-sharded index + flush batches)
+    # ------------------------------------------------------------------
+    def set_mesh(self, mesh: Optional[DataMesh], axis: str = "data") -> None:
+        """Attach a serve mesh: the fact index shards round-robin over the
+        mesh's ``axis`` (``kernels/shard_ops`` layout), the root index and
+        the node arena are kept on each distinct device, and the flush and
+        browse batches launch once per shard. ``None`` (or a mesh whose data
+        axis is width 1) restores the single-device path. Resets the device
+        caches and the node arena, so the next sync uploads with the new
+        layout; persistent state is untouched, so results are identical
+        across any mesh change. A mesh's devices are of the forest's own
+        type: a CUDA forest never runs its kernels' plain versions on CPU
+        shards, nor a CPU forest on a card."""
+        if mesh is not None and shard_ops.mesh_shards(mesh, axis) <= 1:
+            mesh = None
+        if mesh is not None and mesh.devices[0].type != self.device.type:
+            raise ValueError(f"set_mesh: the forest runs on {self.device}, "
+                             f"the mesh on {[str(d) for d in mesh.devices]}")
+        self.mesh = mesh
+        self.mesh_axis = axis
+        self._drop_device_caches()
+
+    def _shards(self) -> int:
+        return shard_ops.mesh_shards(self.mesh, self.mesh_axis)
+
+    def cache_devices(self) -> Tuple[torch.device, ...]:
+        """The devices that hold the replicated caches: the mesh's distinct
+        devices, or the forest's own. The first one runs what is not
+        sharded (the root recall, the merge)."""
+        return self.mesh.distinct() if self.mesh is not None \
+            else (self.device,)
+
+    @property
+    def _arena(self) -> Optional[torch.Tensor]:
+        """The node arena on the first device (None when not materialized)."""
+        return self._arenas.get(self.cache_devices()[0])
+
+    # ------------------------------------------------------------------
     # residency: device-cache detach + footprint
     # ------------------------------------------------------------------
+    def _device_caches(self) -> List:
+        return [c for c in (self._fact_dev, self._root_dev, self._arena)
+                if c is not None]
+
     def device_bytes(self) -> int:
         """Bytes held by the device-resident caches (the capacity-padded
         fact and root indexes and the node arena). 0 when detached / never
-        materialized."""
-        return sum(t.numel() * t.element_size()
-                   for t in (self._fact_dev, self._root_dev, self._arena)
-                   if t is not None)
+        materialized. A sharded or replicated matrix counts once, by its
+        global shape, as the JAX package counts it."""
+        return sum(4 * int(np.prod(c.shape)) for c in self._device_caches())
 
     def estimated_device_bytes(self) -> int:
         """What the device caches would hold once materialized from host
@@ -323,100 +386,136 @@ class Forest:
             int(self.fact_emb.shape[0]) + int(self._root_matrix.shape[0])
             + arena_rows)
 
-    def detach_device(self) -> int:
-        """Release the device index caches and the node arena and return the
-        bytes released (``index_releases`` counts released tensors,
-        mirroring ``index_grows``).
-
-        Reattachment is transparent — the next ``fact_index_device()`` /
-        ``root_index_device()`` / ``node_arena()`` call re-uploads from host
-        state. Persistent and host derived state are unaffected; results are
-        identical across a detach/reattach round-trip."""
-        freed = self.device_bytes()
-        for arr in (self._fact_dev, self._root_dev, self._arena):
-            if arr is not None:
-                ops.release_rows(arr)
-                self.index_releases += 1
+    def _drop_device_caches(self) -> None:
         self._fact_dev = None
         self._fact_dev_rows = 0
         self._fact_dev_dirty.clear()
         self._root_dev = None
         self._root_dev_rows = 0
         self._root_dev_dirty.clear()
-        self._arena = None
+        self._arenas = {}
         self._arena_used = 0
         self._arena_rows.clear()
         self._arena_synced.clear()
         self._arena_dirty.clear()
+
+    def detach_device(self) -> int:
+        """Release the device index caches and the node arena, on every
+        shard and device, and return the bytes released
+        (``index_releases`` counts released caches, mirroring
+        ``index_grows``).
+
+        Reattachment is transparent — the next ``fact_index_device()`` /
+        ``root_index_device()`` / ``node_arena()`` call re-uploads from host
+        state. Persistent and host derived state are unaffected; results are
+        identical across a detach/reattach round-trip."""
+        freed = self.device_bytes()
+        # dropping the last reference gives the memory back to PyTorch's
+        # allocator, every shard's and every device's copy alike
+        self.index_releases += len(self._device_caches())
+        self._drop_device_caches()
         return freed
 
     # ------------------------------------------------------------------
     # device-resident normalized index views (retrieval hot path)
     # ------------------------------------------------------------------
     def _sync_device(self, host: np.ndarray, n: int, cached, synced_rows: int,
-                     dirty: Set[int]):
+                     dirty: Set[int], *, sharded: bool = False):
         """Bring one device index cache up to date with its host matrix.
-        Returns (device tensor, new synced row count).
+        Returns (device cache, new synced row count).
 
         Capacity growth is geometric and device-side: when the host matrix
-        outgrows the cached tensor, it gains zero rows (``ops.grow_rows``)
-        and only new/dirty rows are scattered — steady ingest never
-        re-uploads or re-normalizes the whole index. Full uploads happen only
-        on first use or a dim change.
+        outgrows the cached tensor, it gains zero rows (``ops.grow_rows``,
+        ``shard_ops.grow_sharded`` under a mesh) and only new/dirty rows are
+        scattered — steady ingest never re-uploads or re-normalizes the
+        whole index. Full uploads happen only on first use, a dim change, a
+        shrink or a mesh change.
 
-        The scatter writes the cached tensor IN PLACE (the JAX package
-        returns a new array instead): a tensor returned by an earlier call
+        With a mesh attached, ``sharded=True`` (the fact index) takes the
+        round-robin sharded layout (``shard_ops.ShardedRows``); the root
+        index is replicated (``shard_ops.Replicated``), one copy per
+        distinct device of the mesh.
+
+        The scatter writes the cached tensors IN PLACE (the JAX package
+        returns a new array instead): a cache returned by an earlier call
         sees the update."""
-        cap = host.shape[0]
+        mesh = self.mesh if sharded else None
+        cap = shard_ops.pad_rows(host.shape[0], self._shards() if sharded
+                                 else 1)
         if cached is not None and (cached.shape[1] != host.shape[1]
                                    or cached.shape[0] > cap):
             cached = None
         if cached is None:
             self.index_uploads += 1
             dirty.clear()
+            if mesh is not None:
+                return shard_ops.upload_sharded(host, cap, mesh,
+                                                self.mesh_axis), n
+            if self.mesh is not None:
+                return shard_ops.upload_replicated(host, self.mesh), n
             return ops.normalize_rows(torch.from_numpy(host).to(self.device)), n
         if cached.shape[0] < cap:
             self.index_grows += 1
-            cached = ops.grow_rows(cached, cap - cached.shape[0])
+            if mesh is not None:
+                cached = shard_ops.grow_sharded(cached, cap, mesh,
+                                                self.mesh_axis)
+            elif self.mesh is not None:
+                cached = cached.map(lambda t: ops.grow_rows(t, cap - t.shape[0]))
+            else:
+                cached = ops.grow_rows(cached, cap - cached.shape[0])
         rows = sorted(set(r for r in dirty if r < n)
                       | set(range(synced_rows, n)))
         dirty.clear()
         if not rows:
             return cached, n
         # the update is bucketed to a power of two as in the JAX package;
-        # padding entries carry the out-of-bounds drop sentinel host.shape[0]
+        # padding entries carry a drop sentinel (out of bounds on one
+        # device, -1 in the sharded layout)
         ucap = 1
         while ucap < len(rows):
             ucap *= 2
-        idx = np.full(ucap, host.shape[0], np.int64)
+        idx = np.full(ucap, -1 if mesh is not None else host.shape[0],
+                      np.int64)
         idx[: len(rows)] = rows
         upd = np.zeros((ucap, host.shape[1]), np.float32)
         upd[: len(rows)] = host[rows]
         self.index_row_updates += 1
+        if mesh is not None:
+            return shard_ops.sharded_scatter_rows(
+                cached, idx, upd, mesh=mesh, axis=self.mesh_axis), n
+        idx_t, upd_t = torch.from_numpy(idx), torch.from_numpy(upd)
+        if self.mesh is not None:
+            for d, t in cached.copies.items():
+                ops.scatter_normalize_rows(t, idx_t.to(d), upd_t.to(d))
+            return cached, n
         return ops.scatter_normalize_rows(
-            cached, torch.from_numpy(idx).to(self.device),
-            torch.from_numpy(upd).to(self.device)), n
+            cached, idx_t.to(self.device), upd_t.to(self.device)), n
 
     def fact_index_device(self):
         """(device-resident L2-normalized fact matrix, valid count). Use with
         ``topk_sim(..., normalize=False)``; rows are normalized with the same
-        formula the kernel wrapper applies."""
+        formula the kernel wrapper applies.
+
+        With a mesh attached the matrix is ``shard_ops.ShardedRows`` and is
+        scanned through ``shard_ops.sharded_topk_sim`` (which returns global
+        row ids); the Retriever dispatches on ``forest.mesh``."""
         n = len(self.facts)
         self._fact_dev, self._fact_dev_rows = self._sync_device(
             self.fact_emb, n, self._fact_dev, self._fact_dev_rows,
-            self._fact_dev_dirty)
+            self._fact_dev_dirty, sharded=True)
         return self._fact_dev, n
 
     def root_index_device(self):
         """(device-resident normalized root matrix, valid count, tree order).
-        Same contract as fact_index_device for the tree-root index."""
+        Same contract as fact_index_device for the tree-root index; with a
+        mesh attached the matrix is ``shard_ops.Replicated``."""
         n = len(self._tree_order)
         self._root_dev, self._root_dev_rows = self._sync_device(
             self._root_matrix, n, self._root_dev, self._root_dev_rows,
             self._root_dev_dirty)
         return self._root_dev, n, list(self._tree_order)
 
-    def node_arena(self) -> Tuple[torch.Tensor, Dict[int, np.ndarray]]:
+    def node_arena(self) -> Tuple[object, Dict[int, np.ndarray]]:
         """(device node arena (rows_cap, D) float32, {tree_id: arena row of
         each node id}) with every node of every tree at its host value.
 
@@ -429,7 +528,11 @@ class Forest:
         round so costs at most one upload of the rows it changed; capacity
         grows geometrically on the device (``ops.grow_rows``). The rows are
         the raw ``tree.emb`` rows, not normalized. The arena is written IN
-        PLACE."""
+        PLACE.
+
+        With a mesh attached the arena is a ``shard_ops.Replicated``: one
+        tensor per distinct device of the mesh, each written alike (shards
+        on one device share its tensor)."""
         blocks: List[Tuple[int, np.ndarray]] = []   # (first row, new rows)
         idx: List[np.ndarray] = []
         upd: List[np.ndarray] = []
@@ -463,28 +566,34 @@ class Forest:
                                          self._arena_used + n - kept)
                 self._arena_used += n - kept
             self._arena_synced[tid] = n
-        if self._arena is None or self._arena.shape[0] < self._arena_used:
-            cap = 0 if self._arena is None else self._arena.shape[0]
+        devices = self.cache_devices()
+        arena = self._arena
+        if arena is None or arena.shape[0] < self._arena_used:
+            cap = 0 if arena is None else arena.shape[0]
             new_cap = max(self._arena_used, 2 * cap, 256)
-            if self._arena is None:
-                self._arena = torch.zeros((new_cap, self.config.embed_dim),
-                                          dtype=torch.float32,
-                                          device=self.device)
+            if arena is None:
+                self._arenas = {d: torch.zeros(
+                    (new_cap, self.config.embed_dim), dtype=torch.float32,
+                    device=d) for d in devices}
             else:
                 self.index_grows += 1
-                self._arena = ops.grow_rows(self._arena, new_cap - cap)
+                self._arenas = {d: ops.grow_rows(t, new_cap - cap)
+                                for d, t in self._arenas.items()}
         if blocks or idx:
             count = sum(b.shape[0] for _, b in blocks) + sum(map(len, idx))
             with self.obs.span("forest.node_arena", rows=count):
                 self.arena_syncs += 1
-                for first, block in blocks:
-                    self._arena[first:first + block.shape[0]].copy_(
-                        torch.from_numpy(block))
                 if idx:
-                    ops.scatter_rows(
-                        self._arena,
-                        torch.from_numpy(np.concatenate(idx)).to(self.device),
-                        torch.from_numpy(np.concatenate(upd)).to(self.device))
+                    idx_t = torch.from_numpy(np.concatenate(idx))
+                    upd_t = torch.from_numpy(np.concatenate(upd))
+                for d, t in self._arenas.items():
+                    for first, block in blocks:
+                        t[first:first + block.shape[0]].copy_(
+                            torch.from_numpy(block))
+                    if idx:
+                        ops.scatter_rows(t, idx_t.to(d), upd_t.to(d))
+        if self.mesh is not None:
+            return shard_ops.Replicated(self._arenas), self._arena_rows
         return self._arena, self._arena_rows
 
     # ------------------------------------------------------------------

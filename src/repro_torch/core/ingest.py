@@ -24,6 +24,13 @@ The resulting forest state is equivalent to sequentially ingesting the same
 sessions in the same order (same facts, same tree structure, same query
 answers) while encoder forwards
 and refresh kernel launches stop scaling with the number of sessions.
+
+Multi-device serve: when the Forest carries a mesh (``Forest.set_mesh``),
+the flush's per-level ``tree_refresh`` batches are additionally padded to a
+shard multiple and sharded over the mesh's data axis inside
+``Forest._refresh_batch`` — nothing changes here, and the refreshed
+embeddings are bitwise identical to the mesh=None flush (per-parent math is
+row-local; see kernels/shard_ops.py).
 """
 from __future__ import annotations
 

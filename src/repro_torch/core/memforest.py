@@ -164,6 +164,18 @@ class MemForestSystem:
         return out
 
     # ------------------------------------------------------------------
+    # multi-device serve
+    # ------------------------------------------------------------------
+    def set_mesh(self, mesh, axis: str = "data") -> None:
+        """Shard the serve path across ``mesh``'s data axis (a
+        ``launch.mesh.DataMesh``): the fact index (rows round-robin, roots
+        replicated), the browse-lane frontier, and the flush's cross-tree
+        refresh batches. ``None`` restores the single-device path. Results
+        are identical either way — placement is the only thing that changes
+        (kernels/shard_ops)."""
+        self.forest.set_mesh(mesh, axis)
+
+    # ------------------------------------------------------------------
     # stats and device residency
     # ------------------------------------------------------------------
     def scale_stats(self) -> Dict[str, int]:
@@ -229,8 +241,10 @@ class MemForestSystem:
     def adopt(self, forest: Forest) -> None:
         """Serve ``forest`` (restored from a document with this system's
         config) in place of this system's own; it reports to this system's
-        registry."""
+        registry. A mesh this system serves through carries over."""
         forest.obs = self.obs
+        if self.forest.mesh is not None:
+            forest.set_mesh(self.forest.mesh, self.forest.mesh_axis)
         self.forest = forest
         self.retriever.forest = forest
         self.batcher.forest = forest

@@ -31,6 +31,14 @@ vectorized numpy over the frontier (with per-node content-word sets memoized
 on the TreeArena). ``retrieve`` and ``retrieve_batch`` share this engine, so
 batched results are identical to the single-query path by construction.
 
+Multi-device serve: when the Forest carries a mesh (``Forest.set_mesh``),
+the fact-index scan runs shard-local + a candidate merge
+(``shard_ops.sharded_topk_sim``) and each browse level's frontier shards over
+the same data axis (``shard_ops.sharded_browse_scores_rows``), every shard
+gathering from the node arena on its own device; both give results identical
+to mesh=None (the shared tie-break: score desc, row id asc). The root recall
+stays one launch on the mesh's first device.
+
 The answerer is SHARED across all memory systems benchmarked (baselines
 included): given retrieved canonical facts it applies query semantics
 (current/before/when/first). Accuracy therefore measures retrieval quality —
@@ -50,7 +58,7 @@ from repro_torch.core.forest import Forest
 from repro_torch.core.memtree import TreeArena, content_words as _content_words
 from repro_torch.core.types import CanonicalFact, Query
 from repro_torch.data import templates as T
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, shard_ops
 
 _BEFORE_RE = re.compile(r"before (?:moving to |becoming |project )?([A-Za-z ]+?)\?")
 _WHEN_RE = re.compile(r"^When did")
@@ -152,14 +160,25 @@ class Retriever:
         with obs.span("retrieve.recall"):
             fact_dev, n_facts = self.forest.fact_index_device()
             root_dev, n_trees, order = self.forest.root_index_device()
-            qd = ops.normalize_rows(
-                torch.from_numpy(q_embs).to(self.forest.device))
+            mesh = self.forest.mesh
+            if mesh is not None:
+                root_dev = root_dev.first
+            qd = ops.normalize_rows(torch.from_numpy(q_embs).to(
+                self.forest.cache_devices()[0]))
 
             flat_idx = None
             if n_facts:
                 k_facts = min(max(topk, cfg.fact_recall_topk), n_facts)
-                _, flat_idx = ops.topk_sim(qd, fact_dev, k_facts,
-                                           normalize=False, num_valid=n_facts)
+                if mesh is not None:
+                    # shard-local top-k over the round-robin sharded fact
+                    # index + a candidate merge on the first device
+                    _, flat_idx = shard_ops.sharded_topk_sim(
+                        qd, fact_dev, k_facts, mesh=mesh,
+                        axis=self.forest.mesh_axis, num_valid=n_facts)
+                else:
+                    _, flat_idx = ops.topk_sim(qd, fact_dev, k_facts,
+                                               normalize=False,
+                                               num_valid=n_facts)
                 flat_idx = flat_idx.cpu().numpy()
             root_vals = root_idx = None
             if n_trees:
@@ -319,8 +338,11 @@ class Retriever:
                 for i, lane in enumerate(lanes):
                     lane.index = i
                 q_rows = torch.from_numpy(np.stack(
-                    [lane.q for lane in lanes]).astype(np.float32)).to(
-                        arena.device)
+                    [lane.q for lane in lanes]).astype(np.float32))
+                if self.forest.mesh is not None:
+                    q_rows = shard_ops.replicate(q_rows, self.forest.mesh)
+                else:
+                    q_rows = q_rows.to(arena.device)
                 device_side = (arena, row_maps, q_rows)
             sims_rows = self._score_frontier(frontier, *device_side)
             for (lane, node), sims in zip(frontier, sims_rows):
@@ -339,13 +361,17 @@ class Retriever:
             active = [lane for lane in active if lane.beam]
 
     def _score_frontier(self, frontier: List[Tuple[_Lane, int]],
-                        arena: torch.Tensor, row_maps: Dict[int, np.ndarray],
-                        q_rows: torch.Tensor) -> List[np.ndarray]:
+                        arena, row_maps: Dict[int, np.ndarray],
+                        q_rows) -> List[np.ndarray]:
         """Score every (entry, child) pair of the frontier in a single kernel
         launch that gathers the children from the node arena. Shapes are
         bucketed to powers of two (F >= 8, K >= 4) as in the JAX package;
         padded slots carry row -1 (score 0). One host buffer holds the row
-        ids, the mask and the lane ids: one upload of F*K*8 + F*4 bytes."""
+        ids, the mask and the lane ids: one upload of F*K*8 + F*4 bytes.
+
+        With a mesh (``arena`` and ``q_rows`` then ``shard_ops.Replicated``)
+        F pads up to a shard multiple, the buffer goes once to each distinct
+        device, and each shard launches over its block of F/S entries."""
         F = len(frontier)
         kmax = max(len(lane.tree.children[n]) for lane, n in frontier)
         k_pad = 4
@@ -354,6 +380,10 @@ class Retriever:
         cap = 8
         while cap < F:
             cap *= 2
+        mesh = self.forest.mesh
+        if mesh is not None:
+            cap = shard_ops.pad_rows(
+                cap, shard_ops.mesh_shards(mesh, self.forest.mesh_axis))
         fk = cap * k_pad
         buf = np.zeros(2 * fk + cap, np.int32)
         rows = buf[:fk].reshape(cap, k_pad)
@@ -368,10 +398,19 @@ class Retriever:
         self.browse_launches += 1
         with self.forest.obs.span("retrieve.browse_scores", frontier=F,
                                   padded=cap):
-            up = torch.from_numpy(buf).to(arena.device)
-            sims = ops.browse_scores_rows(
-                arena, up[:fk].view(cap, k_pad), q_rows, up[2 * fk:],
-                up[fk:2 * fk].view(torch.float32).view(cap, k_pad))
+            if mesh is not None:
+                up = shard_ops.replicate(buf, mesh)
+                sims = shard_ops.sharded_browse_scores_rows(
+                    arena, up.map(lambda u: u[:fk].view(cap, k_pad)), q_rows,
+                    up.map(lambda u: u[2 * fk:]),
+                    up.map(lambda u: u[fk:2 * fk].view(torch.float32).view(
+                        cap, k_pad)),
+                    mesh=mesh, axis=self.forest.mesh_axis)
+            else:
+                up = torch.from_numpy(buf).to(arena.device)
+                sims = ops.browse_scores_rows(
+                    arena, up[:fk].view(cap, k_pad), q_rows, up[2 * fk:],
+                    up[fk:2 * fk].view(torch.float32).view(cap, k_pad))
             sims = sims.cpu().numpy()
         return [sims[i, : len(lane.tree.children[n])]
                 for i, (lane, n) in enumerate(frontier)]

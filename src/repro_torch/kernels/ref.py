@@ -77,18 +77,37 @@ def merge_topk(vals: torch.Tensor, idx: torch.Tensor, k: int):
                               torch.full_like(out_i, -1))
 
 
+SCORE_BLOCK = 256     # keys per product of ``topk_sim_ref``'s scores
+
+
+def block_scores(qf: torch.Tensor, kf: torch.Tensor) -> torch.Tensor:
+    """``qf @ kf.T``, one product per ``SCORE_BLOCK`` keys with the last
+    block zero-padded: every product has one shape, so a key's score is the
+    same bits whichever keys stand beside it. A shard's rows then score as
+    they do in the whole index (``shard_ops.sharded_topk_sim``); one product
+    over all N keys would let the matmul's blocking follow N."""
+    N = kf.shape[0]
+    if N == 0:
+        return qf.new_zeros((qf.shape[0], 0))
+    pad = -N % SCORE_BLOCK
+    if pad:
+        kf = torch.cat([kf, kf.new_zeros((pad, kf.shape[1]))])
+    return torch.cat([qf @ kf[i:i + SCORE_BLOCK].T
+                      for i in range(0, N + pad, SCORE_BLOCK)], dim=1)[:, :N]
+
+
 def topk_sim_ref(queries: torch.Tensor, keys: torch.Tensor, k: int, *,
                  normalize: bool = True, num_valid=None):
     """Cosine top-k: (Q, D) x (N, D) -> (Q, k) float32 values and int32 key
     indices, ordered by (score desc, index asc). Keys at or past
     ``num_valid`` score ``NEG_INF``; a slot whose value is ``NEG_INF`` gets
-    index -1."""
+    index -1. The scores come from ``block_scores``."""
     qf = queries.to(torch.float32)
     kf = keys.to(torch.float32)
     if normalize:
         qf = normalize_rows(qf)
         kf = normalize_rows(kf)
-    scores = qf @ kf.T
+    scores = block_scores(qf, kf)
     if num_valid is not None:
         cols = torch.arange(scores.shape[1], device=scores.device)[None, :]
         scores = torch.where(cols < int(num_valid), scores,

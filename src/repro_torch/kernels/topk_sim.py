@@ -34,23 +34,35 @@ MAX_SPLITS = 256       # lists per row the merge walks
 SPLIT_K_SLICE = 128    # slices at least this deep: each warp a quarter of a stage
 
 
-def plan_splits(Q: int, num_valid: int, D: int, sm_count: int):
-    """(keys per split, splits, cluster, slice, split_k) of one launch.
-
-    The valid keys are cut into tiles of ``KEY_TILE``. While the query
-    blocks times the tiles times the cluster leave SMs without a block, the
-    cluster doubles (up to ``MAX_CLUSTER``, each slice of D at least
-    ``SLICE`` deep). The splits, whole numbers of tiles, then aim at
-    ``BLOCKS_PER_SM`` blocks an SM, at most ``MAX_SPLITS`` of them, none
-    empty. ``slice`` is a multiple of 4 and no rank's slice is empty. With
-    slices of ``SPLIT_K_SLICE`` or more, ``split_k`` cuts each tile over the
-    warps by depth."""
+def plan_cluster(Q: int, num_valid: int, D: int, sm_count: int) -> int:
+    """Blocks per cluster: while the query blocks times the tiles times the
+    cluster leave SMs without a block, the cluster doubles (up to
+    ``MAX_CLUSTER``, each slice of D at least ``SLICE`` deep)."""
     tiles = max(1, -(-num_valid // KEY_TILE))
     q_blocks = max(1, -(-Q // QUERY_BLOCK))
     cluster = 1
     while (cluster < MAX_CLUSTER and cluster * q_blocks * tiles < sm_count
            and D >= 2 * cluster * SLICE):
         cluster *= 2
+    return cluster
+
+
+def plan_splits(Q: int, num_valid: int, D: int, sm_count: int,
+                cluster=None):
+    """(keys per split, splits, cluster, slice, split_k) of one launch.
+
+    The valid keys are cut into tiles of ``KEY_TILE``; the cluster is
+    ``plan_cluster``'s unless given. The splits, whole numbers of tiles,
+    then aim at ``BLOCKS_PER_SM`` blocks an SM, at most ``MAX_SPLITS`` of
+    them, none empty. ``slice`` is a multiple of 4 and no rank's slice is
+    empty. With slices of ``SPLIT_K_SLICE`` or more, ``split_k`` cuts each
+    tile over the warps by depth. The cluster alone fixes the order in
+    which a score is summed (the slices, ``split_k``): a given cluster
+    scores a key in the same bits whatever the splits and tiles."""
+    tiles = max(1, -(-num_valid // KEY_TILE))
+    q_blocks = max(1, -(-Q // QUERY_BLOCK))
+    if cluster is None:
+        cluster = plan_cluster(Q, num_valid, D, sm_count)
     want = max(1, min(tiles, MAX_SPLITS,
                       (BLOCKS_PER_SM * sm_count) // (q_blocks * cluster)))
     tiles_per_split = -(-tiles // want)
@@ -60,7 +72,10 @@ def plan_splits(Q: int, num_valid: int, D: int, sm_count: int):
 
 
 def topk_sim(queries: torch.Tensor, keys: torch.Tensor, k: int, *,
-             normalize: bool = True, num_valid=None):
+             normalize: bool = True, num_valid=None, cluster=None):
+    """``cluster`` (CUDA only) replaces ``plan_cluster``'s: a shard of a
+    sharded index launches with the cluster of the whole index's launch, so
+    its scores carry the same bits (``shard_ops.sharded_topk_sim``)."""
     if queries.dim() != 2 or keys.dim() != 2 or queries.shape[1] != keys.shape[1]:
         raise ValueError("topk_sim: expected queries (Q, D) and keys (N, D), "
                          f"got {tuple(queries.shape)} and {tuple(keys.shape)}")
@@ -88,7 +103,7 @@ def topk_sim(queries: torch.Tensor, keys: torch.Tensor, k: int, *,
     queries, keys = (_build.tma_ready(x, align=4) for x in (queries, keys))
     D = queries.shape[1]
     per_split, splits, cluster, slice_, split_k = plan_splits(
-        Q, nv, D, _build.sm_count(dev))
+        Q, nv, D, _build.sm_count(dev), cluster)
     cand_v = cand_i = counters = None   # the merge's scratch, with splits > 1
     n_counters = 0
     if splits > 1:

@@ -1,2 +1,3 @@
-"""Launch side of the port: the roofline model (``roofline``) and the
-training driver (``train``)."""
+"""Launch side of the port: the roofline model (``roofline``), the training
+entry point (``train``), the serving entry point (``serve``) and the serve
+mesh (``mesh``)."""

@@ -31,8 +31,14 @@ on a decode step. ``tenant=None`` requests use the engine's single
 plane is attached (its worker may flush or demote a tenant's forest): the
 plane's lock first, then the manager's.
 
-Not ported yet (ROADMAP.md): the multi-device ``sharded`` serve path (queue
-1, item 5).
+Multi-device serve: pass ``sharded=ShardedServeConfig(devices=N)`` to shard
+the memory system's serve path over a 1-D data mesh of N cards
+(``launch.mesh.make_data_mesh`` + ``MemForestSystem.set_mesh``): fact-index
+rows round-robin across cards with shard-local top-k + candidate merge, the
+browse frontier and the flush batches split over the same axis. Results are
+exactly identical to single-device serve (kernels/shard_ops.py); with fewer
+than 2 cards the config degrades to the mesh=None path. A mesh over one
+card (``DataMesh(("cuda:0",) * S)``) goes to ``memory.set_mesh`` directly.
 
 KV cache and prefill reuse. The model writes each decode step's K/V rows
 (and, for rwkv6 and zamba2, its recurrent state) into the live cache IN
@@ -58,6 +64,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.models.factory import Model
 from repro_torch.obs import Observability, get_obs
 
@@ -103,12 +110,21 @@ class PrefixCache:
         self.entries[(key, sig)] = (logits, cache)
 
 
+@dataclass(frozen=True)
+class ShardedServeConfig:
+    """Multi-device serve knobs. ``devices=0`` means all visible cards;
+    anything that resolves to <2 cards falls back to single-device."""
+    devices: int = 0
+    axis: str = "data"
+
+
 class ServeEngine:
     def __init__(self, model: Model, params, *, max_batch: int = 8,
                  max_len: int = 512, eos_id: int = 2,
                  memory=None, max_ingest_batch: int = 16,
                  max_query_batch: int = 32,
                  maintenance=None, maintenance_budget: int = 1,
+                 sharded: Optional[ShardedServeConfig] = None,
                  residency=None, residency_budget: int = 1,
                  obs: Optional[Observability] = None):
         self.model = model
@@ -141,6 +157,12 @@ class ServeEngine:
         self._h_query_wait = reg.histogram("serve/query_wait_s")
         self._h_decode_request = reg.histogram("serve/decode_request_s")
         self.memory = memory
+        # multi-device serve: attach a data mesh to the memory system so the
+        # ingest/query drains below run the sharded serve path transparently
+        self.serve_mesh = None
+        if sharded is not None and memory is not None:
+            self.serve_mesh = make_data_mesh(sharded.devices, sharded.axis)
+            memory.set_mesh(self.serve_mesh, sharded.axis)
         self.max_ingest_batch = max_ingest_batch
         self.ingest_queue: List = []
         self.max_query_batch = max_query_batch
@@ -514,6 +536,8 @@ class ServeEngine:
             "query_wait_p99_s": self._h_query_wait.quantile(0.99),
             "maintenance_turns": self._m_maintenance_turns.value,
             "residency_turns": self._m_residency_turns.value,
+            "serve_devices": (self.serve_mesh.size
+                              if self.serve_mesh is not None else 1),
             **(self.maintenance.metrics() if self.maintenance is not None else {}),
             # hot_tenants, evictions, rehydrations, digest_answers,
             # device_bytes(_est), ...

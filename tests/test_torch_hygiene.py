@@ -51,7 +51,13 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.training.optimizer, "
             "repro_torch.training.grad_compress, "
             "repro_torch.training.train_loop, repro_torch.data.pipeline, "
-            "repro_torch.tree, repro_torch.kernels.flash_attention; "
+            "repro_torch.tree, repro_torch.kernels.flash_attention, "
+            "repro_torch.launch.mesh, repro_torch.kernels.shard_ops, "
+            "repro_torch.launch.serve, repro_torch.examples, "
+            "repro_torch.examples.quickstart, "
+            "repro_torch.examples.serve_memforest, "
+            "repro_torch.examples.migration_merge, "
+            "repro_torch.examples.train_lm; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); "
             "sys.exit(1 if bad else 0)")
