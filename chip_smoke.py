@@ -253,7 +253,21 @@ Phases, each printed on its own line; any failed check exits nonzero:
               ``checkpoint.save``: it ends within 1e-6 of an uninterrupted
               run (not bitwise: the embedding gather's backward adds with
               atomics on the card).
-  22. kernels one line per kernel, and the JSON summary of all of them.
+  22. sharded_train  tensor- and expert-parallel training with ZeRO-1 on a
+              (data, model) = (2, 2) mesh (``launch.mesh``,
+              ``training.train_loop.shard_train_state``, the step under
+              ``activate_mesh``), bf16 with remat at B x S = 8 x 512:
+              llama3-8b and olmoe-1b-7b at published width. With four
+              cards visible or more the mesh is over the first four and
+              both models run whole for 8 steps; on one card the mesh
+              repeats it, llama3-8b cut to 2 layers and olmoe-1b-7b to 4,
+              3 steps. Every loss finite, every parameter a finite nonzero
+              gradient; per position and step ``flash_attention`` launches 2
+              x layers times and ``flash_attention_bwd`` layers times; each
+              card's peak memory, the step's ms and idle share. Then
+              float32 at the smoke configs: the card's (2, 2) run equals the
+              CPU's after 2 steps.
+  23. kernels one line per kernel, and the JSON summary of all of them.
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a
 visible CUDA device, or without the rest of the repository beside it, the
@@ -264,6 +278,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import os
 import re
 import statistics
@@ -826,6 +841,12 @@ def check_kernels(torch, peaks, seed: int):
                               "whisper encoder", gen=g_new)
     flash_case(8, 16, 8, 8, 64, True, bf16, True, "whisper prefill",
                gen=g_new)
+    # the sharded_train phase's per-shard shapes at model = 2 (B = 8 over
+    # data = 2, the heads over model = 2), from a generator of their own so
+    # that the rows after them draw what they drew before
+    g_shard = torch.Generator(device=dev).manual_seed(seed + 27)
+    for B, S, Hq, Hkv, D, what in SHARD_ATTENTION:
+        flash_case(B, S, Hq, Hkv, D, True, bf16, True, what, gen=g_shard)
 
     # -- decode_attention ---------------------------------------------------
     def decode_case(B, Smax, Hq, Hkv, D, lengths, dt, main, what, gen=g):
@@ -1147,6 +1168,10 @@ def check_kernels(torch, peaks, seed: int):
 # is 16 wide (72), a group of 128 (two head chunks of 64); then zamba2's
 # shared attention in the train_zamba2 phase (head dim 112: seven k16 steps
 # a product).
+# the attention of the sharded_train phase at a model width of 2: (B, S,
+# Hq, Hkv, D, what), one position's data shard and heads
+SHARD_ATTENTION = ((4, 512, 16, 4, 128, "llama3-8b model=2 shard"),
+                   (4, 512, 8, 8, 128, "olmoe-1b-7b model=2 shard"))
 BWD_ROWS = (
     (8, 512, 32, 32, 96, True, "bf16", True, "phi3 train"),
     (8, 512, 32, 8, 128, True, "bf16", False, "llama GQA"),
@@ -1160,6 +1185,8 @@ BWD_ROWS = (
     (2, 77, 8, 2, 72, True, "bf16", False, "head dim 72"),
     (1, 40, 128, 1, 64, True, "bf16", False, "group of 128"),
     (8, 512, 32, 32, 112, True, "bf16", True, "zamba2 train"),
+    (4, 512, 16, 4, 128, True, "bf16", True, "llama3-8b model=2 shard"),
+    (4, 512, 8, 8, 128, True, "bf16", True, "olmoe-1b-7b model=2 shard"),
 )
 # the forward's log-sum-exp (log2 units) against attention_lse_ref: f32, the
 # same CUDA-core sums as the output; bf16, the tensor cores' f32 sums of D
@@ -4525,6 +4552,258 @@ def run_train_parity(torch, seed):
     return {k: (n, 0) for k, n in total.items()}
 
 
+# sharded_train: (arch, layers on one card) at published width; both run
+# whole with four cards. On one card the (2, 2) mesh repeats it, and the
+# data-replicated blocks are stored once per position: llama3-8b at 2 layers
+# (1.49e9 parameters, about 24 GB of states so) and olmoe-1b-7b at 4 of its
+# 16 (1.88e9).
+SHARDED_TRAIN = (("llama3_8b", 2), ("olmoe_1b_7b", 4))
+SHARDED_MESH = (2, 2)
+SHARDED_STEPS = {False: 3, True: 8}         # by whether the cards are four
+SHARDED_PARITY_STEPS = 2
+
+
+def sync_all(torch, mesh) -> None:
+    for d in mesh.distinct():
+        torch.cuda.synchronize(d)
+
+
+def sharded_state(torch, model, mesh, seed):
+    """The train state of ``model`` placed on ``mesh``: the parameters made
+    on the mesh's first device, the moments as zeros that only each
+    position's block of materialises."""
+    from repro_torch.training.train_loop import shard_train_state
+    from repro_torch.tree import map_tree
+
+    dev = mesh.devices[0]
+    params = model.init(seed, device=dev)
+
+    def zeros(p):
+        return torch.zeros((), dtype=torch.float32, device=dev).expand(p.shape)
+
+    state = {"params": params, "opt": {
+        "m": map_tree(zeros, params), "v": map_tree(zeros, params),
+        "step": torch.zeros((), dtype=torch.int32, device=dev)}}
+    return shard_train_state(state, mesh, model.cfg)
+
+
+def run_sharded_train(torch, wl, seed):
+    """Phase 22: llama3-8b and olmoe-1b-7b through the port's sharded train
+    step on a (2, 2) mesh, then the smoke configs' card-against-CPU parity.
+    Returns the launch counts of the timed steps."""
+    from repro_torch import kernels
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.mesh import activate_mesh, make_mesh
+    from repro_torch.launch.sharding import Sharded
+    from repro_torch.models import get_model
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.tree import leaves_with_paths
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    four = torch.cuda.device_count() >= 4
+    # with four cards or more, the first four: one card a position
+    mesh = make_mesh(SHARDED_MESH, ("data", "model"),
+                     None if four else "cuda:0")
+    need(tuple(mesh.dims) == SHARDED_MESH, f"sharded_train: mesh {mesh.dims}")
+    steps = SHARDED_STEPS[four]
+    cards = mesh.distinct()
+    print(f"sharded_train: mesh {mesh.shape} over "
+          + ", ".join(str(d) for d in mesh.devices) + f", {steps} steps, "
+          f"card {card_line()}", flush=True)
+    corpus = [t.text for s in wl.sessions for t in s.turns]
+    total = {k: 0 for k in REPLACES}
+    for arch, layers in SHARDED_TRAIN:
+        t_model = time.perf_counter()
+        for d in cards:
+            torch.zeros((), device=d)    # the allocator of a card not used yet
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(d)
+        cfg = get_config(arch)
+        if not four:
+            cfg = cfg.replace(num_layers=layers)
+        need(cfg.remat and cfg.dtype == "bfloat16", f"sharded_train: "
+             f"{cfg.name}'s config must train in bf16 with remat")
+        model = get_model(cfg)
+        tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                           total_steps=steps)
+        state = sharded_state(torch, model, mesh, seed)
+        torch.cuda.empty_cache()
+        n_params = sum(math.prod(w.shape)
+                       for _, w in leaves_with_paths(state["params"]))
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH, seed=seed,
+                             corpus=corpus)
+        batches = [{k: torch.from_numpy(v).to(mesh.devices[0])
+                    for k, v in pipe.batch_at(i).items()}
+                   for i in range(steps + 1)]
+        step_fn = make_train_step(model, tcfg)
+        real_update = opt_mod.adamw_update
+        seen = []
+
+        def inspecting(params, grads, st, c, **kw):
+            seen.extend(leaves_with_paths(grads))
+            return real_update(params, grads, st, c, **kw)
+
+        sync_all(torch, mesh)
+        init_s = time.perf_counter() - t_model
+        kernels.reset_counts()
+        metrics, step_ms = [], []
+        for i in range(steps):
+            if i == 0:
+                opt_mod.adamw_update = inspecting
+            try:
+                t0 = time.perf_counter()
+                with activate_mesh(mesh):
+                    state, m = step_fn(state, batches[i])
+                sync_all(torch, mesh)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                opt_mod.adamw_update = real_update
+            if i == 0:
+                bad = [path for path, g in seen if not isinstance(g, Sharded)
+                       or not all(bool(torch.isfinite(t).all())
+                                  for t in g.parts)
+                       or not any(bool((t != 0).any()) for t in g.parts)]
+                need(len(seen) == len(leaves_with_paths(state["params"]))
+                     and not bad, f"sharded_train {cfg.name}: parameters "
+                     f"without a finite nonzero gradient: {bad[:6]}")
+                print(f"sharded_train: {cfg.name} first step gradients "
+                      f"present, finite and nonzero for all {len(seen)} "
+                      "parameters", flush=True)
+                del seen[:]
+            metrics.append(m)
+        counts = read_counts(REPLACES)
+        losses = [float(m["loss"]) for m in metrics]
+        gnorms = [float(m["grad_norm"]) for m in metrics]
+        need(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+             f"sharded_train {cfg.name}: a loss or grad_norm is not finite: "
+             f"{losses} {gnorms}")
+        check_launches(f"sharded_train {cfg.name}", counts,
+                       ("flash_attention", "flash_attention_bwd"))
+        want = train_launches(cfg)
+        for k, n in want.items():
+            need(counts[k][0] == n * mesh.size * steps, f"sharded_train "
+                 f"{cfg.name}: {k} launched {counts[k][0]} times in {steps} "
+                 f"steps on {mesh.size} positions, want "
+                 f"{n * mesh.size * steps}")
+        for k in total:
+            total[k] += counts[k][0]
+        peaks = [torch.cuda.max_memory_allocated(d) / 1e9 for d in cards]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with activate_mesh(mesh):
+                state, _ = step_fn(state, batches[steps])
+            sync_all(torch, mesh)
+            prof_s = time.perf_counter() - t0
+        busy_s, top = device_busy(prof)
+        idle = (max(0.0, 1.0 - busy_s / (prof_s * len(cards)))
+                if busy_s > 0 else None)
+        med = statistics.median(step_ms[1:])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        print(f"sharded_train: {cfg.name} params={n_params} "
+              f"layers={cfg.num_layers} B={TRAIN_BATCH} S={TRAIN_SEQ} "
+              f"steps={steps} init_s={init_s:.2f} losses="
+              + ",".join(f"{x:.5f}" for x in losses) + " grad_norms="
+              + ",".join(f"{x:.4f}" for x in gnorms), flush=True)
+        print(f"sharded_train: {cfg.name} step_ms="
+              + ",".join(f"{x:.2f}" for x in step_ms)
+              + f" median_step_ms={med:.3f} (steps 2-{steps}) "
+              f"tokens_per_s={tokens / (med / 1e3):.1f} peak_gb_per_card="
+              + ",".join(f"{x:.3f}" for x in peaks)
+              + f" (states {n_params * STATE_BYTES / 1e9:.2f} GB in all)",
+              flush=True)
+        print(f"sharded_train: {cfg.name} profiled step s={prof_s:.4f} "
+              f"device_busy_s={busy_s:.4f} over {len(cards)} card(s) "
+              "idle_share=" + (f"{idle:.4f}" if idle is not None else
+                               "not measured (no device events)")
+              + " top: " + ", ".join(f"{k[:40]}={us / 1e3:.2f}ms"
+                                     for k, us in top), flush=True)
+        print(f"sharded_train: {cfg.name} model_s="
+              f"{time.perf_counter() - t_model:.1f}", flush=True)
+        del state, batches, metrics, prof
+        for d in cards:
+            torch.cuda.empty_cache()
+    run_sharded_parity(torch, seed)
+    print(f"sharded_train: phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {k: (n, 0) for k, n in total.items()}
+
+
+def run_sharded_parity(torch, seed):
+    """llama3-8b's and olmoe-1b-7b's smoke configs in float32 on a (2, 2)
+    mesh on the card and one on the CPU, from one initial state and the
+    same batches: losses and ``grad_norm`` within 1e-4 relative, the
+    parameters within ``TRAIN_PARAM_ATOL`` after ``SHARDED_PARITY_STEPS``
+    steps."""
+    from repro_torch import kernels
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import activate_mesh, make_mesh
+    from repro_torch.launch.sharding import gather_tree
+    from repro_torch.models import get_model
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step,
+                                                 shard_train_state)
+    from repro_torch.tree import leaves
+
+    f32 = dict(dtype="float32", param_dtype="float32")
+    axes = ("data", "model")
+    card = make_mesh(SHARDED_MESH, axes, "cuda:0")
+    host = make_mesh(SHARDED_MESH, axes, "cpu")
+    for arch in ("llama3_8b", "olmoe_1b_7b"):
+        t0 = time.perf_counter()
+        cfg = get_smoke_config(arch).replace(**f32)
+        model = get_model(cfg)
+        tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                           total_steps=SHARDED_PARITY_STEPS)
+        start = init_train_state(model, tcfg, seed, device="cpu")
+        states = {"card": shard_train_state(start, card, cfg),
+                  "cpu": shard_train_state(start, host, cfg)}
+        rng = np.random.default_rng(seed)
+        batches = [_parity_batch(cfg, rng, 4, 64)
+                   for _ in range(SHARDED_PARITY_STEPS)]
+        step = make_train_step(model, tcfg)
+        got = {}
+        kernels.reset_counts()
+        for name, mesh in (("card", card), ("cpu", host)):
+            st, ms = states[name], []
+            for b in batches:
+                with activate_mesh(mesh):
+                    st, m = step(st, {k: torch.from_numpy(v).to(
+                        mesh.devices[0]) for k, v in b.items()})
+                ms.append(m)
+            got[name] = (gather_tree(st["params"], "cpu"), ms)
+            if name == "card":
+                counts = read_counts(REPLACES)
+                check_launches(f"sharded_train parity {cfg.name}", counts,
+                               ("flash_attention", "flash_attention_bwd"))
+        worst = 0.0
+        for mc, mp in zip(got["card"][1], got["cpu"][1]):
+            for k in ("loss", "grad_norm"):
+                a, c = float(mc[k]), float(mp[k])
+                rel = abs(a - c) / max(abs(c), 1e-30)
+                worst = max(worst, rel)
+                need(rel <= 1e-4, f"sharded_train parity {cfg.name}: {k} "
+                     f"{a} on the card, {c} on the CPU")
+        perr = max((a - b).abs().max().item() for a, b in zip(
+            leaves(got["card"][0]), leaves(got["cpu"][0])))
+        need(perr <= TRAIN_PARAM_ATOL, f"sharded_train parity {cfg.name}: "
+             f"parameters differ by {perr:.3e} (tol {TRAIN_PARAM_ATOL})")
+        print(f"sharded_train: parity {cfg.name} mesh {card.shape} "
+              f"steps={SHARDED_PARITY_STEPS} losses=" + ",".join(
+                  f"{float(m['loss']):.6f}" for m in got["card"][1])
+              + f" worst_rel_loss_or_grad_norm={worst:.3e} (tol 1e-04) "
+              f"param_max_abs_err={perr:.3e} (tol {TRAIN_PARAM_ATOL:.0e}) "
+              f"launches flash_attention={counts['flash_attention'][0]} "
+              f"flash_attention_bwd={counts['flash_attention_bwd'][0]} "
+              f"s={time.perf_counter() - t0:.2f}", flush=True)
+
+
 def roofline_line(phase, cfg, batch, context, ms_per_step) -> None:
     """The analytic bytes and FLOPs of one decode step of ``cfg`` at
     ``batch`` sequences of ``context`` tokens on one card
@@ -4781,7 +5060,11 @@ def main() -> int:
     train_parity_counts = run_train_parity(torch, args.seed)
     stamp("train_parity")
 
-    # 20. kernels -----------------------------------------------------------
+    # 22. tensor- and expert-parallel training with ZeRO-1 on a (2, 2) mesh --
+    sharded_train_counts = run_sharded_train(torch, wl, args.seed)
+    stamp("sharded_train")
+
+    # 23. kernels -----------------------------------------------------------
     summary = []
     for k in REPLACES:
         r = results[k]
@@ -4797,7 +5080,8 @@ def main() -> int:
                    "moe": moe_counts[k][0], "vlm": vlm_counts[k][0],
                    "whisper": whisper_counts[k][0],
                    **{phase: c[k][0] for phase, c in train_counts.items()},
-                   "train_parity": train_parity_counts[k][0]}
+                   "train_parity": train_parity_counts[k][0],
+                   "sharded_train": sharded_train_counts[k][0]}
         print(f"kernels: {k} launches={sum(by_path.values())} ("
               + ", ".join(f"{p} {n}" for p, n in by_path.items())
               + f") check=ok main_shape={r['shape']}")

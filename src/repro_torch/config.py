@@ -5,8 +5,10 @@ Copies of the JAX package's ``MemForestConfig``, ``ModelConfig`` and
 same forest, the same model and the same trainer from the same settings.
 ``ModelConfig`` has no ``attention_impl``: in the port the device of the
 tensors chooses between a CUDA kernel and its plain PyTorch version.
-``TrainConfig.zero1`` is kept for the copy's sake: the port has no mesh to
-shard the optimizer over.
+``TrainConfig.zero1`` is kept for the copy's sake: on a model mesh the
+moments are always placed by ``zero1_shardings``
+(``training.train_loop.shard_train_state``), as the reference's
+``dryrun.build_cell`` places them whatever the field says.
 """
 from __future__ import annotations
 

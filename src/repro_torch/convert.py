@@ -20,6 +20,12 @@ state (parameters, AdamW moments and step, error state) goes through
 
     state = train_state_from_numpy(jax.tree.map(np.asarray, jax_state), cfg,
                                    device="cuda")
+
+and placed on a model mesh, as the reference's ``build_cell`` places it
+(``launch.sharding.gather_tree`` gives the whole state back)::
+
+    state = sharded_train_state_from_numpy(
+        jax.tree.map(np.asarray, jax_state), cfg, mesh)
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 
 from repro_torch.core.encoder import HashingEncoder
 from repro_torch.device import resolve_device
+from repro_torch.training.train_loop import shard_train_state
 
 
 def hashing_encoder_from_numpy(table: np.ndarray, *, device=None,
@@ -179,3 +186,13 @@ def train_state_from_numpy(state: Dict[str, Any], cfg, *,
     if "err" in state:
         out["err"] = conv(state["err"], cfg, device=dev)
     return out
+
+
+def sharded_train_state_from_numpy(state: Dict[str, Any], cfg,
+                                   mesh) -> Dict[str, Any]:
+    """``train_state_from_numpy`` on the CPU, then placed on ``mesh`` by
+    ``training.train_loop.shard_train_state`` (the parameters by
+    ``param_shardings`` with ``cfg.moe_fsdp_params``, the moments by
+    ``zero1_shardings``)."""
+    whole = train_state_from_numpy(state, cfg, device="cpu")
+    return shard_train_state(whole, mesh, cfg)

@@ -1,3 +1,4 @@
 """Launch side of the port: the roofline model (``roofline``), the training
-entry point (``train``), the serving entry point (``serve``) and the serve
-mesh (``mesh``)."""
+entry point (``train``), the serving entry point (``serve``), the meshes
+(``mesh``), the sharding rules and placed trees (``sharding``) and the
+lockstep collectives (``spmd``)."""

@@ -12,6 +12,9 @@ and ``vlm`` families run in ``transformer``, ``ssm`` in ``rwkv6``,
 ``hybrid`` in ``zamba2`` and ``encdec`` in ``whisper``. ``make_batch``
 builds a seeded random batch of any family. ``loss`` trains every family;
 on a card the scans of ``ssm`` and ``hybrid`` run their backward kernels.
+Under an ambient model mesh (``launch.mesh.activate_mesh``) ``loss`` takes
+parameters placed on it and runs ``transformer.sharded_loss_fn``; the
+``ssm``, ``hybrid`` and ``encdec`` families do not run on a mesh yet.
 The dry-run tooling (``cache_specs``, ``param_specs``, ``input_specs``) is
 not ported (ROADMAP.md, queue 1).
 """
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import current_mesh
 from repro_torch.models import rwkv6, transformer, whisper, zamba2
 from repro_torch.models.layers import torch_dtype
 
@@ -39,6 +43,19 @@ class Model(NamedTuple):
 
 _MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": rwkv6, "hybrid": zamba2, "encdec": whisper}
+
+
+def _loss(mod, cfg: ModelConfig, params, batch):
+    mesh = current_mesh()
+    if mesh is None:
+        return mod.loss_fn(params, cfg, batch)
+    if mod is not transformer:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family does not train on a model "
+            "mesh in the port yet (ROADMAP.md, queue 1, item 5)")
+    return transformer.sharded_loss_fn(params, cfg, batch, mesh)
+
+
 def get_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _MODULES:
         raise ValueError(cfg.family)
@@ -46,7 +63,7 @@ def get_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=functools.partial(mod.init_params, cfg),
-        loss=lambda params, batch: mod.loss_fn(params, cfg, batch),
+        loss=functools.partial(_loss, mod, cfg),
         prefill=lambda params, batch, max_len: mod.prefill(params, cfg, batch,
                                                            max_len),
         decode=lambda params, batch, cache: mod.decode_step(params, cfg, batch,

@@ -12,11 +12,23 @@ whisper's encoder) runs the ``flash_attention`` kernel and decode the
 ``decode_attention`` kernel; on a CPU tensor their plain versions run.
 Whisper's cross-attention and the MoE dispatch are plain PyTorch on every
 device, as they are plain jnp in the reference.
+
+The ``*_shards`` forms run the same blocks on a model mesh
+(``launch/mesh.py``), written per shard, Megatron-style: an activation is a
+list with one tensor per mesh position, split over the data axes and
+replicated over ``model``; weights are ``launch.sharding.Sharded``. Attention
+takes the position's heads (``heads_axis``), ``wq``/``wk``/``wv`` and the
+MLP's ``w_gate``/``w_up``/``wi`` are column-parallel, ``wo`` and
+``w_down``/``wd`` row-parallel followed by a ``psum`` over ``model``. Where
+the model width does not divide a head count or a dim, every model position
+computes the whole of it from the all-gathered weight, as the reference's
+constraints then replicate it. The MoE's expert-parallel branch is the
+reference's ``shard_map`` branch.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +36,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import spmd
+from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.sharding import DATA_AXES, MODEL_AXIS, Sharded, axes_of
 
 Params = Dict[str, torch.Tensor]
 
@@ -281,23 +296,32 @@ def moe_slots(eidx: torch.Tensor, E: int, C: int):
 
 
 def _moe_dispatch_compute(xf, gate_w, gate_i, we_gate, we_up, we_down, *,
-                          E: int, K: int, C: int) -> torch.Tensor:
-    """Capacity dispatch and the experts' FFN over tokens xf (T, D): each
-    kept (token, choice) goes to slot ``expert * C + rank`` of an (E * C)
-    buffer of token ids, the expert inputs are a gather, the outputs are
-    gathered back, weighted by the gate and summed over the K choices in
-    xf's type. Choices past capacity scatter into one extra slot that is cut
-    off (the reference's ``mode="drop"``) and add nothing."""
+                          E: int, K: int, C: int, e_lo: int = 0,
+                          E_local: Optional[int] = None) -> torch.Tensor:
+    """Capacity dispatch and the FFN of experts [e_lo, e_lo + E_local) (all
+    E by default; their weights ``we_*`` hold those experts) over tokens xf
+    (T, D): each kept (token, choice) goes to slot ``(expert - e_lo) * C +
+    rank`` of an (E_local * C) buffer of token ids, the expert inputs are a
+    gather, the outputs are gathered back, weighted by the gate and summed
+    over the K choices in xf's type. Ranks count every expert's choices, so
+    the capacity is the same however the experts are split; a choice past
+    capacity or of another position's expert scatters into one extra slot
+    that is cut off (the reference's ``mode="drop"``) and adds nothing."""
     T, D = xf.shape
+    E_local = E if E_local is None else E_local
     eidx = gate_i.reshape(-1)
     tok = torch.arange(T, device=xf.device).repeat_interleave(K)
     keep, slot = moe_slots(eidx, E, C)
-    buf = torch.full((E * C + 1,), T, dtype=torch.int64, device=xf.device)
-    buf.scatter_(0, torch.where(keep, slot, E * C), tok)
+    if E_local != E:
+        keep = keep & (eidx >= e_lo) & (eidx < e_lo + E_local)
+        slot = slot - e_lo * C
+    n = E_local * C
+    buf = torch.full((n + 1,), T, dtype=torch.int64, device=xf.device)
+    buf.scatter_(0, torch.where(keep, slot, n), tok)
     x_pad = torch.cat([xf, xf.new_zeros((1, D))], dim=0)
-    expert_in = x_pad[buf[:E * C]].reshape(E, C, D)
+    expert_in = x_pad[buf[:n]].reshape(E_local, C, D)
     h = F.silu(torch.bmm(expert_in, we_gate)) * torch.bmm(expert_in, we_up)
-    expert_out = torch.bmm(h, we_down).reshape(E * C, D)
+    expert_out = torch.bmm(h, we_down).reshape(n, D)
     gathered = expert_out[torch.where(keep, slot, 0)]
     w = keep.to(gathered.dtype) * gate_w.reshape(-1).to(gathered.dtype)
     return torch.sum((gathered * w[:, None]).reshape(T, K, D), dim=1)
@@ -321,9 +345,9 @@ def moe_block(p: Params, x: torch.Tensor,
     """Token-choice top-k MoE over x (B, S, D): ``moe_gate``, then
     ``moe_experts`` over the B * S tokens. Returns (out (B, S, D), aux).
 
-    This is the reference's single-device branch: the port has no mesh, so
-    its expert-parallel ``shard_map`` branch is not ported. Every shape is
-    fixed by (T, E, K, C): nothing here waits for the device."""
+    This is the reference's single-device branch; its expert-parallel
+    ``shard_map`` branch is ``moe_block_shards``. Every shape is fixed by
+    (T, E, K, C): nothing here waits for the device."""
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
     gate_w, gate_i, aux = moe_gate(p, xf, cfg)
@@ -354,3 +378,263 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         return -torch.mean(ll)
     m = mask.to(torch.float32)
     return -torch.sum(ll * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# sharded forms: per-shard blocks over a model mesh's positions, in lockstep
+# ---------------------------------------------------------------------------
+def model_width(mesh: Mesh) -> int:
+    return mesh.shape.get(MODEL_AXIS, 1)
+
+
+def heads_axis(num_heads: int, mesh: Mesh) -> Optional[str]:
+    """``model`` if the mesh has a model axis and its width divides
+    ``num_heads``, else None (every model position computes all the
+    heads)."""
+    if MODEL_AXIS not in mesh.axis_names:
+        return None
+    return MODEL_AXIS if num_heads % mesh.shape[MODEL_AXIS] == 0 else None
+
+
+def split_over_model(w: Sharded, dim: int) -> bool:
+    """Whether ``w`` is stored split over ``model`` on ``dim`` and on no
+    other axis."""
+    spec = tuple(w.spec) + (None,) * (len(w.shape) - len(w.spec))
+    return all(axes_of(e) == ((MODEL_AXIS,) if i == dim else ())
+               for i, e in enumerate(spec))
+
+
+def model_block(w: Sharded, dim: int) -> List[torch.Tensor]:
+    """Each position's block of ``w`` along ``dim`` for its model
+    coordinate: its own part where ``w`` is stored so, else cut from the
+    all-gathered whole."""
+    mesh, tp = w.mesh, model_width(w.mesh)
+    if tp > 1 and split_over_model(w, dim):
+        return list(w.parts)
+    full = spmd.whole(w)
+    if tp == 1:
+        return full
+    n = w.shape[dim] // tp
+    return [f.narrow(dim, mesh.coord(pos, MODEL_AXIS) * n, n)
+            for pos, f in enumerate(full)]
+
+
+def row_parallel(hs: List[torch.Tensor], w: Sharded,
+                 local: bool) -> List[torch.Tensor]:
+    """``h @ w`` at every position, replicated over ``model``. ``local``:
+    each h holds the position's model block of w's rows (column-parallel
+    activations): the partial products are summed over ``model``. Else each
+    h holds every row: where w is stored split over ``model`` by rows, each
+    position multiplies its rows' slice of h and the partials are summed;
+    otherwise each position computes the whole product."""
+    mesh, tp = w.mesh, model_width(w.mesh)
+    if local:
+        return spmd.psum(spmd.each(torch.matmul, hs, model_block(w, 0)),
+                         mesh, MODEL_AXIS)
+    if tp > 1 and split_over_model(w, 0):
+        n = w.shape[0] // tp
+        parts = [h[..., mesh.coord(pos, MODEL_AXIS) * n:][..., :n]
+                 @ w.parts[pos] for pos, h in enumerate(hs)]
+        return spmd.psum(parts, mesh, MODEL_AXIS)
+    return spmd.each(torch.matmul, hs, spmd.whole(w))
+
+
+def _kv_heads_for(k, v, lo: int, hq: int, group: int):
+    """The KV heads that query heads [lo, lo + hq) read (head h reads KV
+    head h // group), in the layout ``ops.attention`` takes: a contiguous
+    run when each is read by hq / n consecutive query heads, else one per
+    query head."""
+    need = [(lo + i) // group for i in range(hq)]
+    first, n = need[0], need[-1] - need[0] + 1
+    if hq % n == 0 and need == [first + i // (hq // n) for i in range(hq)]:
+        return (k[:, :, first:first + n].contiguous(),
+                v[:, :, first:first + n].contiguous())
+    idx = torch.tensor(need, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def attention_prefill_shards(p, xs: List[torch.Tensor], cfg: ModelConfig,
+                             positions: List[torch.Tensor], mesh: Mesh, *,
+                             causal: bool = True) -> List[torch.Tensor]:
+    """``attention_prefill`` per shard: x (B_local, S, D) at every position
+    -> out (B_local, S, D), replicated over ``model``. A position computes
+    its model block of the query heads when ``heads_axis`` gives ``model``
+    (else all of them) and the KV heads those read; the reference's
+    constraints put q, k and v on the same heads."""
+    tp = model_width(mesh)
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q_local = heads_axis(H, mesh) is not None
+    kv_local = q_local and heads_axis(Hkv, mesh) is not None
+    hq = H // tp if q_local else H
+    wq = model_block(p["wq"], 1) if q_local else spmd.whole(p["wq"])
+    wk, wv = ((model_block(p[n], 1) if kv_local else spmd.whole(p[n]))
+              for n in ("wk", "wv"))
+    outs = []
+    for pos, x in enumerate(xs):
+        B, S, _ = x.shape
+        q = (x @ wq[pos]).reshape(B, S, hq, Dh)
+        k = (x @ wk[pos]).reshape(B, S, -1, Dh)
+        v = (x @ wv[pos]).reshape(B, S, -1, Dh)
+        if cfg.rope_theta > 0:
+            q = rope(q, positions[pos], cfg.rope_theta)
+            k = rope(k, positions[pos], cfg.rope_theta)
+        if q_local and not kv_local:
+            k, v = _kv_heads_for(k, v, mesh.coord(pos, MODEL_AXIS) * hq, hq,
+                                 H // Hkv)
+        o = ops.attention(q, k, v, causal=causal)
+        outs.append(o.reshape(B, S, hq * Dh))
+    return row_parallel(outs, p["wo"], q_local)
+
+
+def mlp_block_shards(p, xs: List[torch.Tensor], cfg: ModelConfig,
+                     mesh: Mesh) -> List[torch.Tensor]:
+    """``mlp_block`` per shard: the hidden dim over ``model`` where the
+    model width divides it (the rules then store the weights so), else all
+    of it at every position."""
+    up = p["w_gate"] if cfg.mlp_activation == "swiglu" else p["wi"]
+    local = up.shape[1] % model_width(mesh) == 0
+
+    def cols(w):
+        return model_block(w, 1) if local else spmd.whole(w)
+
+    if cfg.mlp_activation == "swiglu":
+        hs = spmd.each(lambda x, a, b: F.silu(x @ a) * (x @ b), xs,
+                       cols(p["w_gate"]), cols(p["w_up"]))
+        return row_parallel(hs, p["w_down"], local)
+    hs = spmd.each(torch.matmul, xs, cols(p["wi"]))
+    if cfg.mlp_activation == "gelu":
+        hs = [F.gelu(h, approximate="tanh") for h in hs]
+    else:
+        hs = [torch.square(F.relu(h)) for h in hs]
+    return row_parallel(hs, p["wd"], local)
+
+
+def _gathered_but(w: Sharded, keep: int) -> List[torch.Tensor]:
+    """Each position's part of ``w`` all-gathered over every axis that
+    splits a dim other than ``keep`` (the experts' FSDP dim)."""
+    parts = list(w.parts)
+    for dim, e in enumerate(w.spec):
+        if dim != keep and axes_of(e):
+            parts = spmd.all_gather(parts, w.mesh, axes_of(e), dim)
+    return parts
+
+
+def moe_block_shards(p, xs: List[torch.Tensor], cfg: ModelConfig,
+                     mesh: Mesh, batch_axes: Tuple[str, ...]):
+    """``moe_block`` on a mesh -> (out per position, aux per position, both
+    replicated over ``model``). ``batch_axes``: the data axes the batch is
+    split over (none when ``data_sharding`` replicated it).
+
+    With a model axis whose width divides E, the reference's expert-parallel
+    branch: routing, top-K and the aux loss on each data shard's tokens
+    (T_local = T / dp), the capacity ``max(ceil(T_local * K / E * cf), 1)``,
+    aux averaged over the data axes, each model position the FFN of its E /
+    tp experts (their FSDP dim all-gathered over the data axes) on its data
+    shard's tokens, the partial outputs summed over ``model`` in the
+    activations' type. A batch the data width does not divide raises a
+    ``ValueError``, where the reference's ``shard_map`` fails. Otherwise the
+    reference's global branch: every position routes all the batch's tokens
+    through all the experts and keeps its own rows."""
+    E, K = cfg.num_experts, cfg.experts_per_token
+    tp = model_width(mesh)
+    dp_axes = tuple(a for a in DATA_AXES if a in mesh.axis_names)
+    B, S, D = xs[0].shape
+    if MODEL_AXIS in mesh.axis_names and E % tp == 0:
+        if mesh.axis_size(dp_axes) > 1 and tuple(batch_axes) != dp_axes:
+            raise ValueError(f"moe_block: the expert-parallel branch splits "
+                             f"the batch over {dp_axes} "
+                             f"({mesh.axis_size(dp_axes)} ways), which "
+                             "does not divide it")
+        E_local = E // tp
+        C = max(int(math.ceil(B * S * K / E * cfg.moe_capacity_factor)), 1)
+        wg, wu, wd = (_gathered_but(p[n], 0)
+                      for n in ("we_gate", "we_up", "we_down"))
+        ys, auxs = [], []
+        for pos, x in enumerate(xs):
+            xl = x.reshape(B * S, D)
+            gw, gi, aux = moe_gate({"router": p["router"].parts[pos]}, xl,
+                                   cfg)
+            e_lo = spmd.axis_index(mesh, pos, MODEL_AXIS) * E_local
+            y = _moe_dispatch_compute(xl, gw, gi, wg[pos], wu[pos], wd[pos],
+                                      E=E, K=K, C=C, e_lo=e_lo,
+                                      E_local=E_local)
+            ys.append(y.to(x.dtype))
+            auxs.append(aux)
+        ys = spmd.psum(ys, mesh, MODEL_AXIS)
+        return ([y.reshape(B, S, D) for y in ys],
+                spmd.pmean(auxs, mesh, dp_axes))
+    full = spmd.all_gather(list(xs), mesh, batch_axes, 0)
+    experts = {n: spmd.whole(p[n]) for n in ("router", "we_gate", "we_up",
+                                             "we_down")}
+    ys, auxs = [], []
+    for pos, x in enumerate(full):
+        y, aux = moe_block({n: w[pos] for n, w in experts.items()}, x, cfg)
+        ys.append(y[mesh.index_over(pos, batch_axes) * B:][:B])
+        auxs.append(aux)
+    return ys, auxs
+
+
+def embed_shards(embed: Sharded,
+                 ids: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The token embeddings at every position, replicated over ``model``:
+    with the vocab split over ``model``, each position looks up the ids in
+    its range (zeros for the others) and the rows are summed over
+    ``model``."""
+    mesh, tp = embed.mesh, model_width(embed.mesh)
+    if not (tp > 1 and split_over_model(embed, 0)):
+        return spmd.each(lambda w, t: w[t], spmd.whole(embed), ids)
+    n = embed.shape[0] // tp
+    outs = []
+    for pos, t in enumerate(ids):
+        lo = mesh.coord(pos, MODEL_AXIS) * n
+        inside = (t >= lo) & (t < lo + n)
+        rows = embed.parts[pos][torch.clamp(t - lo, 0, n - 1)]
+        outs.append(rows * inside[..., None].to(rows.dtype))
+    return spmd.psum(outs, mesh, MODEL_AXIS)
+
+
+def softmax_xent_shards(logits: List[torch.Tensor],
+                        labels: List[torch.Tensor],
+                        masks: Optional[List[torch.Tensor]], mesh: Mesh,
+                        vocab_split: bool,
+                        batch_axes: Tuple[str, ...]) -> List[torch.Tensor]:
+    """``softmax_xent`` over logits split over ``model`` by vocab when
+    ``vocab_split`` (each position holds V / tp columns): the log-sum-exp
+    from the cross-shard max and the summed exponentials, the label's logit
+    from the position whose range holds it; then the sum of -log p over the
+    whole batch (over ``batch_axes``) divided by the number of positions, or
+    by the masked count (at least one), never a mean of shard means."""
+    tp = model_width(mesh)
+    lfs = [lg.to(torch.float32) for lg in logits]
+    tops = [lf.amax(dim=-1) for lf in lfs]
+    if vocab_split:
+        tops = spmd.pmax(tops, mesh, MODEL_AXIS)
+    else:
+        tops = [t.detach() for t in tops]
+    sums = [torch.sum(torch.exp(lf - t[..., None]), dim=-1)
+            for lf, t in zip(lfs, tops)]
+    picked = []
+    for pos, (lf, y) in enumerate(zip(lfs, labels)):
+        y = y.long()
+        if vocab_split:
+            n = lf.shape[-1]
+            lo = mesh.coord(pos, MODEL_AXIS) * n
+            inside = (y >= lo) & (y < lo + n)
+            got = torch.gather(lf, -1, torch.clamp(y - lo, 0, n - 1)[..., None])
+            picked.append(got[..., 0] * inside.to(torch.float32))
+        else:
+            picked.append(torch.gather(lf, -1, y[..., None])[..., 0])
+    if vocab_split and tp > 1:
+        sums = spmd.psum(sums, mesh, MODEL_AXIS)
+        picked = spmd.psum(picked, mesh, MODEL_AXIS)
+    lls = [pk - (t + torch.log(s)) for pk, t, s in zip(picked, tops, sums)]
+    if masks is None:
+        num = [torch.sum(ll) for ll in lls]
+        den = [torch.tensor(float(ll.numel()), device=ll.device) for ll in lls]
+    else:
+        ms = [m.to(torch.float32) for m in masks]
+        num = [torch.sum(ll * m) for ll, m in zip(lls, ms)]
+        den = [torch.sum(m) for m in ms]
+    num = spmd.psum(num, mesh, batch_axes)
+    den = spmd.psum(den, mesh, batch_axes)
+    return [-a / torch.clamp(b, min=1.0) for a, b in zip(num, den)]

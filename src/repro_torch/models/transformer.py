@@ -6,7 +6,9 @@ dict: ``embed`` (V, D), ``layers`` (a list with one dict per layer: ``ln1``,
 ``ln2``, ``attn``, and ``mlp``, or ``moe`` for the MoE family),
 ``final_norm`` and, unless the embeddings are tied, ``unembed`` (D, V). The
 JAX package stacks the layers along a leading axis for ``lax.scan``; here a
-Python loop walks the list. The VLM family's batches may carry
+Python loop walks the list. ``sharded_loss_fn`` is the train loss on a model
+mesh, the parameters placed by ``launch.sharding.param_shardings``. The VLM
+family's batches may carry
 ``patch_embeds`` (B, P, D), prepended to the token embeddings at prefill
 (positions and the cache's ``lengths`` count them); decode ignores them.
 
@@ -25,7 +27,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import spmd
+from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.sharding import P, Sharded, axes_of, data_sharding
 from repro_torch.models import layers as L
+from repro_torch.tree import leaves, unflatten
 
 FAMILIES = ("dense", "moe", "vlm")
 
@@ -149,6 +155,107 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     logits = _logits(params, cfg, h)
     loss = L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
     return loss + 0.01 * aux, {"xent": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# train loss on a model mesh
+# ---------------------------------------------------------------------------
+def _layer_shards(cfg: ModelConfig, p, xs, positions, mesh: Mesh,
+                  batch_axes):
+    """One layer at every position: (x, aux per position or None)."""
+    hs = [L.rms_norm(x, g, cfg.norm_eps) for x, g in zip(xs, p["ln1"].parts)]
+    att = L.attention_prefill_shards(p["attn"], hs, cfg, positions, mesh)
+    xs = spmd.each(torch.add, xs, att)
+    hs = [L.rms_norm(x, g, cfg.norm_eps) for x, g in zip(xs, p["ln2"].parts)]
+    if cfg.family == "moe":
+        ys, aux = L.moe_block_shards(p["moe"], hs, cfg, mesh, batch_axes)
+    else:
+        ys, aux = L.mlp_block_shards(p["mlp"], hs, cfg, mesh), None
+    return spmd.each(torch.add, xs, ys), aux
+
+
+def _layer_call(cfg: ModelConfig, p, xs, positions, mesh: Mesh, batch_axes):
+    """``_layer_shards``, under ``spmd.remat`` when ``cfg.remat``: its
+    inputs flattened to the activations and every position's parameter
+    parts, the parameters rebuilt around the recomputed run's copies."""
+    params = leaves(p)
+    n = len(xs)
+
+    def run(flat):
+        parts = iter(flat[n:])
+        q = unflatten(p, [Sharded(w.mesh, w.spec, w.shape,
+                                  [next(parts) for _ in w.parts])
+                          for w in params])
+        ys, aux = _layer_shards(cfg, q, flat[:n], positions, mesh,
+                                batch_axes)
+        return ys + (aux or [])
+
+    flat = list(xs) + [t for w in params for t in w.parts]
+    out = spmd.remat(run, flat) if cfg.remat else run(flat)
+    return out[:n], (out[n:] or None)
+
+
+def _logits_shards(params, cfg: ModelConfig, hs):
+    """(logits per position, whether they hold the position's vocab block
+    over ``model``)."""
+    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    vdim = 0 if cfg.tie_embeddings else 1
+    split = L.model_width(w.mesh) > 1 and L.split_over_model(w, vdim)
+    ws = w.parts if split else spmd.whole(w)
+    logits = [h @ (x.T if cfg.tie_embeddings else x) for h, x in zip(hs, ws)]
+    if cfg.logits_softcap > 0:
+        c = cfg.logits_softcap
+        logits = [torch.tanh(lg / c) * c for lg in logits]
+    return logits, split
+
+
+def sharded_loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                    mesh: Mesh):
+    """``loss_fn`` on ``mesh`` -> (loss, {"xent", "aux"}), 0-d tensors on
+    the mesh's first device. ``params`` is a tree of ``Sharded`` (any
+    placement the sharding rules give); ``batch`` holds whole tensors, split
+    over the data axes by ``data_sharding`` (replicated when their width
+    does not divide B). Each layer runs per shard (``models.layers``'
+    ``*_shards``); the embedding lookup is vocab-split with a ``psum`` over
+    ``model``; the logits stay split by vocab over ``model`` and the
+    cross-entropy takes the log-sum-exp across the shards; the mean runs
+    over the whole batch; aux is summed over the layers. ``cfg.remat``
+    recomputes each layer, its collectives included, in the backward pass
+    (``spmd.remat``)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.family}: sharded_loss_fn trains the "
+                         f"{', '.join(FAMILIES)} families")
+    B = batch["tokens"].shape[0]
+    spec = data_sharding(mesh, 1, B).spec
+    batch_axes = axes_of(spec[0])
+
+    def body(params, batch):
+        x = L.embed_shards(params["embed"], batch["tokens"].parts)
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            x = spmd.each(lambda pe, e: torch.cat([pe.to(e.dtype), e], dim=1),
+                          batch["patch_embeds"].parts, x)
+        S = x[0].shape[1]
+        positions = [torch.arange(S, device=d)[None, :] for d in mesh.devices]
+        aux = [torch.zeros((), dtype=torch.float32, device=d)
+               for d in mesh.devices]
+        for p in params["layers"]:
+            x, a = _layer_call(cfg, p, x, positions, mesh, batch_axes)
+            if a is not None:
+                aux = spmd.each(torch.add, aux, a)
+        h = [L.rms_norm(t, g, cfg.norm_eps)
+             for t, g in zip(x, params["final_norm"].parts)]
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            h = [t[:, batch["patch_embeds"].shape[1]:] for t in h]
+        logits, split = _logits_shards(params, cfg, h)
+        masks = batch["loss_mask"].parts if "loss_mask" in batch else None
+        xent = L.softmax_xent_shards(logits, batch["labels"].parts, masks,
+                                     mesh, split, batch_axes)
+        loss = spmd.each(lambda x, a: x + 0.01 * a, xent, aux)
+        return loss, xent, aux
+
+    loss, xent, aux = spmd.shard_map(body, mesh, (None, spec),
+                                     (P(), P(), P()))(params, batch)
+    return loss.parts[0], {"xent": xent.parts[0], "aux": aux.parts[0]}
 
 
 # ---------------------------------------------------------------------------

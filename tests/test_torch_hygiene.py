@@ -53,6 +53,7 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.training.train_loop, repro_torch.data.pipeline, "
             "repro_torch.tree, repro_torch.kernels.flash_attention, "
             "repro_torch.launch.mesh, repro_torch.kernels.shard_ops, "
+            "repro_torch.launch.sharding, repro_torch.launch.spmd, "
             "repro_torch.launch.serve, repro_torch.examples, "
             "repro_torch.examples.quickstart, "
             "repro_torch.examples.serve_memforest, "
