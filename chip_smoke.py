@@ -267,7 +267,31 @@ Phases, each printed on its own line; any failed check exits nonzero:
               card's peak memory, the step's ms and idle share. Then
               float32 at the smoke configs: the card's (2, 2) run equals the
               CPU's after 2 steps.
-  23. kernels one line per kernel, and the JSON summary of all of them.
+  23. sharded_serve  prefill and decode on a (data, model) mesh through
+              the entry points (``get_model(cfg).prefill`` and ``.decode``
+              under ``activate_mesh``; parameters placed by
+              ``param_shardings``, the cache by ``launch.sharding.
+              cache_shardings``): llama3-8b at published width cut to 2
+              layers, bf16, on a (2, 2) mesh repeating the card (the heads
+              form) and on (1, 16), the production model width (the
+              sequence form: 256 rows a position, merged by
+              ``decode_attention_lse``'s log-sum-exp), then olmoe-1b-7b at 4
+              layers on (2, 2) (the MoE's data-shard branch, in bf16 and
+              in float32, no choice dropped: see SHARDED_SERVE); prefill of
+              8 x 512 tokens into a 4096-row cache, 32 greedy steps. Each
+              run is held to the same weights unsharded on the card (the
+              logits' largest gap within 5e-2 of their largest magnitude, the
+              greedy token equal wherever the unsharded top-two margin
+              exceeds the gap; in the bf16 MoE run, over the tokens whose
+              experts both runs chose alike); ``flash_attention`` launched layers x positions times a
+              prefill, ``decode_attention`` layers x positions x steps. Then
+              the smoke configs in float32, card mesh against CPU mesh,
+              within 1e-4. With four cards or more instead: llama3-8b whole
+              on (2, 2) over the first four, decode_32k at batch 24 (prompts
+              of 32704 tokens, 64 steps): step ms, tokens/s, peak GB a card,
+              the idle share and the ``roofline:`` line; rows 0-1 held to one
+              card's unsharded run.
+  24. kernels one line per kernel, and the JSON summary of all of them.
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a
 visible CUDA device, or without the rest of the repository beside it, the
@@ -501,7 +525,8 @@ def check_kernels(torch, peaks, seed: int):
     from repro_torch.kernels import ref
     from repro_torch.kernels.browse_scores import (browse_scores,
                                                    browse_scores_rows)
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                     decode_attention_lse)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mamba2_ssd import mamba2_ssd
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
@@ -928,8 +953,9 @@ def check_kernels(torch, peaks, seed: int):
         try:
             _build.launch("decode_attention", "memforest_decode_attention",
                           dev, q.data_ptr(), kc.data_ptr(), kc.data_ptr(),
-                          lens.data_ptr(), out.data_ptr(), part.data_ptr(),
-                          cnt.data_ptr(), n_floats, n_counters, 2, 1024, 8, 2,
+                          lens.data_ptr(), out.data_ptr(), None,
+                          part.data_ptr(), cnt.data_ptr(), n_floats,
+                          n_counters, 2, 1024, 8, 2,
                           D, scale_dim, 128, 8, 1)
             torch.cuda.synchronize()
             return True
@@ -957,6 +983,58 @@ def check_kernels(torch, peaks, seed: int):
               f"{len(names)} ({', '.join(n[:40] for n in names)})", flush=True)
         need(len(names) == 1 and "decode_attention" in names[0],
              f"decode_attention: one call made {len(names)} device launches")
+
+    # -- decode_attention with each head's log-sum-exp ------------------------
+    # the sharded_serve phase's shards (DECODE_LSE_ROWS), from a generator of
+    # their own so that every other row draws what it drew before
+    g_lse = torch.Generator(device=dev).manual_seed(seed + 28)
+    for B, Smax, Hq, Hkv, D, lo, hi, dname, main, what in DECODE_LSE_ROWS:
+        dt = {"bf16": bf16, "f32": f32}[dname]
+        q = torch.randn(B, Hq, D, generator=g_lse, device=dev).to(dt)
+        kc = torch.randn(B, Smax, Hkv, D, generator=g_lse, device=dev).to(dt)
+        vc = torch.randn(B, Smax, Hkv, D, generator=g_lse, device=dev).to(dt)
+        lens = torch.randint(lo, hi + 1, (B,), generator=g_lse, device=dev,
+                             dtype=torch.int32)
+        label = f"lse {what} {B}x{Smax}x{Hq}/{Hkv}x{D} {ops_of[dt]}"
+        out, lse = decode_attention_lse(q, kc, vc, lens)
+        torch.cuda.synchronize()
+        need(torch.equal(out, decode_attention(q, kc, vc, lens)),
+             f"decode_attention {label}: the output differs from the launch "
+             "without the lse")
+        plain_out, plain_lse = ref.decode_attention_lse_ref(q, kc, vc, lens)
+        err = agree(out, plain_out, dt, f"decode_attention {label}")
+        empty = lens == 0
+        need(bool((out[empty] == 0).all()) and bool(
+            (lse[empty] == -math.inf).all()), f"decode_attention {label}: a "
+             "length of 0 must give zeros and lse -inf")
+        live = ~empty
+        lse_err = ((lse[live] - plain_lse[live]).abs().max().item()
+                   if bool(live.any()) else 0.0)
+        print(f"check: decode_attention {label} lse max_abs_err={lse_err:.3e}"
+              f" (tol {LSE_TOL[dname]:.0e}, log2 units)", flush=True)
+        need(lse_err <= LSE_TOL[dname], f"decode_attention {label}: lse "
+             f"differs from the plain version by {lse_err:.3e}")
+        mask = (torch.arange(Smax, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        qs, ks, vs = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+
+        def library():     # timed for comparison; the port never calls it
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  enable_gqa=True)
+        if bool(live.any()):
+            agree(library()[:, :, 0][live], out[live], dt,
+                  f"decode_attention {label}: the library call", lib_tols)
+        rows = int(torch.clamp(lens, 0, Smax).sum())
+        elem = out.element_size()
+        null_ms = device_ms(torch, lambda: decode_attention(q, kc, vc, lens))
+        record("decode_attention", label, err, tols[dt][0],
+               lambda: decode_attention_lse(q, kc, vc, lens),
+               lambda: ref.decode_attention_lse_ref(q, kc, vc, lens),
+               2 * rows * Hkv * D * elem + 2 * B * Hq * D * elem + 4 * B
+               + 4 * B * Hq, 4 * rows * Hq * D, main, library, ops_of[dt])
+        print(f"check: decode_attention {label} without the lse "
+              f"ms={null_ms:.5f}", flush=True)
+        del q, kc, vc, plain_out, plain_lse
 
     # -- mamba2_ssd and rwkv6_scan --------------------------------------------
     # f32 rows: 2e-4 beyond 1e-2 relative (tests/test_kernels.py; the sums
@@ -1168,6 +1246,27 @@ def check_kernels(torch, peaks, seed: int):
 # is 16 wide (72), a group of 128 (two head chunks of 64); then zamba2's
 # shared attention in the train_zamba2 phase (head dim 112: seven k16 steps
 # a product).
+# decode_attention_lse at the sharded_serve phase's shards: (B, Smax, Hq,
+# Hkv, D, lengths from, to, dtype, main, what). The heads form on one card's
+# (2, 2) mesh: a position's data shard (8 / 2 rows) and its heads (32 / 2
+# query, 8 / 2 KV) over a 4096-row cache, lengths from the 512-token prompt
+# through 32 steps. The sequence form on (1, 16): every head over a
+# position's 256 rows (two chunks of 128 rows; lengths clamped to the
+# shard), a shard of 64 rows (Smax / m below one chunk: one split), and a
+# position whose rows hold no valid entry. The four-card
+# (2, 2) shard of decode_32k at batch 24. The float32 rows: the smoke
+# configs' card-against-CPU run, llama3-8b's smoke shard on (1, 4); then a
+# float32 shard of four chunks with at least two live, so that the split
+# merge writes the float32 lse (its m in natural units, scaled by log2 e).
+DECODE_LSE_ROWS = (
+    (4, 4096, 16, 4, 128, 513, 544, "bf16", True, "heads-form shard"),
+    (8, 256, 32, 8, 128, 0, 256, "bf16", True, "sequence-form shard"),
+    (8, 64, 32, 8, 128, 0, 64, "bf16", False, "shard below one chunk"),
+    (8, 256, 32, 8, 128, 0, 0, "bf16", True, "shard with no valid row"),
+    (12, 32768, 16, 4, 128, 32705, 32768, "bf16", True, "four-card shard"),
+    (4, 16, 4, 2, 16, 0, 16, "f32", False, "smoke sequence-form shard"),
+    (4, 512, 4, 2, 16, 129, 512, "f32", False, "f32 split-merge shard"),
+)
 # the attention of the sharded_train phase at a model width of 2: (B, S,
 # Hq, Hkv, D, what), one position's data shard and heads
 SHARD_ATTENTION = ((4, 512, 16, 4, 128, "llama3-8b model=2 shard"),
@@ -3594,6 +3693,18 @@ def first_difference(card, cpu) -> str:
     return f"lengths {len(card_log)} and {len(cpu_log)}"
 
 
+def allocator_blocks(torch, tensors):
+    """The caching allocator's block size of each tensor's storage: what
+    ``memory_allocated`` counts for it. A block can exceed the bytes asked
+    for by more than the 512-byte rounding: the large pool hands out a
+    cached block whole when the rest would be 1 MiB or less, so the sizes
+    depend on the allocator's history, not on the tensor alone."""
+    want = {t.untyped_storage().data_ptr() for t in tensors}
+    return [b["size"] for seg in torch.cuda.memory_snapshot()
+            for b in seg.get("blocks", ())
+            if b["address"] in want and b.get("state") == "active_allocated"]
+
+
 def run_residency(torch, wl, seed, rwkv6_run):
     """Phase 13: (a) a standalone ResidencyManager on the card and on the
     CPU with the same calls; (b) the engine's residency lane on rwkv6-1.6b
@@ -3676,6 +3787,10 @@ def run_residency(torch, wl, seed, rwkv6_run):
         held = [t for t in (forest._fact_dev, forest._root_dev,
                             forest._arena) if t is not None]
         n_tensors, device_bytes = len(held), forest.device_bytes()
+        need(sum(t.untyped_storage().nbytes() for t in held)
+             == device_bytes, f"{tid}: device_bytes {device_bytes} is not "
+             "what its tensors hold")
+        blocks = allocator_blocks(torch, held)
         del held
         gc.collect()
         torch.cuda.synchronize()
@@ -3687,12 +3802,14 @@ def run_residency(torch, wl, seed, rwkv6_run):
         demote_s = time.perf_counter() - t0
         after = torch.cuda.memory_allocated()
         print(f"residency: demote({tid}) {demote_s:.4f} s device_bytes="
-              f"{device_bytes} in {n_tensors} tensors; memory_allocated "
-              f"{before} -> {after} (fell {before - after}); memory_reserved "
-              f"{reserved} -> {torch.cuda.memory_reserved()}")
-        need(abs(before - after - device_bytes) <= 512 * n_tensors,
-             f"demote({tid}) freed {before - after} bytes on the card, its "
-             f"device_bytes were {device_bytes}")
+              f"{device_bytes} in {n_tensors} tensors, allocator blocks of "
+              f"{sum(blocks)} bytes; memory_allocated {before} -> {after} "
+              f"(fell {before - after}); memory_reserved {reserved} -> "
+              f"{torch.cuda.memory_reserved()}")
+        need(len(blocks) == n_tensors and before - after == sum(blocks),
+             f"demote({tid}) freed {before - after} bytes on the card, the "
+             f"allocator's blocks of its {n_tensors} tensors ({device_bytes} "
+             f"bytes of data) hold {sum(blocks)}")
         need(forest.device_bytes() == 0, "the demoted forest holds bytes")
         del forest
 
@@ -4804,6 +4921,456 @@ def run_sharded_parity(torch, seed):
               f"s={time.perf_counter() - t0:.2f}", flush=True)
 
 
+# sharded_serve: (arch, layers, mesh, dtype). llama3-8b at published width
+# cut to 2 layers, bf16, on a (2, 2) mesh (the heads form) and a (1, 16) mesh
+# (the production model width: the sequence form, 256 rows a position), then
+# olmoe-1b-7b at 4 layers on (2, 2) (the MoE's decode through its data-shard
+# branch), each repeating one card. olmoe runs in bf16 and in float32. In
+# bf16 the sharded and unsharded sums round apart, which can flip a token's
+# top 8 of the router; a flipped token's output is another function, so the
+# bf16 run holds only the tokens whose experts agree in every layer
+# (``RouteLog``, ``route_flips``) and prints the gap over all of them beside
+# the count of flips. The float32 run holds every token.
+SHARDED_SERVE = (("llama3_8b", 2, (2, 2), "bfloat16"),
+                 ("llama3_8b", 2, (1, 16), "bfloat16"),
+                 ("olmoe_1b_7b", 4, (2, 2), "bfloat16"),
+                 ("olmoe_1b_7b", 4, (2, 2), "float32"))
+SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN, SERVE_STEPS = 8, 512, 4096, 32
+SERVE_GAP = 5e-2      # the logits' largest gap over their largest magnitude
+SERVE_PARITY = (("llama3_8b", (2, 2)), ("llama3_8b", (1, 4)),
+                ("olmoe_1b_7b", (2, 2)))
+# four cards: llama3-8b whole on (2, 2), decode_32k cut from batch 128 to 24
+# (its 549.8 GB cache fits no four cards); prompts of 32704 tokens into a
+# 32768-row cache, 64 decode steps; rows 0-1 held to one card's unsharded run
+SERVE_32K = {"batch": 24, "prompt": 32704, "max_len": 32768, "steps": 64,
+             "held_rows": 2}
+
+
+def serve_tokens(torch, model, params, batch, max_len, steps, mesh=None,
+                 forced=None, keep=None):
+    """Prefill, then ``steps`` decode steps: greedy from the gathered
+    logits, or the tokens ``forced`` (steps, B) -> (tokens (steps, B) fed,
+    the logits of the prefill and of each step but the last (rows ``keep``,
+    float32, on the CPU), the final cache, prefill s, each step's s)."""
+    from repro_torch.launch.mesh import activate_mesh
+    from repro_torch.launch.sharding import Sharded, gather
+
+    def whole(lg):
+        lg = gather(lg) if isinstance(lg, Sharded) else lg
+        return lg if keep is None else lg[keep]
+
+    cards = mesh.distinct() if mesh is not None else (
+        torch.device("cuda", torch.cuda.current_device()),)
+
+    def sync():
+        for d in cards:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    fed, logits_out, step_s = [], [], []
+    with activate_mesh(mesh):
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, max_len)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        for i in range(steps):
+            lg = whole(logits)
+            logits_out.append(lg.float().cpu())
+            if forced is None:
+                nxt = torch.argmax(gather(logits) if isinstance(
+                    logits, Sharded) else logits, dim=-1)
+            else:
+                nxt = forced[i].to(batch["tokens"].device)
+            fed.append(nxt)
+            t0 = time.perf_counter()
+            logits, cache = model.decode(params, {"tokens": nxt}, cache)
+            sync()
+            step_s.append(time.perf_counter() - t0)
+    return torch.stack(fed), logits_out, cache, prefill_s, step_s
+
+
+def serve_gap(torch, label, got, want, tokens) -> str:
+    """Hold the sharded run's logits ``got`` (a list, one per step) to the
+    unsharded run's ``want`` on the same fed tokens: the largest gap within
+    SERVE_GAP of the unsharded logits' largest magnitude, and the greedy
+    token the sharded run fed equal to the unsharded argmax wherever the
+    unsharded top-two margin exceeds that gap."""
+    gap = max((g - w).abs().max().item() for g, w in zip(got, want))
+    top = max(w.abs().max().item() for w in want)
+    need(gap <= SERVE_GAP * top, f"{label}: the logits differ from the "
+         f"unsharded run's by {gap:.4e}, over {SERVE_GAP} of their largest "
+         f"magnitude {top:.4e}")
+    firm = same = 0
+    for i, w in enumerate(want):
+        two = torch.topk(w, 2, dim=-1).values
+        sure = (two[:, 0] - two[:, 1]) > gap
+        agree = torch.argmax(w, dim=-1) == tokens[i].cpu()
+        firm += int(sure.sum())
+        same += int((agree & sure).sum())
+        need(bool(agree[sure].all()), f"{label}: step {i}: a greedy token "
+             "differs where the unsharded top-two margin exceeds the gap")
+    return (f"logits_max_gap={gap:.4e} (limit {SERVE_GAP} x {top:.4e}) "
+            f"greedy_tokens_held={same}/{firm} (margin over the gap)")
+
+
+class RouteLog:
+    """While entered, every call of ``layers.moe_gate`` (the unsharded MoE's
+    and each position's in ``moe_block_shards``) appends its tokens' expert
+    ids, sorted per token (the set each token chose), to ``calls``, kept on
+    the card. With ``replay`` (one (T, K) id tensor a call, as
+    ``batch_routes`` gives a run's), call i takes those experts instead of
+    its own top K, weighted by its own router probabilities renormalised
+    over them as ``moe_gate`` weights its choices: a run with another run's
+    choices."""
+
+    def __init__(self, torch, replay=None):
+        from repro_torch.models import layers
+        self.torch, self.layers, self.calls = torch, layers, []
+        self.replay = replay
+
+    def __enter__(self):
+        gate, calls, torch = self.layers.moe_gate, self.calls, self.torch
+        replay, self.gate = self.replay, gate
+
+        def recorded(p, xf, cfg):
+            gw, gi, aux = gate(p, xf, cfg)
+            if replay is not None:
+                gi = replay[len(calls)]
+                probs = torch.softmax(xf.to(torch.float32)
+                                      @ p["router"].to(torch.float32), -1)
+                w = torch.gather(probs, 1, gi)
+                gw = (w / (w.sum(-1, keepdim=True) + 1e-9)).to(xf.dtype)
+            calls.append(torch.sort(gi, dim=-1).values)
+            return gw, gi, aux
+        self.layers.moe_gate = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_gate = self.gate
+
+
+def batch_routes(log, mesh):
+    """A sharded run's ``RouteLog`` as the batch's: one (T, K) a forward a
+    layer. That run logs one call a position a layer, each on its data
+    shard's tokens; the positions at model coordinate 0, in data order,
+    give the batch's tokens in order."""
+    torch = log.torch
+    per = mesh.size
+    lead = sorted((pos for pos in range(per)
+                   if mesh.coord(pos, "model") == 0),
+                  key=lambda pos: mesh.index_over(pos, ("data",)))
+    return [torch.cat([log.calls[c + pos] for pos in lead])
+            for c in range(0, len(log.calls), per)]
+
+
+def route_flips(torch, label, sharded, whole, layers, B, S, forwards):
+    """For each forward (the prefill, then each decode step), a (B, tokens)
+    bool, True where a token's set of experts differs in some layer between
+    two runs' routes (``batch_routes``, or a ``RouteLog``'s ``calls``)."""
+    need(len(sharded) == forwards * layers == len(whole), f"{label}: the "
+         f"router ran {len(sharded)} and {len(whole)} times, want "
+         f"{forwards * layers}")
+    flips = []
+    for f in range(forwards):
+        n = S if f == 0 else 1
+        differ = torch.zeros(B, n, dtype=torch.bool)
+        for li in range(layers):
+            c = f * layers + li
+            differ |= (sharded[c] != whole[c]).any(dim=-1).view(B, n).cpu()
+        flips.append(differ)
+    return flips
+
+
+def serve_held(torch, label, model, params, batch, max_len, tokens, got,
+               want, routes, mesh) -> str:
+    """``serve_gap`` of a SHARDED_SERVE run: the sharded run's logits ``got``
+    against the unsharded run's ``want`` on the fed ``tokens``. An MoE run
+    also counts the tokens whose experts differ between the two runs
+    (``routes``, the two runs' ``RouteLog``s). In bf16 their sums round
+    apart and a token whose top K flips is another function, so a bf16 MoE
+    run is held instead to the unsharded run made with the sharded run's
+    experts, every token."""
+    cfg = model.cfg
+    if cfg.family != "moe":
+        return serve_gap(torch, label, got, want, tokens)
+    layers = cfg.num_layers
+    B, S = batch["tokens"].shape
+    sharded = batch_routes(routes[0], mesh)
+    flips = route_flips(torch, label, sharded, routes[1].calls, layers, B, S,
+                        len(got) + 1)
+    rows = torch.stack([f.any(dim=-1) for f in flips]).any(dim=0)
+    gap = max((g - w).abs().max().item() for g, w in zip(got, want))
+    print(f"{label}: route flips against the unsharded run: prefill "
+          f"{int(flips[0].sum())}/{flips[0].numel()} tokens, decode "
+          f"{sum(int(f.sum()) for f in flips[1:])}/{len(got) * B} (in any "
+          f"of {layers} layers); rows with a flip {int(rows.sum())}/{B}; "
+          f"logits_max_gap {gap:.4e}", flush=True)
+    if cfg.dtype != "bfloat16":
+        return serve_gap(torch, label, got, want, tokens)
+    replayed = RouteLog(torch, replay=sharded)
+    with replayed:
+        _, want, _, _, _ = serve_tokens(torch, model, params, batch,
+                                        max_len, len(got), forced=tokens)
+    need(len(replayed.calls) == len(sharded), f"{label}: the replayed run "
+         f"routed {len(replayed.calls)} times, want {len(sharded)}")
+    return "with the sharded run's experts: " + serve_gap(
+        torch, label + " (the sharded run's experts)", got, want, tokens)
+
+
+def run_sharded_serve(torch, seed):
+    """Phase 23: prefill and decode on a model mesh through the entry points
+    (``get_model(cfg).prefill`` and ``.decode`` under ``activate_mesh``, the
+    parameters placed by ``param_shardings``, the cache by
+    ``launch.sharding.cache_shardings``). With four cards or more: the
+    four-card run (``run_sharded_serve_32k``). Otherwise, on one card
+    (SHARDED_SERVE): prefill of SERVE_BATCH x SERVE_PROMPT into a
+    SERVE_MAX_LEN cache, SERVE_STEPS greedy decode steps; each run held to
+    the same weights unsharded on the card (``serve_gap``), its launches
+    exact; then the smoke configs in float32, the card's mesh against the
+    CPU's. Returns the launch counts of the sharded runs."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import param_shardings, place_tree
+    from repro_torch.models import get_model, make_batch
+
+    t_phase = time.perf_counter()
+    if torch.cuda.device_count() >= 4:
+        total = run_sharded_serve_32k(torch, seed)
+        run_sharded_serve_parity(torch, seed)
+        print(f"sharded_serve: phase_s={time.perf_counter() - t_phase:.1f}",
+              flush=True)
+        return total
+    total = {k: 0 for k in REPLACES}
+    print(f"sharded_serve: card {card_line()}", flush=True)
+    for arch, layers, shape, dtype in SHARDED_SERVE:
+        t_run = time.perf_counter()
+        cfg = get_config(arch).replace(num_layers=layers, dtype=dtype,
+                                       param_dtype=dtype)
+        if cfg.family == "moe":
+            # the mesh takes the MoE's capacity per data shard, another
+            # function where choices are dropped: at E / K no choice is
+            # dropped in either run
+            cfg = cfg.replace(moe_capacity_factor=cfg.num_experts
+                              / cfg.experts_per_token)
+        model = get_model(cfg)
+        mesh = make_mesh(shape, ("data", "model"), "cuda:0")
+        params = model.init(seed, device="cuda")
+        placed = place_tree(params, mesh, param_shardings(
+            mesh, params, moe_fsdp=cfg.moe_fsdp_params))
+        batch = make_batch(cfg, "prefill", SERVE_BATCH, SERVE_PROMPT, seed,
+                           device="cuda")
+        serve_tokens(torch, model, placed, batch, SERVE_MAX_LEN, 1, mesh)
+        routes = (RouteLog(torch), RouteLog(torch))
+        kernels.reset_counts()
+        with routes[0]:
+            tokens, got, cache, prefill_s, step_s = serve_tokens(
+                torch, model, placed, batch, SERVE_MAX_LEN, SERVE_STEPS, mesh)
+        counts = read_counts(REPLACES)
+        tp = mesh.shape["model"]
+        form = ("heads" if cfg.num_kv_heads % tp == 0 else "sequence")
+        label = (f"sharded_serve {cfg.name} {dtype} mesh {shape} ({form} "
+                 "form)")
+        check_launches(label, counts, ATTENTION_KERNELS)
+        want = {"flash_attention": layers * mesh.size,
+                "decode_attention": layers * mesh.size * SERVE_STEPS}
+        for k, n in want.items():
+            need(counts[k][0] == n, f"{label}: {k} launched {counts[k][0]} "
+                 f"times, want {n} (layers x positions"
+                 + (" x steps)" if k == "decode_attention" else ")"))
+        for k in total:
+            total[k] += counts[k][0]
+        need(cache["lengths"].shape == (SERVE_BATCH,) and all(
+            bool((t == SERVE_PROMPT + SERVE_STEPS).all())
+            for t in cache["lengths"].parts), f"{label}: lengths")
+        kspec = cache["k"].spec
+        del cache, placed
+        with routes[1]:
+            _, want_logits, _, base_prefill_s, base_s = serve_tokens(
+                torch, model, params, batch, SERVE_MAX_LEN, SERVE_STEPS,
+                forced=tokens)
+        held = serve_held(torch, label, model, params, batch, SERVE_MAX_LEN,
+                          tokens, got, want_logits, routes, mesh)
+        med = statistics.median(step_s[1:])
+        print(f"{label}: cache spec {kspec} B={SERVE_BATCH} "
+              f"prompt={SERVE_PROMPT} max_len={SERVE_MAX_LEN} "
+              f"steps={SERVE_STEPS} prefill_s={prefill_s:.4f} "
+              f"median_step_ms={med * 1e3:.3f} (unsharded "
+              f"{statistics.median(base_s[1:]) * 1e3:.3f}, prefill "
+              f"{base_prefill_s:.4f} s) launches flash_attention="
+              f"{counts['flash_attention'][0]} decode_attention="
+              f"{counts['decode_attention'][0]} {held} "
+              f"s={time.perf_counter() - t_run:.2f}", flush=True)
+        del params, batch
+        torch.cuda.empty_cache()
+    run_sharded_serve_parity(torch, seed)
+    print(f"sharded_serve: phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {k: (n, 0) for k, n in total.items()}
+
+
+def run_sharded_serve_parity(torch, seed):
+    """The smoke configs in float32 on a mesh repeating the card and on one
+    repeating the CPU, from one set of weights and tokens: prefill of 4 x 23
+    tokens into 32 rows, 6 decode steps with fixed tokens (the rows cross a
+    shard boundary in the sequence form); every logit within 1e-4 of the
+    largest, lengths equal."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import (gather, param_shardings,
+                                             place_tree)
+    from repro_torch.models import get_model
+
+    f32 = dict(dtype="float32", param_dtype="float32")
+    for arch, shape in SERVE_PARITY:
+        t0 = time.perf_counter()
+        cfg = get_smoke_config(arch).replace(**f32)
+        model = get_model(cfg)
+        params = model.init(seed, device="cpu")
+        rng = np.random.default_rng(seed)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 23)))
+        forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (6, 4)))
+        got = {}
+        kernels.reset_counts()
+        for name, dev in (("card", "cuda:0"), ("cpu", "cpu")):
+            mesh = make_mesh(shape, ("data", "model"), dev)
+            placed = place_tree(params, mesh, param_shardings(
+                mesh, params, moe_fsdp=cfg.moe_fsdp_params))
+            _, logits, cache, _, _ = serve_tokens(
+                torch, model, placed, {"tokens": prompt.to(dev)}, 32, 6,
+                mesh, forced=forced)
+            got[name] = (logits, gather(cache["lengths"], "cpu"))
+            if name == "card":
+                counts = read_counts(REPLACES)
+                check_launches(f"sharded_serve parity {cfg.name} {shape}",
+                               counts, ATTENTION_KERNELS)
+        top = max(w.abs().max().item() for w in got["cpu"][0])
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(got["card"][0], got["cpu"][0]))
+        need(err <= 1e-4 * top, f"sharded_serve parity {cfg.name} {shape}: "
+             f"the logits differ by {err:.3e} (tol 1e-4 x {top:.3e})")
+        need(torch.equal(got["card"][1], got["cpu"][1]),
+             f"sharded_serve parity {cfg.name} {shape}: lengths differ")
+        print(f"sharded_serve: parity {cfg.name} mesh {shape} float32 "
+              f"logits_max_abs_err={err:.3e} (tol 1e-4 x {top:.3e}) "
+              f"launches flash_attention={counts['flash_attention'][0]} "
+              f"decode_attention={counts['decode_attention'][0]} "
+              f"s={time.perf_counter() - t0:.2f}", flush=True)
+
+
+def run_sharded_serve_32k(torch, seed):
+    """The four-card run: llama3-8b whole (bf16) on a (2, 2) mesh over the
+    first four cards, SERVE_32K: prefill of 24 prompts of 32704 tokens into
+    a 32768-row cache (the heads form: 4 of the 8 KV heads and 12 rows a
+    card), 64 greedy decode steps. Prints the step's ms, tokens/s, each
+    card's peak GB, the idle share over the cards of a profiled step and
+    the ``roofline:`` line (the bytes each card must read a step over the
+    memory rate). Rows 0-1 are then held to one card's unsharded prefill and
+    decode of those rows (``serve_gap``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import activate_mesh, make_mesh
+    from repro_torch.launch.sharding import (gather, param_shardings,
+                                             place_tree)
+    from repro_torch.models import get_model, make_batch
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    run = SERVE_32K
+    cfg = get_config("llama3_8b")
+    model = get_model(cfg)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    cards = mesh.distinct()
+    print(f"sharded_serve: four cards: mesh {mesh.shape} over "
+          + ", ".join(str(d) for d in mesh.devices) + f", card {card_line()}",
+          flush=True)
+    for d in cards:
+        torch.zeros((), device=d)
+        torch.cuda.reset_peak_memory_stats(d)
+    first = mesh.devices[0]
+    params = model.init(seed, device=first)
+    placed = place_tree(params, mesh, param_shardings(mesh, params))
+    del params
+    torch.cuda.empty_cache()
+    batch = make_batch(cfg, "prefill", run["batch"], run["prompt"], seed,
+                       device=first)
+    init_s = time.perf_counter() - t0
+    kernels.reset_counts()
+    tokens, got, cache, prefill_s, step_s = serve_tokens(
+        torch, model, placed, batch, run["max_len"], run["steps"], mesh,
+        keep=slice(0, run["held_rows"]))
+    counts = read_counts(REPLACES)
+    label = f"sharded_serve {cfg.name} decode_32k B={run['batch']} four cards"
+    check_launches(label, counts, ATTENTION_KERNELS)
+    L = cfg.num_layers
+    for k, n in (("flash_attention", L * mesh.size),
+                 ("decode_attention", L * mesh.size * run["steps"])):
+        need(counts[k][0] == n, f"{label}: {k} launched {counts[k][0]} "
+             f"times, want {n}")
+    peaks = [torch.cuda.max_memory_allocated(d) / 1e9 for d in cards]
+    by_card = {d: 0 for d in cards}
+    for w in leaves(placed) + [cache["k"], cache["v"]]:
+        for pos, t in enumerate(w.parts):
+            by_card[mesh.devices[pos]] += t.numel() * t.element_size()
+    nbytes = max(by_card.values())
+    memory_ms = nbytes / roofline.HBM_BW * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with activate_mesh(mesh):
+            t1 = time.perf_counter()
+            nxt = tokens[-1]
+            for _ in range(4):
+                _, cache = model.decode(placed, {"tokens": nxt}, cache)
+            for d in cards:
+                torch.cuda.synchronize(d)
+            prof_s = time.perf_counter() - t1
+    busy_s, top = device_busy(prof)
+    idle = (max(0.0, 1.0 - busy_s / (prof_s * len(cards)))
+            if busy_s > 0 else None)
+    med = statistics.median(step_s[2:])
+    print(f"{label}: prompt={run['prompt']} max_len={run['max_len']} "
+          f"steps={run['steps']} init_s={init_s:.2f} prefill_s={prefill_s:.3f} "
+          f"step_ms=" + ",".join(f"{x * 1e3:.2f}" for x in step_s[:8])
+          + f",... median_step_ms={med * 1e3:.3f} (steps 3-{run['steps']}) "
+          f"tokens_per_s={run['batch'] / med:.1f} peak_gb_per_card="
+          + ",".join(f"{x:.3f}" for x in peaks) + " idle_share="
+          + (f"{idle:.4f}" if idle is not None else "not measured")
+          + f" (4 profiled steps, {prof_s:.4f} s, device busy "
+          f"{busy_s:.4f} s over {len(cards)} cards) top: "
+          + ", ".join(f"{k[:40]}={us / 1e3:.2f}ms" for k, us in top),
+          flush=True)
+    print(f"roofline: sharded_serve {cfg.name} decode B={run['batch']} "
+          f"S={run['max_len']} mesh (2, 2) bytes_per_card=" + ",".join(
+              f"{by_card[d]:.6e}" for d in cards)
+          + f" memory_ms={memory_ms:.5f} (the fullest card at "
+          f"{roofline.HBM_BW / 1e12:g} TB/s) tokens_per_s_bound="
+          f"{run['batch'] / memory_ms * 1e3:.1f} measured_ms_per_step="
+          f"{med * 1e3:.5f} measured_over_memory={med * 1e3 / memory_ms:.2f}",
+          flush=True)
+    del cache, placed, prof
+    for d in cards:
+        torch.cuda.empty_cache()
+    # rows 0-1 on one card, unsharded, fed the sharded run's tokens
+    rows = slice(0, run["held_rows"])
+    params = model.init(seed, device=first)
+    one = {k: v[rows] for k, v in batch.items()}
+    _, want, _, base_prefill_s, base_s = serve_tokens(
+        torch, model, params, one, run["max_len"], run["steps"],
+        forced=tokens[:, rows])
+    held = serve_gap(torch, f"{label} rows 0-1", got, want, tokens[:, rows])
+    print(f"{label}: rows 0-1 against one card's unsharded run (prefill "
+          f"{base_prefill_s:.3f} s, median step "
+          f"{statistics.median(base_s[2:]) * 1e3:.3f} ms): {held} "
+          f"s={time.perf_counter() - t0:.1f}", flush=True)
+    del params, batch
+    torch.cuda.empty_cache()
+    return {k: (n, 0) for k, (n, _) in counts.items()}
+
+
 def roofline_line(phase, cfg, batch, context, ms_per_step) -> None:
     """The analytic bytes and FLOPs of one decode step of ``cfg`` at
     ``batch`` sequences of ``context`` tokens on one card
@@ -5064,7 +5631,11 @@ def main() -> int:
     sharded_train_counts = run_sharded_train(torch, wl, args.seed)
     stamp("sharded_train")
 
-    # 23. kernels -----------------------------------------------------------
+    # 23. prefill and decode on a model mesh -------------------------------
+    sharded_serve_counts = run_sharded_serve(torch, args.seed)
+    stamp("sharded_serve")
+
+    # 24. kernels -----------------------------------------------------------
     summary = []
     for k in REPLACES:
         r = results[k]
@@ -5081,7 +5652,8 @@ def main() -> int:
                    "whisper": whisper_counts[k][0],
                    **{phase: c[k][0] for phase, c in train_counts.items()},
                    "train_parity": train_parity_counts[k][0],
-                   "sharded_train": sharded_train_counts[k][0]}
+                   "sharded_train": sharded_train_counts[k][0],
+                   "sharded_serve": sharded_serve_counts[k][0]}
         print(f"kernels: {k} launches={sum(by_path.values())} ("
               + ", ".join(f"{p} {n}" for p, n in by_path.items())
               + f") check=ok main_shape={r['shape']}")

@@ -26,6 +26,14 @@ and placed on a model mesh, as the reference's ``build_cell`` places it
 
     state = sharded_train_state_from_numpy(
         jax.tree.map(np.asarray, jax_state), cfg, mesh)
+
+A serve cache of any family (the reference's leaf names), placed on a model
+mesh by ``launch.sharding.cache_shardings``, beside its parameters placed by
+``param_shardings``::
+
+    cache = cache_from_numpy(jax.tree.map(np.asarray, jax_cache), cfg, mesh)
+    params = place_tree(transformer_params_from_numpy(...), mesh,
+                        param_shardings(mesh, ...))
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import torch
 
 from repro_torch.core.encoder import HashingEncoder
 from repro_torch.device import resolve_device
+from repro_torch.launch.sharding import cache_shardings, place_tree
 from repro_torch.training.train_loop import shard_train_state
 
 
@@ -196,3 +205,11 @@ def sharded_train_state_from_numpy(state: Dict[str, Any], cfg,
     ``zero1_shardings``)."""
     whole = train_state_from_numpy(state, cfg, device="cpu")
     return shard_train_state(whole, mesh, cfg)
+
+
+def cache_from_numpy(cache: Dict[str, Any], cfg, mesh) -> Dict[str, Any]:
+    """A serve cache (numpy leaves, each in its own type: bf16 caches,
+    float32 states, int32 ``lengths``) placed on ``mesh`` leaf by leaf by
+    ``launch.sharding.cache_shardings``: a dict of ``Sharded``."""
+    whole = _tree(cache, "cpu")
+    return place_tree(whole, mesh, cache_shardings(cfg, mesh, whole))

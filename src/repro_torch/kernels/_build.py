@@ -54,8 +54,8 @@ SIGNATURES: Dict[str, Tuple] = {
     "memforest_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _L, _I, _I, _I, _I, _I, _I, _I, _I,
                                       _P),
-    "memforest_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I,
-                                   _I, _I, _I, _I, _I, _I, _I, _P),
+    "memforest_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "memforest_mamba2_ssd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _I, _I, _P),
     "memforest_mamba2_ssd_bwd": (_P,) * 14 + (_I,) * 7 + (_P,),

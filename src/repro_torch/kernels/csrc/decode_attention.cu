@@ -8,7 +8,12 @@
 // with G = Hq / Hkv and caches (B, Smax, Hkv, D). A length past Smax counts
 // as Smax; a length of 0 gives zeros, as the Pallas kernel gives. Inputs are
 // bf16 or f32; products and the online softmax run in f32; the output has
-// q's type.
+// q's type. On request (a non-null lse) each query head's log-sum-exp of its
+// scaled scores is written too, (B, Hq) f32 in log2 units (log2 sum_p
+// exp2(s[p] log2 e), flash_attention's training domain), from the final
+// (m, l): m + log2 l, after every level of the merge; -inf for a length of
+// 0. A shard of a sequence-split cache merges its partial with the other
+// shards' by it.
 //
 // Bound on an H100: bytes. Each valid cache row is read once for 4*G*D
 // operations on 4*D bytes (bf16 k and v), about G operations per byte, far
@@ -317,7 +322,8 @@ __global__ void __launch_bounds__(kThreads, 3)   // three blocks an SM: at most 
 decode_attention_kernel(const __grid_constant__ Maps maps, const T* __restrict__ q,
                         const T* __restrict__ kc, const T* __restrict__ vc,
                         const int* __restrict__ lengths, T* __restrict__ out,
-                        float* __restrict__ part, unsigned* __restrict__ counters, int Smax,
+                        float* __restrict__ lse, float* __restrict__ part,
+                        unsigned* __restrict__ counters, int Smax,
                         int Hq, int Hkv, int D, int splits, float scale) {
   constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ uint8_t smem_raw[];
@@ -336,9 +342,12 @@ decode_attention_kernel(const __grid_constant__ Maps maps, const T* __restrict__
   const int heads = min(Gb, G - g0);                   // heads this block writes
   const long h0 = b * Hq + static_cast<long>(hk) * G + g0;   // (b, first head of the block)
 
-  if (len == 0) {  // no live chunk: chunk 0 writes the zeros
-    if (sp == 0)
+  if (len == 0) {  // no live chunk: chunk 0 writes the zeros (and -inf)
+    if (sp == 0) {
       for (int i = tid; i < heads * D; i += kThreads) out[h0 * D + i] = from_f32<T>(0.f);
+      if (lse != nullptr)
+        for (int h = tid; h < heads; h += kThreads) lse[h0 + h] = __int_as_float(0xff800000);
+    }
     return;
   }
   const int begin = sp * kChunk;
@@ -549,6 +558,9 @@ decode_attention_kernel(const __grid_constant__ Maps maps, const T* __restrict__
   // shared memory, one sum per row group
   const float* m_final = reinterpret_cast<const float*>(smem + lay.d);
   const float* l_final = kBf16 ? reinterpret_cast<const float*>(smem + lay.e) : m_final + Gb;
+  // a head's log-sum-exp in log2 units from its (m, l): bf16 keeps m in
+  // log2 units, float32 in natural ones
+  auto log2_sum = [](float m, float l) { return (kBf16 ? m : m * kLog2e) + log2f(l); };
   // store(h, d, acc) for the block's heads and d < dmax
   auto emit = [&](auto store, int dmax) {
     if constexpr (kBf16) {
@@ -575,6 +587,8 @@ decode_attention_kernel(const __grid_constant__ Maps maps, const T* __restrict__
 
   if (live == 1) {
     emit([&](int h, int d, float a) { out[(h0 + h) * D + d] = from_f32<T>(a / fmaxf(l_final[h], 1e-30f)); }, D);
+    if (lse != nullptr)
+      for (int h = tid; h < heads; h += kThreads) lse[h0 + h] = log2_sum(m_final[h], l_final[h]);
     return;
   }
 
@@ -630,6 +644,8 @@ decode_attention_kernel(const __grid_constant__ Maps maps, const T* __restrict__
         if (dst != nullptr) {
           dst[Gb * Dp + h] = M;
           dst[Gb * Dp + Gb + h] = L;
+        } else if (lse != nullptr) {   // the last level: the final (m, l)
+          lse[h0 + h] = log2_sum(M, L);
         }
       }
     }
@@ -691,7 +707,7 @@ decode_attention_kernel(const __grid_constant__ Maps maps, const T* __restrict__
 
 template <typename T, int NT>
 int launch(const void* q, const void* kc, const void* vc, const int* lengths, void* out,
-           float* part, unsigned* counters, int B, int Smax, int Hq, int Hkv, int D,
+           float* lse, float* part, unsigned* counters, int B, int Smax, int Hq, int Hkv, int D,
            int scale_dim, int splits, cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
   const Shape sh(Hq, Hkv, D, kBf16);
@@ -717,7 +733,7 @@ int launch(const void* q, const void* kc, const void* vc, const int* lengths, vo
   const dim3 grid(splits, Hkv * sh.HC, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       maps, static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), lengths,
-      static_cast<T*>(out), part, counters, Smax, Hq, Hkv, D, splits,
+      static_cast<T*>(out), lse, part, counters, Smax, Hq, Hkv, D, splits,
       1.0f / sqrtf(static_cast<float>(scale_dim)));
   return static_cast<int>(cudaGetLastError());
 }
@@ -725,7 +741,9 @@ int launch(const void* q, const void* kc, const void* vc, const int* lengths, vo
 }  // namespace
 
 // q (B, Hq, D), caches (B, Smax, Hkv, D), lengths (B,) int32, out (B, Hq, D),
-// all contiguous and 16-byte aligned, with D % 8 == 0 (the tensor maps'
+// lse null or (B, Hq) f32 (each head's log-sum-exp in log2 units, -inf at a
+// length of 0), all contiguous and q, caches and out 16-byte aligned, with
+// D % 8 == 0 (the tensor maps'
 // rule); q, caches and out of one type (bf16 when bf16 != 0, else f32).
 // Scores are scaled by 1/sqrt(scale_dim), scale_dim in (D - 8, D]: the
 // true head dim of a zero-padded one. chunk must be 128 and splits =
@@ -734,8 +752,8 @@ int launch(const void* q, const void* kc, const void* vc, const int* lengths, vo
 // the call fails if either is smaller than Scratch says. With splits == 1
 // both may be null.
 extern "C" int memforest_decode_attention(const void* q, const void* kc, const void* vc,
-                                          const int* lengths, void* out, void* part,
-                                          void* counters, long long part_floats,
+                                          const int* lengths, void* out, void* lse,
+                                          void* part, void* counters, long long part_floats,
                                           long long n_counters, int B, int Smax, int Hq, int Hkv,
                                           int D, int scale_dim, int chunk, int splits, int bf16,
                                           void* stream) {
@@ -756,13 +774,15 @@ extern "C" int memforest_decode_attention(const void* q, const void* kc, const v
       return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ls = static_cast<float*>(lse);
   float* pa = static_cast<float*>(part);
   unsigned* cn = static_cast<unsigned*>(counters);
   if (!bf16)
-    return launch<float, 0>(q, kc, vc, lengths, out, pa, cn, B, Smax, Hq, Hkv, D, scale_dim, splits, s);
+    return launch<float, 0>(q, kc, vc, lengths, out, ls, pa, cn, B, Smax, Hq, Hkv, D, scale_dim,
+                            splits, s);
   return sh.Gb <= 8
-             ? launch<__nv_bfloat16, 1>(q, kc, vc, lengths, out, pa, cn, B, Smax, Hq, Hkv, D,
+             ? launch<__nv_bfloat16, 1>(q, kc, vc, lengths, out, ls, pa, cn, B, Smax, Hq, Hkv, D,
                                         scale_dim, splits, s)
-             : launch<__nv_bfloat16, 2>(q, kc, vc, lengths, out, pa, cn, B, Smax, Hq, Hkv, D,
+             : launch<__nv_bfloat16, 2>(q, kc, vc, lengths, out, ls, pa, cn, B, Smax, Hq, Hkv, D,
                                         scale_dim, splits, s);
 }

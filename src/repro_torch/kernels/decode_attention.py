@@ -7,13 +7,21 @@ in q's type. Positions at or past ``lengths[b]`` are masked and never read;
 a length of 0 gives zeros, as the Pallas kernel gives. The kernel is
 ``csrc/decode_attention.cu``, one launch per call; CPU tensors take the
 plain version in ``ref.py``.
+
+``decode_attention_lse`` also returns each query head's log-sum-exp, (B,
+Hq) float32 in log2 units (``flash_attention_lse``'s domain: the natural
+log-sum-exp of the scaled scores times log2(e)), -inf at a length of 0: the
+same launch, writing it from its final (m, l). A shard of a cache split
+over the sequence merges its partial output with the others' by it
+(``models.layers.attention_decode_shards``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import decode_attention_ref
+from repro_torch.kernels.ref import (decode_attention_lse_ref,
+                                     decode_attention_ref)
 
 COUNT = _build.LaunchCount("decode_attention")
 MAX_HEAD_DIM = 128
@@ -52,6 +60,19 @@ def scratch_sizes(B: int, Hq: int, Hkv: int, D: int, splits: int,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
+    return _decode(q, k_cache, v_cache, lengths, False)[0]
+
+
+def decode_attention_lse(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lengths: torch.Tensor):
+    """``decode_attention`` -> (out (B, Hq, D) in q's type, lse (B, Hq)
+    float32 in log2 units, -inf where the length is 0): one launch of the
+    kernel on CUDA tensors, ``ref.decode_attention_lse_ref`` on CPU
+    tensors."""
+    return _decode(q, k_cache, v_cache, lengths, True)
+
+
+def _decode(q, k_cache, v_cache, lengths, with_lse: bool):
     if (q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape
             or k_cache.shape[0] != q.shape[0] or k_cache.shape[3] != q.shape[2]
             or k_cache.shape[2] < 1 or q.shape[1] % k_cache.shape[2] != 0
@@ -62,7 +83,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{tuple(v_cache.shape)}, {tuple(lengths.shape)}")
     if _build.is_plain("decode_attention", q, k_cache, v_cache, lengths):
         COUNT.plain_calls += 1
-        return decode_attention_ref(q, k_cache, v_cache, lengths)
+        if with_lse:
+            return decode_attention_lse_ref(q, k_cache, v_cache, lengths)
+        return decode_attention_ref(q, k_cache, v_cache, lengths), None
     _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     dev = _build.check_cuda_inputs("decode_attention", q, k_cache, v_cache,
                                    dtypes=DTYPES)
@@ -84,6 +107,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     q, k_cache, v_cache = (_build.tma_ready(x) for x in (q, k_cache, v_cache))
     Dk = q.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq), dtype=torch.float32, device=dev)
+           if with_lse else None)
     part = counters = None          # the merge's scratch, with splits > 1
     n_part = n_counters = 0
     if splits > 1:
@@ -95,9 +120,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _build.launch("decode_attention", "memforest_decode_attention", dev,
                   q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   lengths.data_ptr(), out.data_ptr(),
+                  None if lse is None else lse.data_ptr(),
                   None if part is None else part.data_ptr(),
                   None if counters is None else counters.data_ptr(),
                   n_part, n_counters, B, Smax, Hq, Hkv, Dk, D, chunk, splits,
                   int(q.dtype == torch.bfloat16))
     COUNT.launched()
-    return out if Dk == D else out[..., :D].contiguous()
+    return (out if Dk == D else out[..., :D].contiguous()), lse

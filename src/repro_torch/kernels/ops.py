@@ -12,7 +12,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.browse_scores import browse_scores, browse_scores_rows
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                 decode_attention_lse)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mamba2_ssd import mamba2_ssd
 from repro_torch.kernels.ref import (grow_rows, normalize_rows,
@@ -22,8 +23,8 @@ from repro_torch.kernels.topk_sim import topk_sim
 from repro_torch.kernels.tree_refresh import tree_refresh
 
 __all__ = ["attention", "browse_scores", "browse_scores_rows",
-           "decode_attention", "grow_rows", "mamba2_ssd", "normalize_rows",
-           "release_rows", "rwkv6_scan", "scatter_normalize_rows",
+           "decode_attention", "decode_attention_lse", "grow_rows",
+           "mamba2_ssd", "normalize_rows", "release_rows", "rwkv6_scan", "scatter_normalize_rows",
            "scatter_rows", "topk_sim", "tree_refresh"]
 
 

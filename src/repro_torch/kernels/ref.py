@@ -14,6 +14,8 @@ whose tie order is unspecified.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 NEG_INF = -1e30
@@ -253,6 +255,28 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.where((lengths.to(q.device) > 0)[:, None, None, None], out,
                       torch.zeros_like(out))
     return out.reshape(B, q.shape[1], D).to(q.dtype)
+
+
+def decode_attention_lse_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, lengths: torch.Tensor):
+    """``decode_attention_ref`` and each query head's log-sum-exp of its
+    scores over the cache positions before ``lengths[b]``, in log2 units
+    (``attention_lse_ref``'s domain: the natural log-sum-exp times
+    log2(e)): -> (out (B, Hq, D) in q's type, lse (B, Hq) float32, float64
+    for float64 inputs). A sequence of length 0 gets zeros and lse -inf, so
+    that a merge of partial results weighs it as nothing."""
+    B, Smax, Hkv, D = k_cache.shape
+    Hq = q.shape[1]
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = q.to(ct).reshape(B, Hkv, Hq // Hkv, D)
+    logits = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.to(ct))
+    logits = logits * _inv_sqrt(D, q.device).to(ct)
+    pos = torch.arange(Smax, device=q.device)[None, None, None, :]
+    valid = pos < lengths.to(q.device)[:, None, None, None]
+    logits = torch.where(valid, logits,
+                         torch.full_like(logits, -math.inf))
+    lse = torch.logsumexp(logits, dim=-1).reshape(B, Hq) * LOG2E
+    return decode_attention_ref(q, k_cache, v_cache, lengths), lse
 
 
 # ---------------------------------------------------------------------------

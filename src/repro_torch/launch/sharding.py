@@ -6,7 +6,7 @@ drops the mesh axes a leaf's dims do not divide and can replicate ``wk`` and
 ``wv`` when the KV heads do not divide the model width, ``zero1_pspec`` adds
 the data axes to the largest free dim of an AdamW moment, and
 ``data_sharding`` splits a batch over the data axes unless they do not divide
-it. Mesh axes: ("pod", "data", "model") or ("data", "model"); ``pod`` and
+it, and ``cache_shardings`` lays out every family's decode cache. Mesh axes: ("pod", "data", "model") or ("data", "model"); ``pod`` and
 ``data`` are the data-parallel axes, ``model`` the tensor- and
 expert-parallel one.
 
@@ -214,6 +214,53 @@ def zero1_shardings(mesh: Mesh, params_tree: Any) -> Any:
         return NamedSharding(mesh, _drop_indivisible(spec, leaf, mesh))
 
     return _map_with_path(one, params_tree)
+
+
+KV_LEAVES = ("k", "v", "kv_k", "kv_v", "self_k", "self_v", "cross_k",
+             "cross_v")
+
+
+def cache_shardings(cfg, mesh: Mesh, specs: Any) -> Any:
+    """A tree of ``NamedSharding``s matching the cache tree ``specs``
+    (tensors or ``meta`` stand-ins) of a model config ``cfg``: the
+    reference's name-based rule for every cache leaf of every family.
+
+    - ``KV_LEAVES`` (L, B, S, Hkv, Dh): the batch over the data axes; the KV
+      heads over ``model`` when the model width divides ``num_kv_heads``,
+      else the sequence over ``model`` (split-KV decode), so the cache never
+      replicates;
+    - ``wkv`` (L, B, H, K, V) and ``ssd`` (L, B, H, P, N): the heads over
+      ``model`` where the width divides them; ``conv``, ``shift_t``,
+      ``shift_c``: the batch only; ``lengths`` (B,): the data axes;
+
+    each then dropping the mesh axes a dim does not divide."""
+    names = mesh.axis_names
+    data = tuple(a for a in DATA_AXES if a in names) or None
+
+    def model_ok(n: int) -> Optional[str]:
+        ok = MODEL_AXIS in names and n % mesh.shape[MODEL_AXIS] == 0
+        return MODEL_AXIS if ok else None
+
+    def rule(path: str) -> P:
+        name = path.split("/")[-1]
+        if name in KV_LEAVES:
+            h_ax = model_ok(cfg.num_kv_heads)
+            s_ax = MODEL_AXIS if h_ax is None and MODEL_AXIS in names else None
+            return P(None, data, s_ax, h_ax, None)
+        if name == "wkv":
+            return P(None, data,
+                     model_ok(cfg.d_model // max(cfg.rwkv_head_size, 1)))
+        if name == "ssd":
+            return P(None, data,
+                     model_ok(cfg.d_inner // max(cfg.ssm_head_dim, 1)))
+        if name in ("conv", "shift_t", "shift_c"):
+            return P(None, data)
+        if name == "lengths":
+            return P(data)
+        return P()
+
+    return _map_with_path(lambda path, leaf: NamedSharding(
+        mesh, _drop_indivisible(rule(path), leaf, mesh)), specs)
 
 
 # ---------------------------------------------------------------------------

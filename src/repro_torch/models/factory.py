@@ -6,17 +6,22 @@
     model.prefill(params, batch, max_len) -> (logits, cache)
     model.decode(params, batch, cache) -> (logits, cache)
     model.init_cache(batch, max_len, device=...) -> empty cache
+    model.cache_specs(batch, max_len) -> the cache's tree on ``meta``
 
 Counterpart of the JAX package's ``models/factory.py``: the dense, ``moe``
 and ``vlm`` families run in ``transformer``, ``ssm`` in ``rwkv6``,
 ``hybrid`` in ``zamba2`` and ``encdec`` in ``whisper``. ``make_batch``
 builds a seeded random batch of any family. ``loss`` trains every family;
 on a card the scans of ``ssm`` and ``hybrid`` run their backward kernels.
-Under an ambient model mesh (``launch.mesh.activate_mesh``) ``loss`` takes
-parameters placed on it and runs ``transformer.sharded_loss_fn``; the
-``ssm``, ``hybrid`` and ``encdec`` families do not run on a mesh yet.
-The dry-run tooling (``cache_specs``, ``param_specs``, ``input_specs``) is
-not ported (ROADMAP.md, queue 1).
+Under an ambient model mesh (``launch.mesh.activate_mesh``) ``loss``,
+``prefill`` and ``decode`` take parameters placed on it and run
+``transformer``'s sharded forms (``sharded_loss_fn``, ``sharded_prefill``,
+``sharded_decode_step``; the cache placed by ``launch.sharding.
+cache_shardings``); the ``ssm``, ``hybrid`` and ``encdec`` families do not
+run on a mesh yet and raise there. The dry-run's stand-ins, as the
+reference's ``jax.eval_shape`` gives them: ``cache_specs``,
+``param_specs(cfg)`` and ``input_specs(cfg, shape)``, empty tensors on the
+``meta`` device; ``launch/dryrun.py`` pairs them with the shardings.
 """
 from __future__ import annotations
 
@@ -25,11 +30,11 @@ from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import current_mesh
 from repro_torch.models import rwkv6, transformer, whisper, zamba2
-from repro_torch.models.layers import torch_dtype
+from repro_torch.models.layers import meta_specs, torch_dtype
 
 
 class Model(NamedTuple):
@@ -39,21 +44,43 @@ class Model(NamedTuple):
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     init_cache: Callable[..., Any]
+    cache_specs: Callable[..., Any]
 
 
 _MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": rwkv6, "hybrid": zamba2, "encdec": whisper}
 
 
-def _loss(mod, cfg: ModelConfig, params, batch):
+def _on_mesh(mod, cfg: ModelConfig, what: str):
+    """The ambient model mesh, or None; a family that does not run on a
+    mesh raises there rather than run unsharded."""
     mesh = current_mesh()
+    if mesh is not None and mod is not transformer:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family does not {what} on a "
+            "model mesh in the port yet (ROADMAP.md, queue 1, item 5)")
+    return mesh
+
+
+def _loss(mod, cfg: ModelConfig, params, batch):
+    mesh = _on_mesh(mod, cfg, "train")
     if mesh is None:
         return mod.loss_fn(params, cfg, batch)
-    if mod is not transformer:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not train on a model "
-            "mesh in the port yet (ROADMAP.md, queue 1, item 5)")
     return transformer.sharded_loss_fn(params, cfg, batch, mesh)
+
+
+def _prefill(mod, cfg: ModelConfig, params, batch, max_len: int):
+    mesh = _on_mesh(mod, cfg, "prefill")
+    if mesh is None:
+        return mod.prefill(params, cfg, batch, max_len)
+    return transformer.sharded_prefill(params, cfg, batch, max_len, mesh)
+
+
+def _decode(mod, cfg: ModelConfig, params, batch, cache):
+    mesh = _on_mesh(mod, cfg, "decode")
+    if mesh is None:
+        return mod.decode_step(params, cfg, batch, cache)
+    return transformer.sharded_decode_step(params, cfg, batch, cache, mesh)
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -64,12 +91,50 @@ def get_model(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=functools.partial(mod.init_params, cfg),
         loss=functools.partial(_loss, mod, cfg),
-        prefill=lambda params, batch, max_len: mod.prefill(params, cfg, batch,
-                                                           max_len),
-        decode=lambda params, batch, cache: mod.decode_step(params, cfg, batch,
-                                                            cache),
+        prefill=functools.partial(_prefill, mod, cfg),
+        decode=functools.partial(_decode, mod, cfg),
         init_cache=functools.partial(mod.init_cache, cfg),
+        cache_specs=lambda batch, max_len: meta_specs(
+            lambda: mod.init_cache(cfg, batch, max_len, device="cpu")),
     )
+
+
+def param_specs(cfg: ModelConfig) -> Any:
+    """The parameter tree, each leaf an empty ``meta`` tensor of its shape
+    and type: no allocation (the reference's ``jax.eval_shape`` of
+    ``init``)."""
+    model = get_model(cfg)
+    return meta_specs(lambda: model.init(0, device="cpu"))
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """The batch of one benchmark cell as empty ``meta`` tensors, the
+    reference's cases: a decode step's ``tokens`` (B,); whisper's
+    ``frames`` (B, encoder_seq_len, D) beside S tokens; the VLM's S - P
+    tokens beside its P ``patch_embeds``; else (B, S) tokens. Token ids are
+    int32, as the reference's; ``labels`` (like the tokens) for a train
+    cell."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = torch_dtype(cfg.dtype)
+
+    def sds(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": sds(B)}
+    if cfg.family == "encdec":
+        out = {"frames": sds(B, cfg.encoder_seq_len, cfg.d_model, dtype=dt),
+               "tokens": sds(B, S)}
+    elif cfg.family == "vlm":
+        P = cfg.num_patches
+        S = S - P
+        out = {"tokens": sds(B, S),
+               "patch_embeds": sds(B, P, cfg.d_model, dtype=dt)}
+    else:
+        out = {"tokens": sds(B, S)}
+    if shape.is_train:
+        out["labels"] = sds(B, S)
+    return out
 
 
 def make_batch(cfg: ModelConfig, shape_kind: str, batch: int, seq: int,

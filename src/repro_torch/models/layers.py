@@ -23,12 +23,16 @@ MLP's ``w_gate``/``w_up``/``wi`` are column-parallel, ``wo`` and
 the model width does not divide a head count or a dim, every model position
 computes the whole of it from the all-gathered weight, as the reference's
 constraints then replicate it. The MoE's expert-parallel branch is the
-reference's ``shard_map`` branch.
+reference's ``shard_map`` branch. Decode on a mesh
+(``attention_decode_shards``) takes the cache as
+``launch.sharding.cache_shardings`` lays it out: by KV heads (the heads form)
+or, where the model width does not divide them, by rows (the sequence form,
+each shard's partial output merged by its log-sum-exp, ``lse_merge``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,12 +43,25 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch import spmd
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.sharding import DATA_AXES, MODEL_AXIS, Sharded, axes_of
+from repro_torch.tree import map_tree
 
 Params = Dict[str, torch.Tensor]
 
 
 def torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def meta_specs(build: Callable[[], Any]) -> Any:
+    """The tree ``build()`` returns, each leaf an empty tensor of its shape
+    and type on the ``meta`` device (the reference's ``jax.eval_shape``):
+    ``build`` runs on the CPU under a fake-tensor mode, so nothing is
+    allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fake = build()
+    return map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), fake)
 
 
 # ---------------------------------------------------------------------------
@@ -172,16 +189,25 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     q = (x @ p["wq"]).reshape(B, cfg.num_heads, cfg.head_dim)
     k = (x @ p["wk"]).reshape(B, cfg.num_kv_heads, cfg.head_dim)
     v = (x @ p["wv"]).reshape(B, cfg.num_kv_heads, cfg.head_dim)
+    o = _write_and_attend(cfg, q, k, v, k_cache, v_cache, lengths)
+    out = o.reshape(B, cfg.q_dim) @ p["wo"]
+    return out, k_cache, v_cache
+
+
+def _write_and_attend(cfg: ModelConfig, q, k, v, k_cache, v_cache,
+                      lengths) -> torch.Tensor:
+    """RoPE at ``lengths``, the new K/V row written IN PLACE at
+    ``lengths[b]`` clamped to Smax - 1, then ``decode_attention`` over
+    ``lengths + 1`` rows: q (B, Hq, Dh), k and v (B, Hkv, Dh) -> (B, Hq,
+    Dh)."""
     if cfg.rope_theta > 0:
         q = rope(q, lengths, cfg.rope_theta)
         k = rope(k, lengths, cfg.rope_theta)
-    rows = torch.arange(B, device=k_cache.device)
+    rows = torch.arange(q.shape[0], device=k_cache.device)
     at = torch.clamp(lengths, max=k_cache.shape[1] - 1).long()
     k_cache[rows, at] = k.to(k_cache.dtype)
     v_cache[rows, at] = v.to(v_cache.dtype)
-    o = ops.decode_attention(q, k_cache, v_cache, lengths + 1)
-    out = o.reshape(B, cfg.q_dim) @ p["wo"]
-    return out, k_cache, v_cache
+    return ops.decode_attention(q, k_cache, v_cache, lengths + 1)
 
 
 def cross_attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -455,12 +481,16 @@ def _kv_heads_for(k, v, lo: int, hq: int, group: int):
 
 def attention_prefill_shards(p, xs: List[torch.Tensor], cfg: ModelConfig,
                              positions: List[torch.Tensor], mesh: Mesh, *,
-                             causal: bool = True) -> List[torch.Tensor]:
+                             causal: bool = True, return_kv: bool = False):
     """``attention_prefill`` per shard: x (B_local, S, D) at every position
     -> out (B_local, S, D), replicated over ``model``. A position computes
     its model block of the query heads when ``heads_axis`` gives ``model``
     (else all of them) and the KV heads those read; the reference's
-    constraints put q, k and v on the same heads."""
+    constraints put q, k and v on the same heads. With ``return_kv`` also
+    each position's (k, v) after RoPE, (B_local, S, Hkv_local, Dh), as it
+    computed them for the cache: its block of the KV heads where the model
+    width divides them, else every KV head (taken before the heads its
+    queries read are picked)."""
     tp = model_width(mesh)
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q_local = heads_axis(H, mesh) is not None
@@ -469,7 +499,7 @@ def attention_prefill_shards(p, xs: List[torch.Tensor], cfg: ModelConfig,
     wq = model_block(p["wq"], 1) if q_local else spmd.whole(p["wq"])
     wk, wv = ((model_block(p[n], 1) if kv_local else spmd.whole(p[n]))
               for n in ("wk", "wv"))
-    outs = []
+    outs, kvs = [], []
     for pos, x in enumerate(xs):
         B, S, _ = x.shape
         q = (x @ wq[pos]).reshape(B, S, hq, Dh)
@@ -478,12 +508,118 @@ def attention_prefill_shards(p, xs: List[torch.Tensor], cfg: ModelConfig,
         if cfg.rope_theta > 0:
             q = rope(q, positions[pos], cfg.rope_theta)
             k = rope(k, positions[pos], cfg.rope_theta)
+        kvs.append((k, v))
         if q_local and not kv_local:
             k, v = _kv_heads_for(k, v, mesh.coord(pos, MODEL_AXIS) * hq, hq,
                                  H // Hkv)
         o = ops.attention(q, k, v, causal=causal)
         outs.append(o.reshape(B, S, hq * Dh))
-    return row_parallel(outs, p["wo"], q_local)
+    out = row_parallel(outs, p["wo"], q_local)
+    return (out, kvs) if return_kv else out
+
+
+def _all_columns(xs: List[torch.Tensor], w: Sharded) -> List[torch.Tensor]:
+    """``x @ w`` with every output column at every position: where the
+    model width divides w's columns, each position multiplies its block
+    (column-parallel) and the products are all-gathered over ``model``;
+    else each position multiplies the all-gathered w."""
+    mesh, tp = w.mesh, model_width(w.mesh)
+    if tp > 1 and w.shape[1] % tp == 0:
+        return spmd.all_gather(spmd.each(torch.matmul, xs, model_block(w, 1)),
+                               mesh, MODEL_AXIS, -1)
+    return spmd.each(torch.matmul, xs, spmd.whole(w))
+
+
+def attention_decode_shards(p, xs: List[torch.Tensor], cfg: ModelConfig,
+                            k_caches: List[torch.Tensor],
+                            v_caches: List[torch.Tensor],
+                            lengths: List[torch.Tensor], mesh: Mesh,
+                            cache_spec) -> List[torch.Tensor]:
+    """``attention_decode`` per shard: x (B_local, D) at every position ->
+    out (B_local, D), replicated over ``model``. ``k_caches``/``v_caches``:
+    each position's block of one layer's cache, laid out by ``cache_spec``
+    (the (L, B, S, Hkv, Dh) spec of ``launch.sharding.cache_shardings``);
+    ``lengths``: each position's (B_local,) int32. The new row is written IN
+    PLACE at ``lengths[b]``, clamped to Smax - 1 as ``attention_decode``
+    clamps it.
+
+    Heads form (the cache's KV heads over ``model``, or not split at all): a
+    position holds its block of the query and KV heads (all of them when
+    the cache is not split) and every row; it writes the row, launches
+    ``decode_attention`` on its block, and ``row_parallel`` over ``wo``
+    follows. Sequence form (the rows over ``model``: the width does not
+    divide the KV heads): position j holds rows [j R, (j + 1) R) of every
+    KV head, R = Smax / m; every query head's q and the new k and v come
+    whole to every position (column-parallel products all-gathered over
+    ``model``, or the all-gathered weight where the width does not divide
+    its columns); only the position that owns the clamped row writes it;
+    each launches ``decode_attention_lse`` over its rows with lengths
+    clamp(lengths + 1 - j R, 0, R), and the partials merge over ``model`` in
+    fixed mesh order: M = max lse, o = sum 2^(lse_j - M) o_j / sum 2^(lse_j -
+    M) (lse in log2 units). A position with no valid row gives zeros and lse
+    -inf, which weighs nothing."""
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    spec = tuple(cache_spec) + (None,) * (5 - len(cache_spec))
+    if MODEL_AXIS not in axes_of(spec[2]):
+        split = MODEL_AXIS in axes_of(spec[3]) and model_width(mesh) > 1
+        cols = ((lambda w: model_block(w, 1)) if split else spmd.whole)
+        wq, wk, wv = (cols(p[n]) for n in ("wq", "wk", "wv"))
+        outs = []
+        for pos, x in enumerate(xs):
+            B = x.shape[0]
+            o = _write_and_attend(cfg, (x @ wq[pos]).reshape(B, -1, Dh),
+                                  (x @ wk[pos]).reshape(B, -1, Dh),
+                                  (x @ wv[pos]).reshape(B, -1, Dh),
+                                  k_caches[pos], v_caches[pos], lengths[pos])
+            outs.append(o.reshape(B, -1))
+        return row_parallel(outs, p["wo"], split)
+
+    qs = _all_columns(xs, p["wq"])
+    ks = _all_columns(xs, p["wk"])
+    vs = _all_columns(xs, p["wv"])
+    parts, lses = [], []
+    for pos, x in enumerate(xs):
+        B = x.shape[0]
+        kc, vc, n = k_caches[pos], v_caches[pos], lengths[pos]
+        R = kc.shape[1]
+        lo = mesh.coord(pos, MODEL_AXIS) * R
+        q = qs[pos].reshape(B, H, Dh)
+        k = ks[pos].reshape(B, Hkv, Dh)
+        v = vs[pos].reshape(B, Hkv, Dh)
+        if cfg.rope_theta > 0:
+            q = rope(q, n, cfg.rope_theta)
+            k = rope(k, n, cfg.rope_theta)
+        rows = torch.arange(B, device=kc.device)
+        at = torch.clamp(n, max=R * model_width(mesh) - 1).long()
+        own = ((at >= lo) & (at < lo + R))[:, None, None]
+        idx = torch.clamp(at - lo, 0, R - 1)
+        kc[rows, idx] = torch.where(own, k.to(kc.dtype), kc[rows, idx])
+        vc[rows, idx] = torch.where(own, v.to(vc.dtype), vc[rows, idx])
+        o, lse = ops.decode_attention_lse(q, kc, vc,
+                                          torch.clamp(n + 1 - lo, 0, R))
+        parts.append(o)
+        lses.append(lse)
+    outs = [o.to(x.dtype).reshape(x.shape[0], H * Dh)
+            for o, x in zip(lse_merge(parts, lses, mesh), xs)]
+    return row_parallel(outs, p["wo"], False)
+
+
+def lse_merge(parts: List[torch.Tensor], lses: List[torch.Tensor],
+              mesh: Mesh, axis: str = MODEL_AXIS) -> List[torch.Tensor]:
+    """Partial attention outputs (B, H, Dh), each normalised over its own
+    keys, merged over ``axis`` by their log-sum-exps (B, H) in log2 units:
+    M = max lse over the group, then sum 2^(lse_j - M) o_j / sum 2^(lse_j -
+    M), both sums in float32 in fixed mesh order (``spmd.psum``). A partial
+    with lse -inf (no valid key) weighs nothing; a group with none at all
+    gives zeros. Every member of a group gets the merged float32 output."""
+    top = spmd.pmax(lses, mesh, axis)
+    ws = [torch.exp2(lse - torch.where(torch.isinf(t), 0.0, t))
+          for lse, t in zip(lses, top)]
+    num = spmd.psum([w[..., None] * o.to(torch.float32)
+                     for w, o in zip(ws, parts)], mesh, axis)
+    den = spmd.psum(ws, mesh, axis)
+    return [a / torch.clamp(d, min=1e-30)[..., None]
+            for a, d in zip(num, den)]
 
 
 def mlp_block_shards(p, xs: List[torch.Tensor], cfg: ModelConfig,

@@ -207,6 +207,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return init_state(cfg, batch, device=device)
 
 
+
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             max_len: int):
     """Full-sequence forward; returns (last logits (B, V), state)."""

@@ -6,8 +6,10 @@ dict: ``embed`` (V, D), ``layers`` (a list with one dict per layer: ``ln1``,
 ``ln2``, ``attn``, and ``mlp``, or ``moe`` for the MoE family),
 ``final_norm`` and, unless the embeddings are tied, ``unembed`` (D, V). The
 JAX package stacks the layers along a leading axis for ``lax.scan``; here a
-Python loop walks the list. ``sharded_loss_fn`` is the train loss on a model
-mesh, the parameters placed by ``launch.sharding.param_shardings``. The VLM
+Python loop walks the list. ``sharded_loss_fn``, ``sharded_prefill`` and
+``sharded_decode_step`` are the train loss and serve on a model mesh, the
+parameters placed by ``launch.sharding.param_shardings`` and the cache by
+``launch.sharding.cache_shardings``. The VLM
 family's batches may carry
 ``patch_embeds`` (B, P, D), prepended to the token embeddings at prefill
 (positions and the cache's ``lengths`` count them); decode ignores them.
@@ -29,7 +31,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import spmd
 from repro_torch.launch.mesh import Mesh
-from repro_torch.launch.sharding import P, Sharded, axes_of, data_sharding
+from repro_torch.launch.sharding import (MODEL_AXIS, P, Sharded, axes_of,
+                                         cache_shardings, data_sharding,
+                                         shard_region)
 from repro_torch.models import layers as L
 from repro_torch.tree import leaves, unflatten
 
@@ -273,6 +277,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     }
 
 
+
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             max_len: int):
     """Full-sequence forward; returns (last logits (B, V), cache). The
@@ -311,3 +316,157 @@ def decode_step(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, h)
     return logits, {"k": cache["k"], "v": cache["v"], "lengths": lengths + 1}
+
+
+# ---------------------------------------------------------------------------
+# serving on a model mesh
+# ---------------------------------------------------------------------------
+def _serve_layout(params, cfg: ModelConfig, B: int, mesh: Mesh, what: str):
+    """(the batch's spec, its data axes, the logits' spec) of a serve call
+    on ``mesh``: the batch over the data axes unless their width does not
+    divide B (``data_sharding``); the logits (B, V) as the reference's
+    ``constrain(logits, DATA, MODEL)``, the vocab over ``model`` where the
+    unembedding is stored split so."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.family}: {what} serves the "
+                         f"{', '.join(FAMILIES)} families")
+    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    if not isinstance(w, Sharded) or w.mesh != mesh:
+        raise ValueError(f"{what}: the parameters must be placed on the "
+                         "active mesh: place_tree(params, mesh, "
+                         "param_shardings(mesh, params))")
+    spec = data_sharding(mesh, 1, B).spec
+    split = L.model_width(mesh) > 1 and L.split_over_model(
+        w, 0 if cfg.tie_embeddings else 1)
+    return spec, axes_of(spec[0]), P(spec[0], MODEL_AXIS if split else None)
+
+
+def _ffn_shards(cfg: ModelConfig, p, hs, mesh: Mesh, batch_axes):
+    if cfg.family == "moe":
+        return L.moe_block_shards(p["moe"], hs, cfg, mesh, batch_axes)[0]
+    return L.mlp_block_shards(p["mlp"], hs, cfg, mesh)
+
+
+def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                    max_len: int, mesh: Mesh):
+    """``prefill`` on ``mesh`` -> (last logits, cache). ``params`` is a tree
+    of ``Sharded`` (``param_shardings``' placement, any ``kv_heads``);
+    ``batch`` holds whole tensors, split over the data axes as
+    ``data_sharding`` splits them (replicated when their width does not
+    divide B). S counts a VLM batch's patches, and the cache is
+    max(max_len, S) rows wide, as unsharded. Each layer runs per shard; each
+    position keeps what ``launch.sharding.cache_shardings`` gives it of K and
+    V (its KV-head block, or its rows of every KV head), zero-padded past S.
+    Returns the logits as a ``Sharded`` (B, V), split over the data axes and
+    by vocab over ``model`` (``launch.sharding.gather`` gives them whole),
+    and the cache as a dict of ``Sharded`` with the reference's leaf names,
+    ``lengths`` (B,) split over the data axes."""
+    B = batch["tokens"].shape[0]
+    spec, batch_axes, logit_spec = _serve_layout(params, cfg, B, mesh,
+                                                 "sharded_prefill")
+    vlm = cfg.family == "vlm" and "patch_embeds" in batch
+    S = batch["tokens"].shape[1] + (batch["patch_embeds"].shape[1]
+                                    if vlm else 0)
+    Smax = max(max_len, S)
+    shape = (cfg.num_layers, B, Smax, cfg.num_kv_heads, cfg.head_dim)
+    cache_sh = cache_shardings(cfg, mesh, {
+        "k": torch.empty(shape, device="meta"),
+        "lengths": torch.empty((B,), dtype=torch.int32, device="meta")})
+    k_spec, len_spec = cache_sh["k"].spec, cache_sh["lengths"].spec
+    dtype = L.torch_dtype(cfg.dtype)
+
+    def keep(t, pos, region):
+        """The position's (B_local, rows, heads, Dh) block of the padded
+        (B_local, Smax, Hkv or the block, Dh) K or V."""
+        rows, heads = region[2], region[3]
+        if t.shape[2] == cfg.num_kv_heads:
+            t = t[:, :, heads]
+        out = t.new_zeros((t.shape[0], rows.stop - rows.start) + t.shape[2:])
+        got = t[:, rows.start:min(rows.stop, S)]
+        out[:, :got.shape[1]] = got
+        return out
+
+    def body(params, batch):
+        x = L.embed_shards(params["embed"], batch["tokens"].parts)
+        if vlm:
+            x = spmd.each(lambda pe, e: torch.cat([pe.to(e.dtype), e], dim=1),
+                          batch["patch_embeds"].parts, x)
+        positions = [torch.arange(S, device=d)[None, :] for d in mesh.devices]
+        regions = [shard_region(shape, k_spec, mesh, pos)
+                   for pos in range(mesh.size)]
+        ks = [torch.zeros(tuple(r.stop - r.start for r in reg), dtype=dtype,
+                          device=d) for reg, d in zip(regions, mesh.devices)]
+        vs = [torch.zeros_like(t) for t in ks]
+        for i, p in enumerate(params["layers"]):
+            hs = [L.rms_norm(t, g, cfg.norm_eps)
+                  for t, g in zip(x, p["ln1"].parts)]
+            att, kvs = L.attention_prefill_shards(p["attn"], hs, cfg,
+                                                  positions, mesh,
+                                                  return_kv=True)
+            for pos, (k, v) in enumerate(kvs):
+                ks[pos][i] = keep(k, pos, regions[pos])
+                vs[pos][i] = keep(v, pos, regions[pos])
+            x = spmd.each(torch.add, x, att)
+            hs = [L.rms_norm(t, g, cfg.norm_eps)
+                  for t, g in zip(x, p["ln2"].parts)]
+            x = spmd.each(torch.add, x, _ffn_shards(cfg, p, hs, mesh,
+                                                    batch_axes))
+        h = [L.rms_norm(t[:, -1], g, cfg.norm_eps)
+             for t, g in zip(x, params["final_norm"].parts)]
+        logits, _ = _logits_shards(params, cfg, h)
+        lengths = [torch.full((t.shape[0],), S, dtype=torch.int32,
+                              device=t.device) for t in h]
+        return logits, ks, vs, lengths
+
+    logits, k, v, lengths = spmd.shard_map(
+        body, mesh, (None, spec), (logit_spec, k_spec, k_spec, len_spec))(
+            params, batch)
+    return logits, {"k": k, "v": v, "lengths": lengths}
+
+
+def sharded_decode_step(params, cfg: ModelConfig,
+                        batch: Dict[str, torch.Tensor], cache, mesh: Mesh):
+    """``decode_step`` on ``mesh`` -> (logits, cache). ``batch``: {"tokens":
+    (B,)} whole (a VLM batch's patches are ignored); ``cache``: the dict of
+    ``Sharded`` that ``sharded_prefill`` returns or that
+    ``launch.sharding.cache_shardings`` places. Each layer writes its new K/V
+    row IN PLACE and runs ``layers.attention_decode_shards`` (the heads or
+    the sequence form, as the cache is laid out); an MoE layer takes each
+    data shard's (B_local, 1, D) tokens. Returns the logits as
+    ``sharded_prefill`` does and the cache with the same ``k`` and ``v`` and
+    lengths + 1."""
+    B = batch["tokens"].shape[0]
+    spec, batch_axes, logit_spec = _serve_layout(params, cfg, B, mesh,
+                                                 "sharded_decode_step")
+    kc, vc, lc = cache["k"], cache["v"], cache["lengths"]
+    if not all(isinstance(c, Sharded) and c.mesh == mesh
+               for c in (kc, vc, lc)):
+        raise ValueError("sharded_decode_step: the cache must be placed on "
+                         "the active mesh (launch.sharding.cache_shardings)")
+    if axes_of(lc.spec[0] if lc.spec else None) != batch_axes:
+        raise ValueError(f"sharded_decode_step: the cache splits its batch "
+                         f"over {axes_of(lc.spec[0]) if lc.spec else ()}, "
+                         f"the batch of {B} goes over {batch_axes}")
+
+    def body(params, batch):
+        x = L.embed_shards(params["embed"], batch["tokens"].parts)
+        n = lc.parts
+        for i, p in enumerate(params["layers"]):
+            hs = [L.rms_norm(t, g, cfg.norm_eps)
+                  for t, g in zip(x, p["ln1"].parts)]
+            att = L.attention_decode_shards(
+                p["attn"], hs, cfg, [t[i] for t in kc.parts],
+                [t[i] for t in vc.parts], n, mesh, kc.spec)
+            x = spmd.each(torch.add, x, att)
+            hs = [L.rms_norm(t, g, cfg.norm_eps)[:, None, :]
+                  for t, g in zip(x, p["ln2"].parts)]
+            ys = _ffn_shards(cfg, p, hs, mesh, batch_axes)
+            x = spmd.each(lambda t, y: t + y[:, 0], x, ys)
+        h = [L.rms_norm(t, g, cfg.norm_eps)
+             for t, g in zip(x, params["final_norm"].parts)]
+        logits, _ = _logits_shards(params, cfg, h)
+        return logits, [t + 1 for t in n]
+
+    logits, lengths = spmd.shard_map(body, mesh, (None, spec),
+                                     (logit_spec, lc.spec))(params, batch)
+    return logits, {"k": kc, "v": vc, "lengths": lengths}

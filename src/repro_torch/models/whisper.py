@@ -176,6 +176,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
             "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 
+
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             max_len: int):
     """Encode ``frames`` once, run the decoder over ``tokens``: (last

@@ -169,6 +169,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     }
 
 
+
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             max_len: int):
     """Full-sequence forward; returns (last logits (B, V), cache). The KV

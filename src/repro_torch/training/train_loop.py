@@ -38,8 +38,9 @@ from repro_torch.launch.sharding import (Sharded, is_sharded, param_shardings,
                                          place_tree, replicated,
                                          zero1_shardings)
 from repro_torch.models.factory import Model
+from repro_torch.models.layers import meta_specs
 from repro_torch.training import grad_compress, optimizer
-from repro_torch.tree import leaves, map_tree, unflatten
+from repro_torch.tree import leaves, unflatten
 
 
 def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
@@ -151,14 +152,13 @@ def init_train_state(model: Model, tcfg: TrainConfig, seed: int = 0, *,
     return state
 
 
-def shard_train_state(state: Dict[str, Any], mesh: Mesh, cfg
-                      ) -> Dict[str, Any]:
-    """The train state placed on ``mesh`` as ``dryrun.build_cell`` places
-    the reference's: the parameters by ``param_shardings`` with the model
+def train_state_shardings(mesh: Mesh, state: Dict[str, Any], cfg
+                          ) -> Dict[str, Any]:
+    """The train state's shardings on ``mesh``, the reference's
+    ``build_cell``'s: the parameters by ``param_shardings`` with the model
     config ``cfg``'s ``moe_fsdp_params``, the moments and the error state by
-    ``zero1_shardings``, the step replicated. Each leaf becomes a
-    ``Sharded``; ``launch.sharding.gather_tree`` gives the whole state
-    back."""
+    ``zero1_shardings``, the step replicated. ``state`` may hold ``meta``
+    tensors (``train_state_specs``)."""
     specs: Dict[str, Any] = {
         "params": param_shardings(mesh, state["params"],
                                   moe_fsdp=cfg.moe_fsdp_params),
@@ -167,15 +167,20 @@ def shard_train_state(state: Dict[str, Any], mesh: Mesh, cfg
                 "step": replicated(mesh)}}
     if "err" in state:
         specs["err"] = zero1_shardings(mesh, state["err"])
-    return place_tree(state, mesh, specs)
+    return specs
+
+
+def shard_train_state(state: Dict[str, Any], mesh: Mesh, cfg
+                      ) -> Dict[str, Any]:
+    """The train state placed on ``mesh`` by ``train_state_shardings``, as
+    ``dryrun.build_cell`` places the reference's. Each leaf becomes a
+    ``Sharded``; ``launch.sharding.gather_tree`` gives the whole state
+    back."""
+    return place_tree(state, mesh, train_state_shardings(mesh, state, cfg))
 
 
 def train_state_specs(model: Model, tcfg: TrainConfig) -> Dict[str, Any]:
     """The train state's tree with every leaf an empty tensor of its shape
     and type on the ``meta`` device: nothing is allocated (the init runs
     under a fake-tensor mode)."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    with FakeTensorMode():
-        fake = init_train_state(model, tcfg, device="cpu")
-    return map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype,
-                                          device="meta"), fake)
+    return meta_specs(lambda: init_train_state(model, tcfg, device="cpu"))

@@ -18,7 +18,10 @@ plain PyTorch that follows each kernel's schedule step by step:
   tickets drawn from self-resetting counters, the last block of a group
   merging its slots in split-index order. Whatever order the blocks finish
   in gives the same bits. (The kernel's own run-to-run bits are held by
-  ``chip_smoke.py``'s repeat check.)
+  ``chip_smoke.py``'s repeat check.) Each query head's log-sum-exp (log2
+  units) from the final (m, l) of its block row (``BLOCK_HEADS`` heads a
+  block in bf16), after both levels of the merge, against
+  ``decode_attention_lse_ref`` at 1, 2, 17 and 300 splits.
 - the log-sum-exp the forward writes for training (log2 units), against
   ``attention_lse_ref`` and ``jax.nn.logsumexp``.
 - ``flash_attention_bwd``: both entries' schedules read the forward's lse
@@ -49,8 +52,9 @@ from repro.kernels import ref as jax_ref
 from repro_torch import kernels
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import (CHUNK, FAN_IN, TILE,
-                                                 plan_splits, scratch_sizes)
+from repro_torch.kernels.decode_attention import (BLOCK_HEADS, CHUNK, FAN_IN,
+                                                 TILE, plan_splits,
+                                                 scratch_sizes)
 from repro_torch.kernels._build import TMA_ALIGN, tma_ready
 
 ATOL, RTOL = 2e-2, 1e-2         # chip_smoke.py's bf16 criterion
@@ -588,7 +592,7 @@ def _merge(parts, exp):
     return M, L, A
 
 
-def decode_schedule(q, kc, vc, lengths, arrival=None):
+def decode_schedule(q, kc, vc, lengths, arrival=None, with_lse=False):
     """The decode kernel's arithmetic and merge: per (batch, KV head) each
     live chunk folds its rows into (m, l, acc): bf16, the whole chunk in one
     softmax, exp2 on log2(e)-scaled scores and P rounded to bf16 before P.V,
@@ -601,29 +605,42 @@ def decode_schedule(q, kc, vc, lengths, arrival=None):
     back to 0 and merges the group's ``FAN_IN`` slots in split-index order;
     with more than one group it writes a second-level slot and draws from
     the second-level counter, whose last block merges those in group
-    order. Every counter must be back at 0 at the end."""
+    order. Every counter must be back at 0 at the end.
+
+    A block row is (batch, KV head, chunk of the group's query heads): at
+    most ``BLOCK_HEADS`` heads in bf16, the whole group in float32. With
+    ``with_lse`` it also returns each query head's log-sum-exp in log2 units,
+    written once per head by whichever write ends its row: the one live
+    chunk's (m + log2 l; float32 keeps m in natural units, so m log2(e) +
+    log2 l), the last level of the merge's (M, L), or -inf at a length of
+    0."""
     B, Smax, Hkv, D = kc.shape
     G = q.shape[1] // Hkv
     bf16 = q.dtype == torch.bfloat16
+    Gb = min(G, BLOCK_HEADS) if bf16 else G
     splits, chunk = plan_splits(Smax)
     scale = np.float32(1.0 / math.sqrt(D))
     qf = q.float().reshape(B, Hkv, G, D)
     out = torch.zeros(B, Hkv, G, D)
+    lse = torch.full((B, Hkv, G), math.nan)
     exp = torch.exp2 if bf16 else torch.exp    # m's units
-    garbage = (torch.full((G,), math.nan), torch.full((G,), math.nan),
-               torch.full((G, D), math.nan))
 
-    def fold(b, hk, sp, n):
-        m = torch.full((G,), NEG)
-        l = torch.zeros(G)
-        acc = torch.zeros(G, D)
+    def log2_sum(m, l):
+        return (m if bf16 else m * np.float32(LOG2E)) + torch.log2(l)
+
+    def fold(b, hk, g0, sp, n):
+        heads = slice(g0, min(g0 + Gb, G))
+        Gh = heads.stop - heads.start
+        m = torch.full((Gh,), NEG)
+        l = torch.zeros(Gh)
+        acc = torch.zeros(Gh, D)
         begin, end = sp * chunk, min(sp * chunk + chunk, n)
         step = chunk if bf16 else TILE   # bf16: the chunk in one pass
         for t0 in range(begin, end, step):
             t1 = min(t0 + step, end)
             kt = kc[b, t0:t1, hk].float()
             vt = vc[b, t0:t1, hk].float()
-            s = qf[b, hk] @ kt.T
+            s = qf[b, hk, heads] @ kt.T
             if bf16:
                 x = s * np.float32(scale * LOG2E)
                 mn = torch.maximum(m, x.amax(-1))
@@ -639,44 +656,54 @@ def decode_schedule(q, kc, vc, lengths, arrival=None):
             m = mn
         return m, l, acc
 
-    for b in range(B):
+    for b, hk, g0 in ((b, hk, g0) for b in range(B) for hk in range(Hkv)
+                      for g0 in range(0, G, Gb)):
+        heads = slice(g0, min(g0 + Gb, G))
+        Gh = heads.stop - heads.start
+        garbage = (torch.full((Gh,), math.nan), torch.full((Gh,), math.nan),
+                   torch.full((Gh, D), math.nan))
         n = min(max(int(lengths[b]), 0), Smax)
         live = -(-n // chunk)
-        for hk in range(Hkv):
-            if live == 0:
-                continue            # zeros
-            if live == 1:
-                m, l, acc = fold(b, hk, 0, n)
-                out[b, hk] = acc / torch.clamp(l, min=1e-30)[:, None]
+        assert lse[b, hk, heads].isnan().all(), "a head written twice"
+        if live == 0:
+            lse[b, hk, heads] = -math.inf
+            continue            # zeros
+        if live == 1:
+            m, l, acc = fold(b, hk, g0, 0, n)
+            out[b, hk, heads] = acc / torch.clamp(l, min=1e-30)[:, None]
+            lse[b, hk, heads] = log2_sum(m, l)
+            continue
+        groups = -(-live // FAN_IN)
+        slots = [garbage] * splits
+        second = [garbage] * groups
+        counters = [0] * (1 + groups)     # [second level, groups...]
+        result = None
+        order = list(range(live)) if arrival is None else arrival(live)
+        for sp in order:
+            slots[sp] = fold(b, hk, g0, sp, n)
+            g = sp // FAN_IN
+            in_group = min(FAN_IN, live - g * FAN_IN)
+            ticket, counters[1 + g] = counters[1 + g], counters[1 + g] + 1
+            if ticket != in_group - 1:
                 continue
-            groups = -(-live // FAN_IN)
-            slots = [garbage] * splits
-            second = [garbage] * groups
-            counters = [0] * (1 + groups)     # [second level, groups...]
-            result = None
-            order = list(range(live)) if arrival is None else arrival(live)
-            for sp in order:
-                slots[sp] = fold(b, hk, sp, n)
-                g = sp // FAN_IN
-                in_group = min(FAN_IN, live - g * FAN_IN)
-                ticket, counters[1 + g] = counters[1 + g], counters[1 + g] + 1
-                if ticket != in_group - 1:
-                    continue
-                counters[1 + g] = 0
-                merged = _merge(slots[g * FAN_IN:g * FAN_IN + in_group], exp)
-                if groups == 1:
-                    result = merged
-                    continue
-                second[g] = merged
-                ticket, counters[0] = counters[0], counters[0] + 1
-                if ticket != groups - 1:
-                    continue
-                counters[0] = 0
-                result = _merge(second, exp)
-            assert result is not None and not any(counters)
-            M, L, A = result
-            out[b, hk] = A / torch.clamp(L, min=1e-30)[:, None]
-    return out.reshape(B, Hkv * G, D).to(q.dtype)
+            counters[1 + g] = 0
+            merged = _merge(slots[g * FAN_IN:g * FAN_IN + in_group], exp)
+            if groups == 1:
+                result = merged
+                continue
+            second[g] = merged
+            ticket, counters[0] = counters[0], counters[0] + 1
+            if ticket != groups - 1:
+                continue
+            counters[0] = 0
+            result = _merge(second, exp)
+        assert result is not None and not any(counters)
+        M, L, A = result
+        out[b, hk, heads] = A / torch.clamp(L, min=1e-30)[:, None]
+        lse[b, hk, heads] = log2_sum(M, L)
+    out = out.reshape(B, Hkv * G, D).to(q.dtype)
+    assert not lse.isnan().any(), "a head's lse was never written"
+    return (out, lse.reshape(B, Hkv * G)) if with_lse else out
 
 
 @pytest.mark.parametrize("smax", SMAXES)
@@ -716,6 +743,36 @@ def test_decode_merge_is_the_same_whatever_block_finishes_last(dtype):
         assert torch.equal(first, decode_schedule(q, k, v, lens, arrival))
     _within(first.float().numpy(),
             ref.decode_attention_ref(q, k, v, lens).float().numpy())
+
+
+@pytest.mark.parametrize("group", [4, 8, 32])
+@pytest.mark.parametrize("splits", [1, 2, 17, 300])
+def test_decode_schedule_lse_matches_the_plain_version(splits, group):
+    """Each head's lse from the kernel's schedule (bf16: block rows of
+    ``BLOCK_HEADS`` heads, a group of 32 is two; the merge's two levels
+    past 16 splits) against ``decode_attention_lse_ref`` within
+    ``chip_smoke.LSE_TOL``'s bf16 1e-4, with a length of 0 (-inf and
+    zeros), a length inside the first chunk and one past Smax; the output
+    is the schedule's without the lse. The float32 schedule (m in natural
+    units) at the same plans, within 1e-5."""
+    Smax = splits * CHUNK
+    assert plan_splits(Smax)[0] == splits
+    rng = np.random.default_rng(splits * 100 + group)
+    lens = np.array([0, 37, Smax, Smax + 9], np.int32)
+    B, Hkv, D = len(lens), 2 if group < 32 else 1, 16
+    Hq = group * Hkv
+    (_, q), (_, k), (_, v) = (_pair(rng, s) for s in (
+        (B, Hq, D), (B, Smax, Hkv, D), (B, Smax, Hkv, D)))
+    tl = torch.from_numpy(lens)
+    for x, tol in (((q, k, v), 1e-4), (tuple(t.float() for t in (q, k, v)),
+                                       1e-5)):
+        out, lse = decode_schedule(*x, tl, with_lse=True)
+        assert torch.equal(out, decode_schedule(*x, tl))
+        plain, plain_lse = ref.decode_attention_lse_ref(*x, tl)
+        _within(out.float().numpy(), plain.float().numpy())
+        assert (lse[0] == -math.inf).all() and not out[0].float().any()
+        err = (lse[1:] - plain_lse[1:]).abs().max().item()
+        assert err <= tol, (splits, group, x[0].dtype, err)
 
 
 @pytest.mark.parametrize("Hq,Hkv,bf16", [(32, 8, True), (32, 32, True),
@@ -788,6 +845,8 @@ def test_attention_wrappers_never_fall_back_off_the_cpu(device):
         ops.attention(*flash_args)
     with pytest.raises(ValueError):
         ops.decode_attention(*dec_args)
+    with pytest.raises(ValueError):
+        ops.decode_attention_lse(*dec_args)
     assert {k: kernels.COUNTS[k].plain_calls for k in before} == before
 
 

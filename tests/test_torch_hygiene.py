@@ -54,6 +54,7 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.tree, repro_torch.kernels.flash_attention, "
             "repro_torch.launch.mesh, repro_torch.kernels.shard_ops, "
             "repro_torch.launch.sharding, repro_torch.launch.spmd, "
+            "repro_torch.launch.dryrun, "
             "repro_torch.launch.serve, repro_torch.examples, "
             "repro_torch.examples.quickstart, "
             "repro_torch.examples.serve_memforest, "
@@ -82,6 +83,36 @@ def test_no_jax_or_repro_import(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_dryrun_keeps_its_own_shapes():
+    """The port's ``launch/dryrun.py`` imports neither JAX nor the JAX
+    package, not even ``repro.configs.shapes`` (the port keeps its own copy,
+    ``repro_torch.configs.shapes``), which the reference's dry run reads."""
+    path = os.path.join(PORT, "launch", "dryrun.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, f"{path}:{node.lineno} relative import"
+            names.add(node.module or "")
+    assert not [n for n in names if _forbidden(n)], sorted(names)
+    assert "repro_torch.config" in names
+    from repro_torch.configs import shapes
+    from repro_torch.launch import dryrun
+    code = ("import sys, repro_torch.launch.dryrun as d; "
+            "d.build_cell; bad = sorted(m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert shapes.SHAPES["decode_32k"].seq_len == 32768
+    assert dryrun.ShapeConfig is shapes.ShapeConfig
 
 
 def test_default_device_without_a_card_raises(monkeypatch):
