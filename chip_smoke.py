@@ -291,7 +291,29 @@ Phases, each printed on its own line; any failed check exits nonzero:
               of 32704 tokens, 64 steps): step ms, tokens/s, peak GB a card,
               the idle share and the ``roofline:`` line; rows 0-1 held to one
               card's unsharded run.
-  24. kernels one line per kernel, and the JSON summary of all of them.
+  24. sharded_ssm  rwkv6 and zamba2 on a (data, model) mesh through the
+              entry points (the train step on ``Model.loss``, ``Model.
+              prefill`` and ``.decode`` under ``activate_mesh``; parameters
+              by ``param_shardings``, the train state by
+              ``shard_train_state``, the cache by ``launch.sharding.
+              cache_shardings``), at published width in bf16 with remat:
+              rwkv6-1.6b at 4 layers and zamba2-7b at 7 (a group of six
+              Mamba2 layers, the shared block, one remainder layer), each
+              on (2, 2) and (1, 16) repeating the card: 3 ZeRO-1 steps of 8
+              x 512 (every loss finite, every parameter a finite nonzero
+              gradient, launches a position a step exact: ``rwkv6_scan``
+              2 L and ``rwkv6_scan_bwd`` L; ``mamba2_ssd`` 14,
+              ``mamba2_ssd_bwd`` 7, ``flash_attention`` and its backward 1;
+              step ms, tokens/s, peak GB, idle share), then a prefill of 8
+              x 512 into 4096 rows and 32 greedy steps held to the same
+              weights unsharded on the card as ``sharded_serve`` holds its
+              runs, launches exact (the scan layers x positions a prefill,
+              ``flash_attention`` and ``decode_attention`` G x positions a
+              prefill and a step); the smoke configs in float32, card
+              against CPU on (2, 2), within 1e-4. With four cards or more
+              instead: zamba2-7b whole (81 layers) on (2, 2) over the first
+              four, 8 steps.
+  25. kernels one line per kernel, and the JSON summary of all of them.
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a
 visible CUDA device, or without the rest of the repository beside it, the
@@ -1166,6 +1188,18 @@ def check_kernels(torch, peaks, seed: int):
     # state's output); drawn from g_new
     rwkv_case(2, 128, 4, 128, 128, 64, f32, False, "state in global memory",
               gen=g_new)
+    # the sharded_ssm phase's per-position shapes at (2, 2) and (1, 16),
+    # from a generator of their own so that the rows after them draw what
+    # they drew before
+    g_ssm = torch.Generator(device=dev).manual_seed(seed + 29)
+    ssd_case(4, 512, 56, 64, 64, 64, bf16, True, "zamba2-7b model=2 shard",
+             gen=g_ssm)
+    ssd_case(8, 512, 7, 64, 64, 64, bf16, True, "zamba2-7b model=16 shard",
+             gen=g_ssm)
+    rwkv_case(4, 512, 16, 64, 64, 64, bf16, True, "rwkv6-1.6b model=2 shard",
+              gen=g_ssm)
+    rwkv_case(8, 512, 2, 64, 64, 64, bf16, True, "rwkv6-1.6b model=16 shard",
+              gen=g_ssm)
     # one call of each bf16 scan at its main shape is one device launch
     x = torch.randn(8, 128, 112, 64, generator=g, device=dev).to(bf16)
     dts = F.softplus(torch.randn(8, 128, 112, generator=g, device=dev))
@@ -1270,7 +1304,8 @@ DECODE_LSE_ROWS = (
 # the attention of the sharded_train phase at a model width of 2: (B, S,
 # Hq, Hkv, D, what), one position's data shard and heads
 SHARD_ATTENTION = ((4, 512, 16, 4, 128, "llama3-8b model=2 shard"),
-                   (4, 512, 8, 8, 128, "olmoe-1b-7b model=2 shard"))
+                   (4, 512, 8, 8, 128, "olmoe-1b-7b model=2 shard"),
+                   (4, 512, 16, 16, 112, "zamba2-7b model=2 shard"))
 BWD_ROWS = (
     (8, 512, 32, 32, 96, True, "bf16", True, "phi3 train"),
     (8, 512, 32, 8, 128, True, "bf16", False, "llama GQA"),
@@ -1286,6 +1321,7 @@ BWD_ROWS = (
     (8, 512, 32, 32, 112, True, "bf16", True, "zamba2 train"),
     (4, 512, 16, 4, 128, True, "bf16", True, "llama3-8b model=2 shard"),
     (4, 512, 8, 8, 128, True, "bf16", True, "olmoe-1b-7b model=2 shard"),
+    (4, 512, 16, 16, 112, True, "bf16", True, "zamba2-7b model=2 shard"),
 )
 # the forward's log-sum-exp (log2 units) against attention_lse_ref: f32, the
 # same CUDA-core sums as the output; bf16, the tensor cores' f32 sums of D
@@ -1432,6 +1468,15 @@ SCAN_BWD_ROWS = (
     ("rwkv6_scan", 2, 128, 4, 128, 128, "f32", False, "global working set",
      -0.5),
     ("mamba2_ssd", 2, 128, 4, 128, 128, "bf16", False, "P=N=128", None),
+    # the sharded_ssm phase's per-position shapes: (2, 2) and (1, 16)
+    ("mamba2_ssd", 4, 512, 56, 64, 64, "bf16", True,
+     "zamba2-7b model=2 shard", None),
+    ("mamba2_ssd", 8, 512, 7, 64, 64, "bf16", True,
+     "zamba2-7b model=16 shard", None),
+    ("rwkv6_scan", 4, 512, 16, 64, 64, "bf16", True,
+     "rwkv6-1.6b model=2 shard", -0.5),
+    ("rwkv6_scan", 8, 512, 2, 64, 64, "bf16", True,
+     "rwkv6-1.6b model=16 shard", -0.5),
 )
 
 
@@ -5371,6 +5416,359 @@ def run_sharded_serve_32k(torch, seed):
     return {k: (n, 0) for k, (n, _) in counts.items()}
 
 
+# sharded_ssm: (arch, layers) at published width, bf16 with remat, each on
+# the meshes SHARDED_SSM_MESHES repeating one card. rwkv6-1.6b cut from 24
+# to 4 layers; zamba2-7b from 81 to 7: a group of six Mamba2 layers, the
+# shared block, then one remainder layer, so that the remainder path runs.
+# With four cards or more instead: zamba2-7b whole (81 layers, 6.75e9
+# parameters) on (2, 2) over the first four, SSM_FOUR_STEPS steps.
+SHARDED_SSM = (("rwkv6_1b6", 4), ("zamba2_7b", 7))
+SHARDED_SSM_MESHES = ((2, 2), (1, 16))
+SSM_TRAIN_STEPS, SSM_FOUR_STEPS, SSM_PARITY_STEPS = 3, 8, 2
+SSM_PARITY_PROMPT, SSM_PARITY_MAX_LEN, SSM_PARITY_DECODE = 64, 96, 4
+
+
+def sharded_train_run(torch, label, model, mesh, steps, seed):
+    """``steps`` bf16 steps of ``model``'s train step with ZeRO-1 on
+    ``mesh`` from ``sharded_state``, the last one under the profiler (CUDA
+    events only): every loss finite, every parameter a finite, nonzero
+    gradient at the first step, each kernel's launches exact
+    (``train_launches`` a position a step). Prints the steps' ms, tokens/s,
+    each card's peak GB and the last step's idle share over the cards.
+    Returns the launch counts of the steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch.mesh import activate_mesh
+    from repro_torch.launch.sharding import Sharded
+    from repro_torch.models import make_batch
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    cards = mesh.distinct()
+    for d in cards:
+        torch.zeros((), device=d)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(d)
+    state = sharded_state(torch, model, mesh, seed)
+    torch.cuda.empty_cache()
+    n_params = sum(math.prod(w.shape)
+                   for _, w in leaves_with_paths(state["params"]))
+    batches = [make_batch(cfg, "train", TRAIN_BATCH, TRAIN_SEQ, seed + i,
+                          device=mesh.devices[0]) for i in range(steps)]
+    step_fn = make_train_step(model, TrainConfig(
+        learning_rate=3e-4, warmup_steps=2, total_steps=steps))
+    real_update, seen = opt_mod.adamw_update, []
+
+    def inspecting(params, grads, st, c, **kw):
+        seen.extend(leaves_with_paths(grads))
+        return real_update(params, grads, st, c, **kw)
+
+    sync_all(torch, mesh)
+    init_s = time.perf_counter() - t0
+    kernels.reset_counts()
+    metrics, step_ms = [], []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    for i in range(steps):
+        opt_mod.adamw_update = inspecting if i == 0 else real_update
+        if i == steps - 1:
+            prof.start()
+        try:
+            t1 = time.perf_counter()
+            with activate_mesh(mesh):
+                state, m = step_fn(state, batches[i])
+            sync_all(torch, mesh)
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        finally:
+            opt_mod.adamw_update = real_update
+            if i == steps - 1:
+                prof.stop()
+        metrics.append(m)
+    counts = read_counts(REPLACES)
+    t1 = time.perf_counter()
+    need(all(isinstance(g, Sharded) for _, g in seen), f"{label}: a "
+         "gradient is not placed on the mesh")
+    # each part's float32 sum of |g|: finite iff the part is, nonzero iff
+    # some element is; one copy to the host for all of them
+    sums = torch.stack([torch.stack([t.detach().float().abs().sum().to(
+        mesh.devices[0]) for t in g.parts]) for _, g in seen]).cpu()
+    bad = [path for (path, _), row in zip(seen, sums)
+           if not (bool(torch.isfinite(row).all()) and bool((row > 0).any()))]
+    need(len(seen) == len(leaves_with_paths(state["params"])) and not bad,
+         f"{label}: parameters without a finite nonzero gradient: {bad[:6]}")
+    del seen[:], sums
+    grads_s = time.perf_counter() - t1
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    need(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+         f"{label}: a loss or grad_norm is not finite: {losses} {gnorms}")
+    want = train_launches(cfg)
+    check_launches(label, counts, tuple(want))
+    for k, n in want.items():
+        need(counts[k][0] == n * mesh.size * steps, f"{label}: {k} launched "
+             f"{counts[k][0]} times in {steps} steps on {mesh.size} "
+             f"positions, want {n} a position a step")
+    peaks = [torch.cuda.max_memory_allocated(d) / 1e9 for d in cards]
+    t1 = time.perf_counter()
+    busy_s, top = raw_device_busy(prof)
+    report_s = time.perf_counter() - t1
+    prof_s = step_ms[-1] / 1e3
+    idle = (max(0.0, 1.0 - busy_s / (prof_s * len(cards)))
+            if busy_s > 0 else None)
+    med = statistics.median(step_ms[1:])
+    print(f"{label}: params={n_params} layers={cfg.num_layers} "
+          f"B={TRAIN_BATCH} S={TRAIN_SEQ} steps={steps} init_s={init_s:.2f} "
+          "losses=" + ",".join(f"{x:.5f}" for x in losses) + " grad_norms="
+          + ",".join(f"{x:.4f}" for x in gnorms) + " gradients present, "
+          f"finite and nonzero for all {len(leaves_with_paths(state['params']))}"
+          " parameters; launches a position a step: " + " ".join(
+              f"{k}={counts[k][0] // (mesh.size * steps)}" for k in want),
+          flush=True)
+    print(f"{label}: step_ms=" + ",".join(f"{x:.2f}" for x in step_ms)
+          + f" median_step_ms={med:.3f} (steps 2-{steps}, the last "
+          f"profiled) tokens_per_s={TRAIN_BATCH * TRAIN_SEQ / (med / 1e3):.1f}"
+          " peak_gb_per_card=" + ",".join(f"{x:.3f}" for x in peaks)
+          + f" (states {n_params * STATE_BYTES / 1e9:.2f} GB in all) last "
+          f"step device_busy_s={busy_s:.4f} over {len(cards)} card(s) "
+          "idle_share=" + (f"{idle:.4f}" if idle is not None else
+                           "not measured (no device events)") + " top: "
+          + ", ".join(f"{k[:40]}={us / 1e3:.2f}ms" for k, us in top)
+          + f" s={time.perf_counter() - t0:.2f} (the gradients' check "
+          f"{grads_s:.2f}, the profile's report {report_s:.2f})", flush=True)
+    del state, batches, metrics, prof
+    torch.cuda.empty_cache()
+    return counts
+
+
+def ssm_serve_launches(cfg, mesh):
+    """(launches of a prefill, of a decode step) of ``cfg`` on ``mesh``:
+    each position runs every scan layer's kernel once and each application
+    of the shared block its attention once."""
+    P = mesh.size
+    if cfg.family == "ssm":
+        return {"rwkv6_scan": cfg.num_layers * P}, {}
+    G = cfg.num_layers // cfg.attn_every
+    return ({"mamba2_ssd": cfg.num_layers * P, "flash_attention": G * P},
+            {"decode_attention": G * P})
+
+
+def run_sharded_ssm(torch, seed):
+    """Phase 24: rwkv6 and zamba2 on a model mesh through the entry points
+    (``Model.loss`` in the train step, ``Model.prefill`` and ``.decode``
+    under ``activate_mesh``; parameters placed by ``param_shardings``, the
+    train state by ``shard_train_state``, the cache by ``launch.sharding.
+    cache_shardings``). On one card, each of SHARDED_SSM on each of
+    SHARDED_SSM_MESHES (repeating the card): SSM_TRAIN_STEPS ZeRO-1 steps
+    (``sharded_train_run``), then a prefill of SERVE_BATCH x SERVE_PROMPT
+    into SERVE_MAX_LEN rows and SERVE_STEPS greedy steps held to the same
+    weights unsharded on the card (``serve_gap``), launches exact; then the
+    smoke configs in float32, the card's (2, 2) mesh against the CPU's
+    (``run_sharded_ssm_parity``). With four cards or more instead:
+    zamba2-7b whole on (2, 2) over the first four for SSM_FOUR_STEPS steps.
+    Returns the launch counts of the sharded runs."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import param_shardings, place_tree
+    from repro_torch.models import get_model, make_batch
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in REPLACES}
+    if torch.cuda.device_count() >= 4:
+        mesh = make_mesh((2, 2), ("data", "model"))
+        print(f"sharded_ssm: four cards: mesh {mesh.shape} over "
+              + ", ".join(str(d) for d in mesh.devices)
+              + f", card {card_line()}", flush=True)
+        model = get_model(get_config("zamba2_7b"))
+        counts = sharded_train_run(
+            torch, f"sharded_ssm {model.cfg.name} mesh (2, 2) four cards",
+            model, mesh, SSM_FOUR_STEPS, seed)
+        for k in total:
+            total[k] += counts[k][0]
+        run_sharded_ssm_parity(torch, seed)
+        print(f"sharded_ssm: phase_s={time.perf_counter() - t_phase:.1f}",
+              flush=True)
+        return {k: (n, 0) for k, n in total.items()}
+    print(f"sharded_ssm: card {card_line()}", flush=True)
+    for arch, layers in SHARDED_SSM:
+        cfg = get_config(arch).replace(num_layers=layers)
+        need(cfg.remat and cfg.dtype == "bfloat16", f"sharded_ssm: "
+             f"{cfg.name}'s config must train in bf16 with remat")
+        model = get_model(cfg)
+        params = model.init(seed, device="cuda")
+        batch = make_batch(cfg, "prefill", SERVE_BATCH, SERVE_PROMPT, seed,
+                           device="cuda")
+        for shape in SHARDED_SSM_MESHES:
+            t_run = time.perf_counter()
+            mesh = make_mesh(shape, ("data", "model"), "cuda:0")
+            label = f"sharded_ssm {cfg.name} mesh {shape}"
+            counts = sharded_train_run(torch, label + " train", model, mesh,
+                                       SSM_TRAIN_STEPS, seed)
+            for k in total:
+                total[k] += counts[k][0]
+            placed = place_tree(params, mesh, param_shardings(mesh, params))
+            # the prefill and the steps launch distinct kernels: the total
+            # of each holds both counts
+            pre_want, step_want = ssm_serve_launches(cfg, mesh)
+            kernels.reset_counts()
+            tokens, got, cache, prefill_s, step_s = serve_tokens(
+                torch, model, placed, batch, SERVE_MAX_LEN, SERVE_STEPS, mesh)
+            counts = read_counts(REPLACES)
+            check_launches(label + " serve", counts,
+                           tuple(pre_want) + tuple(step_want))
+            for k in REPLACES:
+                want = pre_want.get(k, 0) + SERVE_STEPS * step_want.get(k, 0)
+                need(counts[k][0] == want, f"{label}: {k} launched "
+                     f"{counts[k][0]} times in a prefill and {SERVE_STEPS} "
+                     f"steps, want {want}")
+                total[k] += counts[k][0]
+            need(all(bool((t == SERVE_PROMPT + SERVE_STEPS).all())
+                     for t in cache["lengths"].parts), f"{label}: lengths")
+            specs = {k: c.spec for k, c in cache.items()}
+            del cache, placed
+            _, want_logits, _, base_prefill_s, base_s = serve_tokens(
+                torch, model, params, batch, SERVE_MAX_LEN, SERVE_STEPS,
+                forced=tokens)
+            held = serve_gap(torch, label, got, want_logits, tokens)
+            print(f"{label} serve: cache specs {specs} B={SERVE_BATCH} "
+                  f"prompt={SERVE_PROMPT} max_len={SERVE_MAX_LEN} "
+                  f"steps={SERVE_STEPS} prefill_s={prefill_s:.4f} "
+                  f"median_step_ms={statistics.median(step_s[1:]) * 1e3:.3f} "
+                  f"(unsharded {statistics.median(base_s[1:]) * 1e3:.3f}, "
+                  f"prefill {base_prefill_s:.4f} s) launches a prefill "
+                  + " ".join(f"{k}={n}" for k, n in pre_want.items())
+                  + ", a step " + (" ".join(f"{k}={n}" for k, n in
+                                            step_want.items()) or "none")
+                  + f" {held} s={time.perf_counter() - t_run:.2f}",
+                  flush=True)
+            del got, want_logits
+            torch.cuda.empty_cache()
+        del params, batch
+    run_sharded_ssm_parity(torch, seed)
+    print(f"sharded_ssm: phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {k: (n, 0) for k, n in total.items()}
+
+
+SSM_PARAM_ATOL = 5e-4    # sharded_ssm parity: AdamW moves an element whose
+#                          gradient is near its eps (1e-8) by up to the
+#                          learning rate (3e-4) a step on a rounding
+#                          difference; the gradients are held first
+
+
+def run_sharded_ssm_parity(torch, seed):
+    """rwkv6's and zamba2's smoke configs in float32 on a (2, 2) mesh
+    repeating the card and one repeating the CPU, from one initial state
+    and the same batches: SSM_PARITY_STEPS ZeRO-1 steps (losses and
+    ``grad_norm`` within 1e-4 relative, every leaf of the first step's
+    gradient within 1e-3 of its largest magnitude, the parameters within
+    ``SSM_PARAM_ATOL``); then, from the initial parameters, a prefill and
+    SSM_PARITY_DECODE decode steps with fixed tokens (every logit within
+    1e-4 of the largest, lengths equal)."""
+    from repro_torch import kernels
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import activate_mesh, make_mesh
+    from repro_torch.launch.sharding import (gather, gather_tree,
+                                             param_shardings, place_tree)
+    from repro_torch.models import get_model
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step,
+                                                 shard_train_state)
+    from repro_torch.tree import leaves
+
+    f32 = dict(dtype="float32", param_dtype="float32")
+    axes = ("data", "model")
+    for arch, _ in SHARDED_SSM:
+        t0 = time.perf_counter()
+        cfg = get_smoke_config(arch).replace(**f32)
+        model = get_model(cfg)
+        tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                           total_steps=SSM_PARITY_STEPS)
+        start = init_train_state(model, tcfg, seed, device="cpu")
+        rng = np.random.default_rng(seed)
+        batches = [_parity_batch(cfg, rng, 4, 64)
+                   for _ in range(SSM_PARITY_STEPS)]
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (4, SSM_PARITY_PROMPT)))
+        forced = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (SSM_PARITY_DECODE + 1, 4)))
+        step = make_train_step(model, tcfg)
+        real_update = opt_mod.adamw_update
+        got = {}
+        for name, dev in (("card", "cuda:0"), ("cpu", "cpu")):
+            kernels.reset_counts()
+            mesh = make_mesh(SHARDED_MESH, axes, dev)
+            st, ms, first = shard_train_state(start, mesh, cfg), [], []
+
+            def keeping(params, grads, state, c, **kw):
+                if not first:
+                    first.append(gather_tree(grads, "cpu"))
+                return real_update(params, grads, state, c, **kw)
+
+            opt_mod.adamw_update = keeping
+            try:
+                for b in batches:
+                    with activate_mesh(mesh):
+                        st, m = step(st, {k: torch.from_numpy(v).to(dev)
+                                          for k, v in b.items()})
+                    ms.append(m)
+            finally:
+                opt_mod.adamw_update = real_update
+            placed = place_tree(start["params"], mesh,
+                                param_shardings(mesh, start["params"]))
+            _, logits, cache, _, _ = serve_tokens(
+                torch, model, placed, {"tokens": prompt.to(dev)},
+                SSM_PARITY_MAX_LEN, SSM_PARITY_DECODE + 1, mesh,
+                forced=forced)
+            got[name] = (gather_tree(st["params"], "cpu"), ms, first[0],
+                         logits, gather(cache["lengths"], "cpu"))
+            if name == "card":
+                counts = read_counts(REPLACES)
+                check_launches(f"sharded_ssm parity {cfg.name}", counts,
+                               tuple(train_launches(cfg)))
+        worst = 0.0
+        for mc, mp in zip(got["card"][1], got["cpu"][1]):
+            for k in ("loss", "grad_norm"):
+                a, c = float(mc[k]), float(mp[k])
+                rel = abs(a - c) / max(abs(c), 1e-30)
+                worst = max(worst, rel)
+                need(rel <= 1e-4, f"sharded_ssm parity {cfg.name}: {k} {a} "
+                     f"on the card, {c} on the CPU")
+        gerr = max((a - b).abs().max().item() / max(b.abs().max().item(),
+                                                    1e-30)
+                   for a, b in zip(leaves(got["card"][2]),
+                                   leaves(got["cpu"][2])))
+        need(gerr <= 1e-3, f"sharded_ssm parity {cfg.name}: a gradient leaf "
+             f"differs by {gerr:.3e} of its largest magnitude")
+        perr = max((a - b).abs().max().item() for a, b in zip(
+            leaves(got["card"][0]), leaves(got["cpu"][0])))
+        need(perr <= SSM_PARAM_ATOL, f"sharded_ssm parity {cfg.name}: "
+             f"parameters differ by {perr:.3e} (tol {SSM_PARAM_ATOL})")
+        top = max(w.abs().max().item() for w in got["cpu"][3])
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(got["card"][3], got["cpu"][3]))
+        need(err <= 1e-4 * top, f"sharded_ssm parity {cfg.name}: the logits "
+             f"differ by {err:.3e} (tol 1e-4 x {top:.3e})")
+        need(torch.equal(got["card"][4], got["cpu"][4]),
+             f"sharded_ssm parity {cfg.name}: lengths differ")
+        print(f"sharded_ssm: parity {cfg.name} mesh {SHARDED_MESH} float32 "
+              f"steps={SSM_PARITY_STEPS} worst_rel_loss_or_grad_norm="
+              f"{worst:.3e} (tol 1e-04) first step's gradient leaves "
+              f"{gerr:.3e} of their largest (tol 1e-03) param_max_abs_err="
+              f"{perr:.3e} (tol {SSM_PARAM_ATOL:.0e}) prefill "
+              f"{SSM_PARITY_PROMPT} + {SSM_PARITY_DECODE} steps "
+              f"logits_max_abs_err={err:.3e} (tol 1e-4 x {top:.3e}) "
+              "launches " + " ".join(f"{k}={n}" for k, (n, _) in
+                                     counts.items() if n)
+              + f" s={time.perf_counter() - t0:.2f}", flush=True)
+
+
 def roofline_line(phase, cfg, batch, context, ms_per_step) -> None:
     """The analytic bytes and FLOPs of one decode step of ``cfg`` at
     ``batch`` sequences of ``context`` tokens on one card
@@ -5434,6 +5832,20 @@ def device_us_by_name(prof):
 def device_busy(prof):
     """(device busy seconds, the eight largest device items in us)."""
     by_name = device_us_by_name(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return sum(by_name.values()) / 1e6, top
+
+
+def raw_device_busy(prof):
+    """``device_busy`` from the profile's raw device events, without parsing
+    them into the profiler's event tree (``key_averages`` takes seconds on a
+    step of a 16-position mesh)."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0:
+            by_name[ev.name()] = (by_name.get(ev.name(), 0.0)
+                                  + ev.duration_ns() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return sum(by_name.values()) / 1e6, top
 
@@ -5635,7 +6047,11 @@ def main() -> int:
     sharded_serve_counts = run_sharded_serve(torch, args.seed)
     stamp("sharded_serve")
 
-    # 24. kernels -----------------------------------------------------------
+    # 24. the ssm and hybrid families on a model mesh -----------------------
+    sharded_ssm_counts = run_sharded_ssm(torch, args.seed)
+    stamp("sharded_ssm")
+
+    # 25. kernels -----------------------------------------------------------
     summary = []
     for k in REPLACES:
         r = results[k]
@@ -5653,7 +6069,8 @@ def main() -> int:
                    **{phase: c[k][0] for phase, c in train_counts.items()},
                    "train_parity": train_parity_counts[k][0],
                    "sharded_train": sharded_train_counts[k][0],
-                   "sharded_serve": sharded_serve_counts[k][0]}
+                   "sharded_serve": sharded_serve_counts[k][0],
+                   "sharded_ssm": sharded_ssm_counts[k][0]}
         print(f"kernels: {k} launches={sum(by_path.values())} ("
               + ", ".join(f"{p} {n}" for p, n in by_path.items())
               + f") check=ok main_shape={r['shape']}")

@@ -14,11 +14,11 @@ and ``vlm`` families run in ``transformer``, ``ssm`` in ``rwkv6``,
 builds a seeded random batch of any family. ``loss`` trains every family;
 on a card the scans of ``ssm`` and ``hybrid`` run their backward kernels.
 Under an ambient model mesh (``launch.mesh.activate_mesh``) ``loss``,
-``prefill`` and ``decode`` take parameters placed on it and run
-``transformer``'s sharded forms (``sharded_loss_fn``, ``sharded_prefill``,
-``sharded_decode_step``; the cache placed by ``launch.sharding.
-cache_shardings``); the ``ssm``, ``hybrid`` and ``encdec`` families do not
-run on a mesh yet and raise there. The dry-run's stand-ins, as the
+``prefill`` and ``decode`` take parameters placed on it and run the
+family's sharded forms (``sharded_loss_fn``, ``sharded_prefill``,
+``sharded_decode_step`` of ``transformer``, ``rwkv6`` and ``zamba2``; the
+cache placed by ``launch.sharding.cache_shardings``); the ``encdec`` family
+does not run on a mesh yet and raises there. The dry-run's stand-ins, as the
 reference's ``jax.eval_shape`` gives them: ``cache_specs``,
 ``param_specs(cfg)`` and ``input_specs(cfg, shape)``, empty tensors on the
 ``meta`` device; ``launch/dryrun.py`` pairs them with the shardings.
@@ -55,7 +55,7 @@ def _on_mesh(mod, cfg: ModelConfig, what: str):
     """The ambient model mesh, or None; a family that does not run on a
     mesh raises there rather than run unsharded."""
     mesh = current_mesh()
-    if mesh is not None and mod is not transformer:
+    if mesh is not None and mod is whisper:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family does not {what} on a "
             "model mesh in the port yet (ROADMAP.md, queue 1, item 5)")
@@ -66,21 +66,21 @@ def _loss(mod, cfg: ModelConfig, params, batch):
     mesh = _on_mesh(mod, cfg, "train")
     if mesh is None:
         return mod.loss_fn(params, cfg, batch)
-    return transformer.sharded_loss_fn(params, cfg, batch, mesh)
+    return mod.sharded_loss_fn(params, cfg, batch, mesh)
 
 
 def _prefill(mod, cfg: ModelConfig, params, batch, max_len: int):
     mesh = _on_mesh(mod, cfg, "prefill")
     if mesh is None:
         return mod.prefill(params, cfg, batch, max_len)
-    return transformer.sharded_prefill(params, cfg, batch, max_len, mesh)
+    return mod.sharded_prefill(params, cfg, batch, max_len, mesh)
 
 
 def _decode(mod, cfg: ModelConfig, params, batch, cache):
     mesh = _on_mesh(mod, cfg, "decode")
     if mesh is None:
         return mod.decode_step(params, cfg, batch, cache)
-    return transformer.sharded_decode_step(params, cfg, batch, cache, mesh)
+    return mod.sharded_decode_step(params, cfg, batch, cache, mesh)
 
 
 def get_model(cfg: ModelConfig) -> Model:

@@ -28,6 +28,11 @@ reference's ``shard_map`` branch. Decode on a mesh
 ``launch.sharding.cache_shardings`` lays it out: by KV heads (the heads form)
 or, where the model width does not divide them, by rows (the sequence form,
 each shard's partial output merged by its log-sum-exp, ``lse_merge``).
+``heads_of``, ``cut``, ``rms_norm_shards`` and ``layer_call`` are the
+pieces the ssm and hybrid families add: a position's heads, its slice of a
+replicated leaf, a norm over a dim split over ``model``, and a layer under
+``spmd.remat``; ``group_rms_norm`` is per head and runs on a position's
+heads with its slice of the gain as it is.
 """
 from __future__ import annotations
 
@@ -42,8 +47,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import spmd
 from repro_torch.launch.mesh import Mesh
-from repro_torch.launch.sharding import DATA_AXES, MODEL_AXIS, Sharded, axes_of
-from repro_torch.tree import map_tree
+from repro_torch.launch.sharding import (DATA_AXES, MODEL_AXIS, P, Sharded,
+                                         axes_of, data_sharding)
+from repro_torch.tree import leaves, map_tree, unflatten
 
 Params = Dict[str, torch.Tensor]
 
@@ -465,6 +471,62 @@ def row_parallel(hs: List[torch.Tensor], w: Sharded,
     return spmd.each(torch.matmul, hs, spmd.whole(w))
 
 
+def heads_of(num_heads: int, mesh: Mesh, pos: int) -> Tuple[int, int]:
+    """(first head, count) of the heads position ``pos`` computes: its model
+    block where ``heads_axis`` gives ``model``, else all of them. No
+    position ever holds part of a head."""
+    if heads_axis(num_heads, mesh) is None:
+        return 0, num_heads
+    n = num_heads // model_width(mesh)
+    return mesh.coord(pos, MODEL_AXIS) * n, n
+
+
+def cut(w: Sharded, dim: int, size: int,
+        starts: List[int]) -> List[torch.Tensor]:
+    """Each position's ``size`` entries of ``w`` along ``dim`` from
+    ``starts[pos]``, cut from its whole copy (a replicated leaf's own
+    part)."""
+    return [f.narrow(dim, s, size) for f, s in zip(spmd.whole(w), starts)]
+
+
+def rms_norm_shards(ys: List[torch.Tensor], gammas: List[torch.Tensor],
+                    eps: float, dim: int, mesh: Mesh,
+                    split: bool) -> List[torch.Tensor]:
+    """``rms_norm`` over a last dim of ``dim`` entries. ``split``: each
+    position holds its model block of them (and of the gain), and the
+    float32 sums of squares are summed over ``model`` before the division,
+    so every block is normalised by the whole dim's mean; else each holds
+    all of them."""
+    if not split:
+        return [rms_norm(y, g, eps) for y, g in zip(ys, gammas)]
+    yfs = [y.to(torch.float32) for y in ys]
+    sums = spmd.psum([torch.sum(yf * yf, dim=-1, keepdim=True) for yf in yfs],
+                     mesh, MODEL_AXIS)
+    return [(yf * torch.rsqrt(s / dim + eps) * g.to(torch.float32)).to(y.dtype)
+            for y, yf, s, g in zip(ys, yfs, sums, gammas)]
+
+
+def layer_call(fn: Callable, p, xs: List[torch.Tensor],
+               on: bool) -> List[torch.Tensor]:
+    """``fn(p, xs)``, a lockstep layer from the per-position activations
+    ``xs`` and a tree ``p`` of ``Sharded`` leaves to a flat list of
+    per-position tensors, under ``spmd.remat`` when ``on``: its inputs
+    flattened to the activations and every position's parameter parts, the
+    parameters rebuilt around the recomputed run's copies."""
+    params = leaves(p)
+    n = len(xs)
+
+    def run(flat):
+        parts = iter(flat[n:])
+        q = unflatten(p, [Sharded(w.mesh, w.spec, w.shape,
+                                  [next(parts) for _ in w.parts])
+                          for w in params])
+        return fn(q, flat[:n])
+
+    flat = list(xs) + [t for w in params for t in w.parts]
+    return spmd.remat(run, flat) if on else run(flat)
+
+
 def _kv_heads_for(k, v, lo: int, hq: int, group: int):
     """The KV heads that query heads [lo, lo + hq) read (head h reads KV
     head h // group), in the layout ``ops.attention`` takes: a contiguous
@@ -518,7 +580,7 @@ def attention_prefill_shards(p, xs: List[torch.Tensor], cfg: ModelConfig,
     return (out, kvs) if return_kv else out
 
 
-def _all_columns(xs: List[torch.Tensor], w: Sharded) -> List[torch.Tensor]:
+def all_columns(xs: List[torch.Tensor], w: Sharded) -> List[torch.Tensor]:
     """``x @ w`` with every output column at every position: where the
     model width divides w's columns, each position multiplies its block
     (column-parallel) and the products are all-gathered over ``model``;
@@ -574,9 +636,9 @@ def attention_decode_shards(p, xs: List[torch.Tensor], cfg: ModelConfig,
             outs.append(o.reshape(B, -1))
         return row_parallel(outs, p["wo"], split)
 
-    qs = _all_columns(xs, p["wq"])
-    ks = _all_columns(xs, p["wk"])
-    vs = _all_columns(xs, p["wv"])
+    qs = all_columns(xs, p["wq"])
+    ks = all_columns(xs, p["wk"])
+    vs = all_columns(xs, p["wv"])
     parts, lses = [], []
     for pos, x in enumerate(xs):
         B = x.shape[0]
@@ -774,3 +836,67 @@ def softmax_xent_shards(logits: List[torch.Tensor],
     num = spmd.psum(num, mesh, batch_axes)
     den = spmd.psum(den, mesh, batch_axes)
     return [-a / torch.clamp(b, min=1.0) for a, b in zip(num, den)]
+
+
+def logits_shards(params, cfg: ModelConfig, hs: List[torch.Tensor]):
+    """(logits per position, whether they hold the position's vocab block
+    over ``model``): ``h @ unembed`` (or the tied ``embed``'s transpose)
+    with the vocab split as the weight is stored, then the soft cap."""
+    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    vdim = 0 if cfg.tie_embeddings else 1
+    split = model_width(w.mesh) > 1 and split_over_model(w, vdim)
+    ws = w.parts if split else spmd.whole(w)
+    logits = [h @ (x.T if cfg.tie_embeddings else x) for h, x in zip(hs, ws)]
+    if cfg.logits_softcap > 0:
+        c = cfg.logits_softcap
+        logits = [torch.tanh(lg / c) * c for lg in logits]
+    return logits, split
+
+
+def serve_layout(params, cfg: ModelConfig, B: int, mesh: Mesh, what: str):
+    """(the batch's spec, its data axes, the logits' spec) of a serve call
+    on ``mesh``: the batch over the data axes unless their width does not
+    divide B (``data_sharding``); the logits (B, V) as the reference's
+    ``constrain(logits, DATA, MODEL)``, the vocab over ``model`` where the
+    unembedding is stored split so. Parameters not placed on ``mesh`` are
+    refused."""
+    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    if not isinstance(w, Sharded) or w.mesh != mesh:
+        raise ValueError(f"{what}: the parameters must be placed on the "
+                         "active mesh: place_tree(params, mesh, "
+                         "param_shardings(mesh, params))")
+    spec = data_sharding(mesh, 1, B).spec
+    split = model_width(mesh) > 1 and split_over_model(
+        w, 0 if cfg.tie_embeddings else 1)
+    return spec, axes_of(spec[0]), P(spec[0], MODEL_AXIS if split else None)
+
+
+def check_cache(cache, mesh: Mesh, batch_axes, B: int, what: str) -> None:
+    """Refuse a cache some leaf of which is not placed on ``mesh``, or
+    whose ``lengths`` split the batch over other axes than the batch of
+    ``B`` goes over."""
+    if not all(isinstance(c, Sharded) and c.mesh == mesh
+               for c in cache.values()):
+        raise ValueError(f"{what}: the cache must be placed on the active "
+                         "mesh (launch.sharding.cache_shardings)")
+    lc = cache["lengths"]
+    if axes_of(lc.spec[0] if lc.spec else None) != tuple(batch_axes):
+        raise ValueError(f"{what}: the cache splits its batch over "
+                         f"{axes_of(lc.spec[0]) if lc.spec else ()}, the "
+                         f"batch of {B} goes over {tuple(batch_axes)}")
+
+
+def kv_block(t: torch.Tensor, region, S: int,
+             num_kv_heads: int) -> torch.Tensor:
+    """A position's block of one layer's K or V for a cache padded past the
+    S prompt rows: ``t`` (B_local, S, Hkv or the position's KV-head block,
+    Dh) as ``attention_prefill_shards`` returns it, ``region`` the
+    position's slices of the (L, B, Smax, Hkv, Dh) cache -> (B_local, its
+    rows, its heads, Dh), zeros past S."""
+    rows, heads = region[2], region[3]
+    if t.shape[2] == num_kv_heads:
+        t = t[:, :, heads]
+    out = t.new_zeros((t.shape[0], rows.stop - rows.start) + t.shape[2:])
+    got = t[:, rows.start:min(rows.stop, S)]
+    out[:, :got.shape[1]] = got
+    return out

@@ -10,6 +10,13 @@ plain version on CPU tensors). The single-token step is plain PyTorch on
 either device, as the reference's ``mamba2_decode_step`` is plain jnp outside
 any Pallas kernel; it lives here and not in ``kernels/ref.py``, which holds
 only the plain versions of kernels.
+
+``mamba2_seq_shards`` and ``mamba2_step_shards`` run the block on a model
+mesh: ``w_in``'s column blocks are all-gathered as activations (its blocks
+do not fall on head boundaries), each position scans its block of the
+heads with the shared B and C, ``norm_g`` normalises over the whole d_inner
+(the sums of squares summed over ``model``), ``w_out`` is row-parallel, and
+every position keeps the whole conv state.
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import spmd
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import layers as L
 
 
@@ -152,3 +161,111 @@ def state_shapes(cfg: ModelConfig, batch: int):
     N = cfg.ssm_state_dim
     W = cfg.ssm_conv_width
     return (batch, H, P, N), (batch, W - 1, conv_dim)
+
+
+# ---------------------------------------------------------------------------
+# on a model mesh
+# ---------------------------------------------------------------------------
+def _projected(p, cfg: ModelConfig, mesh: Mesh, hs):
+    """The whole packed projection ``x @ w_in`` at every position, and the
+    heads each computes. ``w_in`` (D, 2 Din + 2N + H) is split over
+    ``model`` at column boundaries that are not its heads': each position
+    multiplies its block and the blocks are all-gathered over ``model``, so
+    that it holds its heads' z, x and dt and the B and C every head reads.
+    Returns (per position (z of its heads, the whole x|B|C, dt of its
+    heads), whether the heads are split, each position's first head, the
+    count)."""
+    Din, H, P, _ = mamba2_dims(cfg)
+    los = [L.heads_of(H, mesh, pos)[0] for pos in range(mesh.size)]
+    n = L.heads_of(H, mesh, 0)[1]
+    out = []
+    for lo, proj in zip(los, L.all_columns(hs, p["w_in"])):
+        z, xbc, dt = _split_proj(proj, cfg)
+        out.append((z[..., lo * P:(lo + n) * P], xbc, dt[..., lo:lo + n]))
+    return out, L.heads_axis(H, mesh) is not None, los, n
+
+
+def _gated_out(p, cfg: ModelConfig, mesh: Mesh, ys, zs, split, los, n):
+    """y * silu(z), normalised by ``norm_g`` over the whole d_inner (its sum
+    of squares summed over ``model`` where the heads are split), then
+    ``w_out`` row-parallel and a ``psum``."""
+    Din, _, P, _ = mamba2_dims(cfg)
+    gains = L.cut(p["norm_g"], 0, n * P, [lo * P for lo in los])
+    gated = [y * F.silu(z) for y, z in zip(ys, zs)]
+    normed = L.rms_norm_shards(gated, gains, cfg.norm_eps, Din, mesh, split)
+    return L.row_parallel(normed, p["w_out"], split)
+
+
+def mamba2_seq_shards(p, hs, cfg: ModelConfig, mesh: Mesh, ssd_states,
+                      conv_states):
+    """``mamba2_seq`` at every position: hs (B_local, T, D) each -> (out
+    replicated over ``model``, each position's new SSD state of its heads,
+    each position's whole new conv state). Each position runs the conv on
+    its heads' x channels and on B and C, ``mamba2_ssd`` on its heads (all
+    of them where the model width does not divide them) with the shared B
+    and C, and keeps the whole conv input's last W-1 rows as the new conv
+    state, equal at every model position, as the cache rule replicates it.
+    ``ssd_states``: each position's (B_local, its heads, P, N); conv_states
+    (B_local, W-1, conv_dim) whole."""
+    Din, _, P, _ = mamba2_dims(cfg)
+    N, W = cfg.ssm_state_dim, cfg.ssm_conv_width
+    parts, split, los, n = _projected(p, cfg, mesh, hs)
+    A_log, dt_bias, D_skip = (L.cut(p[k], 0, n, los)
+                              for k in ("A_log", "dt_bias", "D_skip"))
+    conv_w, conv_b = spmd.whole(p["conv_w"]), spmd.whole(p["conv_b"])
+    ys, new_ssd, new_conv = [], [], []
+    for pos, (z, xbc, dt) in enumerate(parts):
+        lo, cs = los[pos] * P, conv_states[pos]
+
+        def mine(t):
+            return torch.cat([t[..., lo:lo + n * P], t[..., Din:]], dim=-1)
+
+        out, _ = _causal_conv_seq(mine(xbc), mine(conv_w[pos]),
+                                  mine(conv_b[pos]), mine(cs))
+        full = torch.cat([cs.to(xbc.dtype), xbc], dim=1)
+        new_conv.append(full[:, -(W - 1):] if W > 1 else cs)
+        # [its heads' x | B | C]: the kernel takes contiguous tensors
+        xs = out[..., :n * P].reshape(*out.shape[:2], n, P).contiguous()
+        Bm = out[..., n * P:n * P + N].contiguous()
+        C = out[..., n * P + N:].contiguous()
+        dtf = F.softplus(dt.to(torch.float32) + dt_bias[pos])
+        y, s_new = ops.mamba2_ssd(xs, dtf.contiguous(),
+                                  -torch.exp(A_log[pos]), Bm, C,
+                                  ssd_states[pos].contiguous())
+        y = y + xs * D_skip[pos].to(y.dtype)[None, None, :, None]
+        ys.append(y.reshape(*y.shape[:2], n * P))
+        new_ssd.append(s_new)
+    return (_gated_out(p, cfg, mesh, ys, [t[0] for t in parts], split, los,
+                       n), new_ssd, new_conv)
+
+
+def mamba2_step_shards(p, hs, cfg: ModelConfig, mesh: Mesh, ssd_states,
+                       conv_states):
+    """``mamba2_step`` at every position: hs (B_local, D) each, one token ->
+    (out replicated over ``model``, each position's new SSD state of its
+    heads, each position's whole new conv state, equal at every model
+    position). The conv runs over every channel of the whole window (a few
+    products a channel), and each position takes its heads' x, B and C from
+    it."""
+    Din, _, P, _ = mamba2_dims(cfg)
+    N = cfg.ssm_state_dim
+    parts, split, los, n = _projected(p, cfg, mesh, hs)
+    A_log, dt_bias, D_skip = (L.cut(p[k], 0, n, los)
+                              for k in ("A_log", "dt_bias", "D_skip"))
+    conv_w, conv_b = spmd.whole(p["conv_w"]), spmd.whole(p["conv_b"])
+    ys, new_ssd, new_conv = [], [], []
+    for pos, (z, xbc, dt) in enumerate(parts):
+        lo = los[pos] * P
+        out, state = _causal_conv_step(xbc, conv_w[pos], conv_b[pos],
+                                       conv_states[pos])
+        new_conv.append(state)
+        xs = out[:, lo:lo + n * P].reshape(-1, n, P)
+        dtf = F.softplus(dt.to(torch.float32) + dt_bias[pos])
+        y, s_new = mamba2_decode_step(xs, dtf, -torch.exp(A_log[pos]),
+                                      out[:, Din:Din + N], out[:, Din + N:],
+                                      ssd_states[pos])
+        y = y + xs * D_skip[pos].to(y.dtype)[None, :, None]
+        ys.append(y.reshape(-1, n * P))
+        new_ssd.append(s_new)
+    return (_gated_out(p, cfg, mesh, ys, [t[0] for t in parts], split, los,
+                       n), new_ssd, new_conv)

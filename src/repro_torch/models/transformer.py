@@ -31,11 +31,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import spmd
 from repro_torch.launch.mesh import Mesh
-from repro_torch.launch.sharding import (MODEL_AXIS, P, Sharded, axes_of,
-                                         cache_shardings, data_sharding,
-                                         shard_region)
+from repro_torch.launch.sharding import (P, axes_of, cache_shardings,
+                                         data_sharding, shard_region)
 from repro_torch.models import layers as L
-from repro_torch.tree import leaves, unflatten
 
 FAMILIES = ("dense", "moe", "vlm")
 
@@ -179,38 +177,15 @@ def _layer_shards(cfg: ModelConfig, p, xs, positions, mesh: Mesh,
 
 
 def _layer_call(cfg: ModelConfig, p, xs, positions, mesh: Mesh, batch_axes):
-    """``_layer_shards``, under ``spmd.remat`` when ``cfg.remat``: its
-    inputs flattened to the activations and every position's parameter
-    parts, the parameters rebuilt around the recomputed run's copies."""
-    params = leaves(p)
+    """``_layer_shards``, under ``spmd.remat`` when ``cfg.remat``
+    (``layers.layer_call``): (x, aux per position or None)."""
+    def run(q, ys):
+        out, aux = _layer_shards(cfg, q, ys, positions, mesh, batch_axes)
+        return out + (aux or [])
+
+    out = L.layer_call(run, p, xs, cfg.remat)
     n = len(xs)
-
-    def run(flat):
-        parts = iter(flat[n:])
-        q = unflatten(p, [Sharded(w.mesh, w.spec, w.shape,
-                                  [next(parts) for _ in w.parts])
-                          for w in params])
-        ys, aux = _layer_shards(cfg, q, flat[:n], positions, mesh,
-                                batch_axes)
-        return ys + (aux or [])
-
-    flat = list(xs) + [t for w in params for t in w.parts]
-    out = spmd.remat(run, flat) if cfg.remat else run(flat)
     return out[:n], (out[n:] or None)
-
-
-def _logits_shards(params, cfg: ModelConfig, hs):
-    """(logits per position, whether they hold the position's vocab block
-    over ``model``)."""
-    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    vdim = 0 if cfg.tie_embeddings else 1
-    split = L.model_width(w.mesh) > 1 and L.split_over_model(w, vdim)
-    ws = w.parts if split else spmd.whole(w)
-    logits = [h @ (x.T if cfg.tie_embeddings else x) for h, x in zip(hs, ws)]
-    if cfg.logits_softcap > 0:
-        c = cfg.logits_softcap
-        logits = [torch.tanh(lg / c) * c for lg in logits]
-    return logits, split
 
 
 def sharded_loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -250,7 +225,7 @@ def sharded_loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
              for t, g in zip(x, params["final_norm"].parts)]
         if cfg.family == "vlm" and "patch_embeds" in batch:
             h = [t[:, batch["patch_embeds"].shape[1]:] for t in h]
-        logits, split = _logits_shards(params, cfg, h)
+        logits, split = L.logits_shards(params, cfg, h)
         masks = batch["loss_mask"].parts if "loss_mask" in batch else None
         xent = L.softmax_xent_shards(logits, batch["labels"].parts, masks,
                                      mesh, split, batch_axes)
@@ -322,23 +297,11 @@ def decode_step(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # serving on a model mesh
 # ---------------------------------------------------------------------------
 def _serve_layout(params, cfg: ModelConfig, B: int, mesh: Mesh, what: str):
-    """(the batch's spec, its data axes, the logits' spec) of a serve call
-    on ``mesh``: the batch over the data axes unless their width does not
-    divide B (``data_sharding``); the logits (B, V) as the reference's
-    ``constrain(logits, DATA, MODEL)``, the vocab over ``model`` where the
-    unembedding is stored split so."""
+    """``layers.serve_layout`` for the families this module serves."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.family}: {what} serves the "
                          f"{', '.join(FAMILIES)} families")
-    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    if not isinstance(w, Sharded) or w.mesh != mesh:
-        raise ValueError(f"{what}: the parameters must be placed on the "
-                         "active mesh: place_tree(params, mesh, "
-                         "param_shardings(mesh, params))")
-    spec = data_sharding(mesh, 1, B).spec
-    split = L.model_width(mesh) > 1 and L.split_over_model(
-        w, 0 if cfg.tie_embeddings else 1)
-    return spec, axes_of(spec[0]), P(spec[0], MODEL_AXIS if split else None)
+    return L.serve_layout(params, cfg, B, mesh, what)
 
 
 def _ffn_shards(cfg: ModelConfig, p, hs, mesh: Mesh, batch_axes):
@@ -375,17 +338,6 @@ def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     k_spec, len_spec = cache_sh["k"].spec, cache_sh["lengths"].spec
     dtype = L.torch_dtype(cfg.dtype)
 
-    def keep(t, pos, region):
-        """The position's (B_local, rows, heads, Dh) block of the padded
-        (B_local, Smax, Hkv or the block, Dh) K or V."""
-        rows, heads = region[2], region[3]
-        if t.shape[2] == cfg.num_kv_heads:
-            t = t[:, :, heads]
-        out = t.new_zeros((t.shape[0], rows.stop - rows.start) + t.shape[2:])
-        got = t[:, rows.start:min(rows.stop, S)]
-        out[:, :got.shape[1]] = got
-        return out
-
     def body(params, batch):
         x = L.embed_shards(params["embed"], batch["tokens"].parts)
         if vlm:
@@ -404,8 +356,10 @@ def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                                                   positions, mesh,
                                                   return_kv=True)
             for pos, (k, v) in enumerate(kvs):
-                ks[pos][i] = keep(k, pos, regions[pos])
-                vs[pos][i] = keep(v, pos, regions[pos])
+                ks[pos][i] = L.kv_block(k, regions[pos], S,
+                                        cfg.num_kv_heads)
+                vs[pos][i] = L.kv_block(v, regions[pos], S,
+                                        cfg.num_kv_heads)
             x = spmd.each(torch.add, x, att)
             hs = [L.rms_norm(t, g, cfg.norm_eps)
                   for t, g in zip(x, p["ln2"].parts)]
@@ -413,7 +367,7 @@ def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                                                     batch_axes))
         h = [L.rms_norm(t[:, -1], g, cfg.norm_eps)
              for t, g in zip(x, params["final_norm"].parts)]
-        logits, _ = _logits_shards(params, cfg, h)
+        logits, _ = L.logits_shards(params, cfg, h)
         lengths = [torch.full((t.shape[0],), S, dtype=torch.int32,
                               device=t.device) for t in h]
         return logits, ks, vs, lengths
@@ -438,15 +392,8 @@ def sharded_decode_step(params, cfg: ModelConfig,
     B = batch["tokens"].shape[0]
     spec, batch_axes, logit_spec = _serve_layout(params, cfg, B, mesh,
                                                  "sharded_decode_step")
+    L.check_cache(cache, mesh, batch_axes, B, "sharded_decode_step")
     kc, vc, lc = cache["k"], cache["v"], cache["lengths"]
-    if not all(isinstance(c, Sharded) and c.mesh == mesh
-               for c in (kc, vc, lc)):
-        raise ValueError("sharded_decode_step: the cache must be placed on "
-                         "the active mesh (launch.sharding.cache_shardings)")
-    if axes_of(lc.spec[0] if lc.spec else None) != batch_axes:
-        raise ValueError(f"sharded_decode_step: the cache splits its batch "
-                         f"over {axes_of(lc.spec[0]) if lc.spec else ()}, "
-                         f"the batch of {B} goes over {batch_axes}")
 
     def body(params, batch):
         x = L.embed_shards(params["embed"], batch["tokens"].parts)
@@ -464,7 +411,7 @@ def sharded_decode_step(params, cfg: ModelConfig,
             x = spmd.each(lambda t, y: t + y[:, 0], x, ys)
         h = [L.rms_norm(t, g, cfg.norm_eps)
              for t, g in zip(x, params["final_norm"].parts)]
-        logits, _ = _logits_shards(params, cfg, h)
+        logits, _ = L.logits_shards(params, cfg, h)
         return logits, [t + 1 for t in n]
 
     logits, lengths = spmd.shard_map(body, mesh, (None, spec),

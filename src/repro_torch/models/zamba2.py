@@ -21,6 +21,13 @@ Hkv, Dh) in cfg.dtype, ``lengths`` (B,) int32. ``decode_step`` updates
 ``ssd``, ``conv``, ``kv_k`` and ``kv_v`` IN PLACE and returns a dict with the
 same tensors and new ``lengths``; a caller that keeps an older cache dict
 must clone it.
+
+``sharded_loss_fn``, ``sharded_prefill`` and ``sharded_decode_step`` run it
+on a model mesh: the Mamba2 layers through ``mamba2.mamba2_seq_shards`` and
+``mamba2_step_shards`` (under ``spmd.remat`` when ``cfg.remat``), the
+shared block through ``layers.attention_prefill_shards``,
+``attention_decode_shards`` and ``mlp_block_shards``; the cache laid out by
+``launch.sharding.cache_shardings``.
 """
 from __future__ import annotations
 
@@ -30,8 +37,13 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import spmd
+from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.sharding import (P, axes_of, cache_shardings,
+                                         data_sharding, shard_region)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models.layers import meta_specs
 
 
 def _group_counts(cfg: ModelConfig):
@@ -213,3 +225,191 @@ def decode_step(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         cache["conv"][i] = c_new
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return h @ params["unembed"], {**cache, "lengths": lengths + 1}
+
+
+# ---------------------------------------------------------------------------
+# on a model mesh
+# ---------------------------------------------------------------------------
+def _shared_shards(cfg, sp, xs, positions, mesh: Mesh, return_kv=False):
+    """The shared block at every position: attention (its heads where the
+    model width divides them, ``layers.attention_prefill_shards``) and the
+    MLP (``layers.mlp_block_shards``), each added to the residual."""
+    hs = [L.rms_norm(x, g, cfg.norm_eps) for x, g in zip(xs, sp["ln1"].parts)]
+    att = L.attention_prefill_shards(sp["attn"], hs, cfg, positions, mesh,
+                                     return_kv=return_kv)
+    if return_kv:
+        att, kvs = att
+    xs = spmd.each(torch.add, xs, att)
+    hs = [L.rms_norm(x, g, cfg.norm_eps) for x, g in zip(xs, sp["ln2"].parts)]
+    xs = spmd.each(torch.add, xs, L.mlp_block_shards(sp["mlp"], hs, cfg, mesh))
+    return (xs, kvs) if return_kv else xs
+
+
+def _mamba_shards(cfg, p, xs, ssd, conv, mesh: Mesh, step=False):
+    """One Mamba2 layer at every position: (x + mamba2(rms_norm(x)), new SSD
+    states, new conv states)."""
+    hs = [L.rms_norm(x, g, cfg.norm_eps) for x, g in zip(xs, p["ln"].parts)]
+    fn = M.mamba2_step_shards if step else M.mamba2_seq_shards
+    ys, s_new, c_new = fn(p["mamba"], hs, cfg, mesh, ssd, conv)
+    return spmd.each(torch.add, xs, ys), s_new, c_new
+
+
+def _zero_states(cfg: ModelConfig, mesh: Mesh, xs):
+    """Each position's zero SSD state (B_local, its heads, P, N) and zero
+    conv state (B_local, W-1, conv_dim), whole."""
+    _, H, P, conv_dim = M.mamba2_dims(cfg)
+    n = L.heads_of(H, mesh, 0)[1]
+    ssd = [torch.zeros((x.shape[0], n, P, cfg.ssm_state_dim),
+                       dtype=torch.float32, device=x.device) for x in xs]
+    conv = [torch.zeros((x.shape[0], cfg.ssm_conv_width - 1, conv_dim),
+                        dtype=L.torch_dtype(cfg.dtype), device=x.device)
+            for x in xs]
+    return ssd, conv
+
+
+def sharded_loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                    mesh: Mesh):
+    """``loss_fn`` on ``mesh`` -> (loss, {"xent"}), 0-d tensors on the mesh's
+    first device. ``params`` is a tree of ``Sharded`` placed by
+    ``param_shardings``; ``batch`` holds whole tensors, split over the data
+    axes by ``data_sharding``. The Mamba2 layers run per shard
+    (``mamba2.mamba2_seq_shards``) from zero states, under ``spmd.remat``
+    when ``cfg.remat`` (the shared block is kept, as the reference
+    checkpoints the Mamba2 layers only); the logits stay split by vocab and
+    the cross-entropy takes the log-sum-exp across the shards."""
+    B = batch["tokens"].shape[0]
+    spec = data_sharding(mesh, 1, B).spec
+    batch_axes = axes_of(spec[0])
+
+    def body(params, batch):
+        x = L.embed_shards(params["embed"], batch["tokens"].parts)
+        T = x[0].shape[1]
+        positions = [torch.arange(T, device=d)[None, :] for d in mesh.devices]
+        ssd0, conv0 = _zero_states(cfg, mesh, x)
+        for i, _g in _layer_order(cfg):
+            if i is None:
+                x = _shared_shards(cfg, params["shared_attn"], x, positions,
+                                   mesh)
+            else:
+                x = L.layer_call(lambda q, xs: _mamba_shards(
+                    cfg, q, xs, ssd0, conv0, mesh)[0], params["layers"][i],
+                    x, cfg.remat)
+        h = [L.rms_norm(t, g, cfg.norm_eps)
+             for t, g in zip(x, params["final_norm"].parts)]
+        logits, split = L.logits_shards(params, cfg, h)
+        masks = batch["loss_mask"].parts if "loss_mask" in batch else None
+        return L.softmax_xent_shards(logits, batch["labels"].parts, masks,
+                                     mesh, split, batch_axes)
+
+    loss = spmd.shard_map(body, mesh, (None, spec), P())(params, batch)
+    return loss.parts[0], {"xent": loss.parts[0]}
+
+
+def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                    max_len: int, mesh: Mesh):
+    """``prefill`` on ``mesh`` -> (last logits, cache), the cache laid out by
+    ``launch.sharding.cache_shardings``: ``ssd`` by heads over ``model``
+    where the width divides them, ``conv`` whole and equal at every model
+    position, ``kv_k``/``kv_v`` (G, B, max(max_len, T), Hkv, Dh) by KV heads
+    (or by rows where the width does not divide them) and zero-padded past
+    T, everything split over the data axes as the batch is. Returns the
+    logits as a ``Sharded`` (B, V) split by vocab over ``model`` and the
+    cache as a dict of ``Sharded``."""
+    B, T = batch["tokens"].shape
+    spec, _, logit_spec = L.serve_layout(params, cfg, B, mesh,
+                                         "sharded_prefill")
+    Smax = max(max_len, T)
+    sh = cache_shardings(cfg, mesh, meta_specs(
+        lambda: init_cache(cfg, B, Smax, device="cpu")))
+    G, _, _ = _group_counts(cfg)
+    kv_shape = (G, B, Smax, cfg.num_kv_heads, cfg.head_dim)
+    dtype = L.torch_dtype(cfg.dtype)
+
+    def body(params, batch):
+        x = L.embed_shards(params["embed"], batch["tokens"].parts)
+        positions = [torch.arange(T, device=d)[None, :] for d in mesh.devices]
+        ssd0, conv0 = _zero_states(cfg, mesh, x)
+        ssd = [torch.zeros((cfg.num_layers,) + t.shape, dtype=t.dtype,
+                           device=t.device) for t in ssd0]
+        conv = [torch.zeros((cfg.num_layers,) + t.shape, dtype=t.dtype,
+                            device=t.device) for t in conv0]
+        regions = [shard_region(kv_shape, sh["kv_k"].spec, mesh, pos)
+                   for pos in range(mesh.size)]
+        ks = [torch.zeros(tuple(r.stop - r.start for r in reg), dtype=dtype,
+                          device=d) for reg, d in zip(regions, mesh.devices)]
+        vs = [torch.zeros_like(t) for t in ks]
+        for i, g in _layer_order(cfg):
+            if i is None:
+                x, kvs = _shared_shards(cfg, params["shared_attn"], x,
+                                        positions, mesh, return_kv=True)
+                for pos, (k, v) in enumerate(kvs):
+                    ks[pos][g] = L.kv_block(k, regions[pos], T,
+                                            cfg.num_kv_heads)
+                    vs[pos][g] = L.kv_block(v, regions[pos], T,
+                                            cfg.num_kv_heads)
+                continue
+            x, s_new, c_new = _mamba_shards(cfg, params["layers"][i], x,
+                                            ssd0, conv0, mesh)
+            for pos in range(mesh.size):
+                ssd[pos][i] = s_new[pos]
+                conv[pos][i] = c_new[pos]
+        h = [L.rms_norm(t[:, -1], g, cfg.norm_eps)
+             for t, g in zip(x, params["final_norm"].parts)]
+        logits, _ = L.logits_shards(params, cfg, h)
+        lengths = [torch.full((t.shape[0],), T, dtype=torch.int32,
+                              device=t.device) for t in h]
+        return logits, ssd, conv, ks, vs, lengths
+
+    names = ("ssd", "conv", "kv_k", "kv_v", "lengths")
+    logits, *leaves_ = spmd.shard_map(
+        body, mesh, (None, spec),
+        (logit_spec,) + tuple(sh[k].spec for k in names))(params, batch)
+    return logits, dict(zip(names, leaves_))
+
+
+def sharded_decode_step(params, cfg: ModelConfig,
+                        batch: Dict[str, torch.Tensor], cache, mesh: Mesh):
+    """``decode_step`` on ``mesh`` -> (logits, cache). ``cache``: the dict of
+    ``Sharded`` that ``sharded_prefill`` returns or that ``cache_shardings``
+    places. Each Mamba2 layer steps its heads' rows of ``ssd`` and the whole
+    ``conv`` (``mamba2.mamba2_step_shards``) and writes them IN PLACE; each
+    application of the shared block writes its K/V row IN PLACE and runs
+    ``layers.attention_decode_shards`` (the heads or the sequence form, as
+    the cache is laid out); lengths + 1."""
+    B = batch["tokens"].shape[0]
+    spec, batch_axes, logit_spec = L.serve_layout(params, cfg, B, mesh,
+                                                  "sharded_decode_step")
+    L.check_cache(cache, mesh, batch_axes, B, "sharded_decode_step")
+    ssd, conv = cache["ssd"].parts, cache["conv"].parts
+    kc, vc, lc = cache["kv_k"], cache["kv_v"], cache["lengths"]
+
+    def body(params, batch):
+        x = L.embed_shards(params["embed"], batch["tokens"].parts)
+        sp = params["shared_attn"]
+        for i, g in _layer_order(cfg):
+            if i is None:
+                hs = [L.rms_norm(t, w, cfg.norm_eps)
+                      for t, w in zip(x, sp["ln1"].parts)]
+                att = L.attention_decode_shards(
+                    sp["attn"], hs, cfg, [t[g] for t in kc.parts],
+                    [t[g] for t in vc.parts], lc.parts, mesh, kc.spec)
+                x = spmd.each(torch.add, x, att)
+                hs = [L.rms_norm(t, w, cfg.norm_eps)
+                      for t, w in zip(x, sp["ln2"].parts)]
+                x = spmd.each(torch.add, x,
+                              L.mlp_block_shards(sp["mlp"], hs, cfg, mesh))
+                continue
+            x, s_new, c_new = _mamba_shards(
+                cfg, params["layers"][i], x, [t[i] for t in ssd],
+                [t[i] for t in conv], mesh, step=True)
+            for pos in range(mesh.size):
+                ssd[pos][i] = s_new[pos]
+                conv[pos][i] = c_new[pos]
+        h = [L.rms_norm(t, w, cfg.norm_eps)
+             for t, w in zip(x, params["final_norm"].parts)]
+        logits, _ = L.logits_shards(params, cfg, h)
+        return logits, [t + 1 for t in lc.parts]
+
+    logits, lengths = spmd.shard_map(body, mesh, (None, spec),
+                                     (logit_spec, lc.spec))(params, batch)
+    return logits, {**cache, "lengths": lengths}

@@ -35,6 +35,7 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.serving.engine, repro_torch.models, "
             "repro_torch.configs.llama3_8b, repro_torch.data.tokenizer, "
             "repro_torch.models.zamba2, repro_torch.models.rwkv6, "
+            "repro_torch.models.mamba2, repro_torch.models.layers, "
             "repro_torch.configs.zamba2_7b, repro_torch.configs.rwkv6_1b6, "
             "repro_torch.core.journal, repro_torch.core.maintenance_plane, "
             "repro_torch.core.persistence, repro_torch.core.codec, "
