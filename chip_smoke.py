@@ -313,7 +313,25 @@ Phases, each printed on its own line; any failed check exits nonzero:
               against CPU on (2, 2), within 1e-4. With four cards or more
               instead: zamba2-7b whole (81 layers) on (2, 2) over the first
               four, 8 steps.
-  25. kernels one line per kernel, and the JSON summary of all of them.
+  25. sharded_whisper  whisper-base (the encdec family) at its published
+              width and depth, bf16 with remat, on (2, 2) and (1, 16)
+              repeating the card, through the same entry points: 3 ZeRO-1
+              steps of 8 x 448 decoder tokens beside 8 x 1500 frames, then
+              a topk and an int8 step, every loss and grad_norm held to the
+              same steps unsharded on the card within 2e-2 (launches a
+              position a step: flash_attention 24, its backward 12); one
+              gradient tree compressed on the mesh bit for bit as
+              unsharded (thresholds, scales, gradients, error states); a
+              prefill of 8 x 16 tokens beside 1500 frames into 64 rows and
+              32 greedy steps held to the unsharded run (the heads form at
+              (2, 2), decode_attention_lse's sequence form at (1, 16),
+              the cross cache by heads and whole); a checkpoint of the
+              (2, 2) state at 2 + 2 layers after 2 steps, restored onto
+              (2, 2), onto (1, 16) from meta specs and unsharded, every
+              leaf bit-equal to the saved state (the third step after the
+              (2, 2) restore bit-equal to the uninterrupted one); the float32
+              parity at 1 + 1 layers, card against CPU on (2, 2).
+  26. kernels one line per kernel, and the JSON summary of all of them.
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a
 visible CUDA device, or without the rest of the repository beside it, the
@@ -894,6 +912,12 @@ def check_kernels(torch, peaks, seed: int):
     g_shard = torch.Generator(device=dev).manual_seed(seed + 27)
     for B, S, Hq, Hkv, D, what in SHARD_ATTENTION:
         flash_case(B, S, Hq, Hkv, D, True, bf16, True, what, gen=g_shard)
+    # the sharded_whisper phase's shards at model = 2 (B = 8 over data = 2,
+    # 8 heads over model = 2): the encoder (full) and the decoder's train
+    # prompt (causal), from a generator of their own
+    g_whisper = torch.Generator(device=dev).manual_seed(seed + 30)
+    for B, S, Hq, Hkv, D, causal, what in WHISPER_SHARD_ATTENTION:
+        flash_case(B, S, Hq, Hkv, D, causal, bf16, True, what, gen=g_whisper)
 
     # -- decode_attention ---------------------------------------------------
     def decode_case(B, Smax, Hq, Hkv, D, lengths, dt, main, what, gen=g):
@@ -958,6 +982,11 @@ def check_kernels(torch, peaks, seed: int):
                              True, "olmoe decode", gen=g_new)
     decode_case(8, 64, 8, 8, 64, np.random.default_rng(seed + 2).integers(
         17, 49, size=8).tolist(), bf16, True, "whisper decode", gen=g_new)
+    # the sharded_whisper phase's heads form at model = 2: a position's 4 of
+    # 8 rows and 4 of 8 heads in the 64-row cache
+    decode_case(4, 64, 4, 4, 64, np.random.default_rng(seed + 3).integers(
+        17, 49, size=4).tolist(), bf16, True, "whisper-base model=2 shard",
+        gen=g_whisper)
 
     # the C entry refuses a scratch smaller than its layout and a head dim
     # the tensor maps cannot take (the wrapper pads those)
@@ -1300,12 +1329,19 @@ DECODE_LSE_ROWS = (
     (12, 32768, 16, 4, 128, 32705, 32768, "bf16", True, "four-card shard"),
     (4, 16, 4, 2, 16, 0, 16, "f32", False, "smoke sequence-form shard"),
     (4, 512, 4, 2, 16, 129, 512, "f32", False, "f32 split-merge shard"),
+    (8, 4, 8, 8, 64, 0, 4, "bf16", True, "whisper-base model=16 shard"),
 )
+# whisper-base's sequence form at model = 16: every head of all 8 rows over
+# a position's 4 of the 64 cache rows (lengths 17-48 clamped to the shard).
 # the attention of the sharded_train phase at a model width of 2: (B, S,
 # Hq, Hkv, D, what), one position's data shard and heads
 SHARD_ATTENTION = ((4, 512, 16, 4, 128, "llama3-8b model=2 shard"),
                    (4, 512, 8, 8, 128, "olmoe-1b-7b model=2 shard"),
                    (4, 512, 16, 16, 112, "zamba2-7b model=2 shard"))
+# the sharded_whisper phase at model = 2: (B, S, Hq, Hkv, D, causal, what)
+WHISPER_SHARD_ATTENTION = (
+    (4, 1500, 4, 4, 64, False, "whisper-base model=2 encoder shard"),
+    (4, 448, 4, 4, 64, True, "whisper-base model=2 decoder shard"))
 BWD_ROWS = (
     (8, 512, 32, 32, 96, True, "bf16", True, "phi3 train"),
     (8, 512, 32, 8, 128, True, "bf16", False, "llama GQA"),
@@ -1322,6 +1358,10 @@ BWD_ROWS = (
     (4, 512, 16, 4, 128, True, "bf16", True, "llama3-8b model=2 shard"),
     (4, 512, 8, 8, 128, True, "bf16", True, "olmoe-1b-7b model=2 shard"),
     (4, 512, 16, 16, 112, True, "bf16", True, "zamba2-7b model=2 shard"),
+    (4, 1500, 4, 4, 64, False, "bf16", True,
+     "whisper-base model=2 encoder shard"),
+    (4, 448, 4, 4, 64, True, "bf16", True,
+     "whisper-base model=2 decoder shard"),
 )
 # the forward's log-sum-exp (log2 units) against attention_lse_ref: f32, the
 # same CUDA-core sums as the output; bf16, the tensor cores' f32 sums of D
@@ -4437,8 +4477,11 @@ def train_launches(cfg):
     """Launches of each kernel of ``cfg``'s train step with remat, whose
     rematerialised layers run their forward twice: every layer of the dense
     family and rwkv6, zamba2's Mamba2 layers (not its shared block, as the
-    reference checkpoints the Mamba2 layers only)."""
+    reference checkpoints the Mamba2 layers only); whisper's encoder and
+    decoder layers."""
     L = cfg.num_layers
+    if cfg.family == "encdec":
+        L += cfg.encoder_layers
     if cfg.family == "hybrid":
         G = L // cfg.attn_every
         return {"mamba2_ssd": 2 * L, "mamba2_ssd_bwd": L,
@@ -5428,14 +5471,17 @@ SSM_TRAIN_STEPS, SSM_FOUR_STEPS, SSM_PARITY_STEPS = 3, 8, 2
 SSM_PARITY_PROMPT, SSM_PARITY_MAX_LEN, SSM_PARITY_DECODE = 64, 96, 4
 
 
-def sharded_train_run(torch, label, model, mesh, steps, seed):
+def sharded_train_run(torch, label, model, mesh, steps, seed,
+                      seq=TRAIN_SEQ, keep=False):
     """``steps`` bf16 steps of ``model``'s train step with ZeRO-1 on
     ``mesh`` from ``sharded_state``, the last one under the profiler (CUDA
-    events only): every loss finite, every parameter a finite, nonzero
-    gradient at the first step, each kernel's launches exact
-    (``train_launches`` a position a step). Prints the steps' ms, tokens/s,
-    each card's peak GB and the last step's idle share over the cards.
-    Returns the launch counts of the steps."""
+    events only), on batches of TRAIN_BATCH x ``seq`` from ``make_batch``
+    at seeds ``seed``, ``seed`` + 1, ...: every loss finite, every parameter
+    a finite, nonzero gradient at the first step, each kernel's launches
+    exact (``train_launches`` a position a step). Prints the steps' ms,
+    tokens/s, each card's peak GB and the last step's idle share over the
+    cards. Returns the launch counts of the steps; with ``keep`` also the
+    state and the steps' metrics."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
@@ -5458,7 +5504,7 @@ def sharded_train_run(torch, label, model, mesh, steps, seed):
     torch.cuda.empty_cache()
     n_params = sum(math.prod(w.shape)
                    for _, w in leaves_with_paths(state["params"]))
-    batches = [make_batch(cfg, "train", TRAIN_BATCH, TRAIN_SEQ, seed + i,
+    batches = [make_batch(cfg, "train", TRAIN_BATCH, seq, seed + i,
                           device=mesh.devices[0]) for i in range(steps)]
     step_fn = make_train_step(model, TrainConfig(
         learning_rate=3e-4, warmup_steps=2, total_steps=steps))
@@ -5521,7 +5567,7 @@ def sharded_train_run(torch, label, model, mesh, steps, seed):
             if busy_s > 0 else None)
     med = statistics.median(step_ms[1:])
     print(f"{label}: params={n_params} layers={cfg.num_layers} "
-          f"B={TRAIN_BATCH} S={TRAIN_SEQ} steps={steps} init_s={init_s:.2f} "
+          f"B={TRAIN_BATCH} S={seq} steps={steps} init_s={init_s:.2f} "
           "losses=" + ",".join(f"{x:.5f}" for x in losses) + " grad_norms="
           + ",".join(f"{x:.4f}" for x in gnorms) + " gradients present, "
           f"finite and nonzero for all {len(leaves_with_paths(state['params']))}"
@@ -5530,7 +5576,7 @@ def sharded_train_run(torch, label, model, mesh, steps, seed):
           flush=True)
     print(f"{label}: step_ms=" + ",".join(f"{x:.2f}" for x in step_ms)
           + f" median_step_ms={med:.3f} (steps 2-{steps}, the last "
-          f"profiled) tokens_per_s={TRAIN_BATCH * TRAIN_SEQ / (med / 1e3):.1f}"
+          f"profiled) tokens_per_s={TRAIN_BATCH * seq / (med / 1e3):.1f}"
           " peak_gb_per_card=" + ",".join(f"{x:.3f}" for x in peaks)
           + f" (states {n_params * STATE_BYTES / 1e9:.2f} GB in all) last "
           f"step device_busy_s={busy_s:.4f} over {len(cards)} card(s) "
@@ -5539,7 +5585,10 @@ def sharded_train_run(torch, label, model, mesh, steps, seed):
           + ", ".join(f"{k[:40]}={us / 1e3:.2f}ms" for k, us in top)
           + f" s={time.perf_counter() - t0:.2f} (the gradients' check "
           f"{grads_s:.2f}, the profile's report {report_s:.2f})", flush=True)
-    del state, batches, metrics, prof
+    del batches, prof
+    if keep:
+        return counts, state, metrics
+    del state, metrics
     torch.cuda.empty_cache()
     return counts
 
@@ -5767,6 +5816,445 @@ def run_sharded_ssm_parity(torch, seed):
               "launches " + " ".join(f"{k}={n}" for k, (n, _) in
                                      counts.items() if n)
               + f" s={time.perf_counter() - t0:.2f}", flush=True)
+
+
+# sharded_whisper: whisper-base at its published width and depth (6 + 6
+# layers, d 512, 8 heads of 64, 1500 frames, vocab 51865), bf16 with remat,
+# on SHARDED_SSM_MESHES repeating one card. The train batch is 8 x 448
+# decoder tokens, whisper's published decoder context (arXiv:2212.04356),
+# beside 8 x 1500 frames; serve prefills 8 prompts of WHISPER_PROMPT tokens
+# into a 64-row cache and decodes FAMILY_STEPS steps, as the whisper phase.
+WHISPER_SEQ = 448
+WHISPER_STEPS = 3                 # ZeRO-1 steps, then a topk and an int8 step
+WHISPER_MAX_LEN = 64
+WHISPER_TRAIN_REL = 2e-2          # loss and grad_norm, mesh against unsharded
+#                                   on the card: both bf16, the mesh's
+#                                   row-parallel partials summed in bf16
+WHISPER_PARITY = {"layers": 1, "batch": 2, "tokens": 64, "steps": 4}
+WHISPER_CKPT_LAYERS = 2           # the checkpoint's state: 2 + 2 layers
+
+
+def whisper_reference(torch, model, cfg, seed, methods):
+    """The unsharded run on the card of what ``run_sharded_whisper`` runs on
+    a mesh: WHISPER_STEPS steps from the same initial state and batches as
+    ``sharded_train_run``, then one step for each of ``methods`` with a
+    zero error state. Returns the steps' (loss, grad_norm)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import make_batch
+    from repro_torch.training import optimizer
+    from repro_torch.training.grad_compress import init_error_state
+    from repro_torch.training.train_loop import make_train_step
+
+    params = model.init(seed, device="cuda")
+    state = {"params": params, "opt": optimizer.init_opt_state(params)}
+    out, ms = [], []
+    kw = dict(learning_rate=3e-4, warmup_steps=2, total_steps=WHISPER_STEPS)
+    for i, method in enumerate(["none"] * WHISPER_STEPS + list(methods)):
+        t0 = time.perf_counter()
+        if method != "none":
+            state["err"] = init_error_state(state["params"])
+        b = make_batch(cfg, "train", TRAIN_BATCH, WHISPER_SEQ,
+                       seed + min(i, WHISPER_STEPS - 1), device="cuda")
+        state, m = make_train_step(model, TrainConfig(
+            grad_compression=method, **kw))(state, b)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    print("sharded_whisper: the unsharded steps on the card, ms: "
+          + ",".join(f"{x:.2f}" for x in ms), flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_compression_exact(torch, cfg, meshes, seed) -> None:
+    """A gradient tree of whisper-base's shapes in bf16 (random normal, so
+    many values tie) and a float32 error state, compressed unsharded on the
+    card; then on each of ``meshes``, placed as the train step holds them
+    and compressed there: the thresholds, the scales, the compressed
+    gradients and the new error state bit for bit the unsharded ones. Prints
+    a line a mesh."""
+    from repro_torch.launch.sharding import (Sharded, gather_tree,
+                                             param_shardings, place_tree,
+                                             zero1_shardings)
+    from repro_torch.models.factory import param_specs
+    from repro_torch.training import grad_compress as gc
+    from repro_torch.training.optimizer import within
+    from repro_torch.tree import leaves, map_tree
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    specs = param_specs(cfg)
+    grads = map_tree(lambda t: torch.randn(t.shape, generator=gen,
+                                           device="cuda").to(torch.bfloat16),
+                     specs)
+    err = map_tree(lambda t: 1e-2 * torch.randn(
+        t.shape, generator=gen, device="cuda"), specs)
+    groups = gc.stacked_groups(grads)
+    g32 = [g.float() + e for g, e in zip(leaves(grads), leaves(err))]
+    want_cut = {"topk": torch.stack([torch.topk(torch.cat(
+        [g32[i].reshape(-1) for i in idx]).abs(), max(int(sum(
+            g32[i].numel() for i in idx) * 0.125), 1)).values[-1]
+        for idx in groups]),
+        "int8": torch.stack([torch.max(torch.stack([
+            g32[i].abs().max() for i in idx])) for idx in groups])
+        / 127.0 + 1e-12}
+    del g32
+    want = {m: gc.compress(grads, err, method=m)[:2] for m in want_cut}
+    base_s = time.perf_counter() - t0
+    for mesh in meshes:
+        t0 = time.perf_counter()
+        sg = place_tree(grads, mesh, param_shardings(mesh, grads))
+        se = place_tree(err, mesh, zero1_shardings(mesh, err))
+        blocks = [Sharded(e.mesh, e.spec, e.shape, [
+            g.parts[p][within(e.region(p), g.region(p))].float() + e.parts[p]
+            for p in range(mesh.size)])
+            for g, e in zip(leaves(sg), leaves(se))]
+        cuts = {"topk": gc._thresholds(blocks, groups, 0.125),
+                "int8": gc._scales(blocks, groups)}
+        del blocks
+        for method, (c0, e0) in want.items():
+            need(torch.equal(cuts[method].view(torch.int32),
+                             want_cut[method].view(torch.int32)),
+                 f"sharded_whisper {mesh.shape}: the {method} cut of a group "
+                 "differs from the unsharded one")
+            c, e, _ = gc.compress(sg, se, method=method)
+            for name, got, ref_ in (("gradients", c, c0),
+                                    ("error state", e, e0)):
+                same = all(torch.equal(a, b) for a, b in zip(
+                    leaves(gather_tree(got)), leaves(ref_)))
+                need(same, f"sharded_whisper {mesh.shape}: the {method} "
+                     f"compressed {name} differ from the unsharded ones")
+            del c, e
+        del sg, se
+        torch.cuda.synchronize()
+        print(f"sharded_whisper whisper-base mesh {tuple(mesh.dims)} "
+              f"compression: {len(groups)} groups, "
+              f"{sum(t.numel() for t in leaves(grads))} elements: topk "
+              "thresholds, int8 scales, compressed gradients and error "
+              f"states bit-equal to the unsharded compress (s={base_s:.2f})"
+              f" s={time.perf_counter() - t0:.2f}", flush=True)
+    del grads, err, want
+    torch.cuda.empty_cache()
+
+
+def whisper_checkpoint(torch, cfg, seed) -> str:
+    """The (2, 2) ZeRO-1 state of ``cfg`` after 2 steps saved through
+    ``runtime.checkpoint`` and restored onto (2, 2) (by the state's
+    ``Sharded`` leaves), onto (1, 16) (from ``meta`` specs and that mesh's
+    ``train_state_shardings``) and unsharded: every restored leaf, gathered,
+    bit for bit the saved one (the parameters, the step and the ZeRO-1
+    moments, which the other mesh lays out anew); and the third step after
+    the restore onto (2, 2) bit for bit the uninterrupted third step.
+    Returns the line's report."""
+    import tempfile
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch.mesh import activate_mesh, make_mesh
+    from repro_torch.launch.sharding import gather_tree
+    from repro_torch.models import get_model, make_batch
+    from repro_torch.runtime import checkpoint
+    from repro_torch.training import optimizer
+    from repro_torch.training.train_loop import (make_train_step,
+                                                 train_state_shardings,
+                                                 train_state_specs)
+    from repro_torch.tree import leaves, map_tree
+
+    model = get_model(cfg)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2, total_steps=3)
+    step = make_train_step(model, tcfg)
+    mesh = make_mesh((2, 2), ("data", "model"), "cuda:0")
+    state = sharded_state(torch, model, mesh, seed)
+    batches = [make_batch(cfg, "train", TRAIN_BATCH, WHISPER_SEQ, seed + i,
+                          device="cuda") for i in range(3)]
+    for b in batches[:2]:
+        with activate_mesh(mesh):
+            state, _ = step(state, b)
+    saved = optimizer.clone_tree(state)
+    with activate_mesh(mesh):
+        state, _ = step(state, batches[2])
+    whole = gather_tree(saved)
+    want = leaves(whole)
+    nbytes = sum(x.numel() * x.dtype.itemsize for x in want)
+    times = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        checkpoint.save(root, 2, saved)
+        save_s = time.perf_counter() - t0
+        del saved
+        for target in ((2, 2), (1, 16), None):
+            t0 = time.perf_counter()
+            if target == (2, 2):
+                got, _ = checkpoint.restore(root, state)
+            elif target is None:
+                got, _ = checkpoint.restore(root, map_tree(
+                    torch.empty_like, whole))
+            else:
+                tmesh = make_mesh(target, ("data", "model"), "cuda:0")
+                specs = train_state_specs(model, tcfg)
+                got, _ = checkpoint.restore(root, specs, shardings=(
+                    train_state_shardings(tmesh, specs, cfg)))
+            torch.cuda.synchronize()
+            times[target] = time.perf_counter() - t0
+            back = leaves(got if target is None else gather_tree(got))
+            need(len(back) == len(want) and all(
+                torch.equal(a, b) for a, b in zip(back, want)),
+                f"sharded_whisper checkpoint: the state restored onto "
+                f"{target} differs from the saved one")
+            del back
+            if target == (2, 2):
+                with activate_mesh(mesh):
+                    got, _ = step(got, batches[2])
+                same = all(torch.equal(a, b) for a, b in zip(
+                    [t for x in leaves(got) for t in x.parts],
+                    [t for x in leaves(state) for t in x.parts]))
+                need(same, "sharded_whisper checkpoint: the third step after "
+                     "a restore onto (2, 2) differs from the uninterrupted "
+                     "one")
+            del got
+    del state, whole, want
+    torch.cuda.empty_cache()
+    return (f"checkpoint ({cfg.encoder_layers} + {cfg.num_layers} layers of "
+            f"{cfg.name}, {nbytes / 1e6:.1f} MB "
+            f"of state) save_s={save_s:.2f} restore_s (2, 2) "
+            f"{times[(2, 2)]:.2f}, (1, 16) {times[(1, 16)]:.2f} from meta "
+            f"specs, unsharded {times[None]:.2f}: every leaf bit-equal to the "
+            "saved state; the third step after the (2, 2) restore bit-equal "
+            "to the uninterrupted one")
+
+
+def run_sharded_whisper_parity(torch, seed) -> str:
+    """whisper-base at full width and WHISPER_PARITY's depth in float32 on a
+    (2, 2) mesh repeating the card and one repeating the CPU: the loss and
+    every gradient leaf of one batch of 2 x 64 tokens beside 1500 frames,
+    then a prefill and 4 decode steps with fixed tokens (every logit within
+    1e-4 of the largest, lengths equal)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import activate_mesh, make_mesh
+    from repro_torch.launch.sharding import (Sharded, gather, gather_tree,
+                                             param_shardings, place_tree)
+    from repro_torch.models import get_model
+    from repro_torch.training import optimizer
+    from repro_torch.tree import leaves, map_tree
+
+    t0 = time.perf_counter()
+    p = WHISPER_PARITY
+    cfg = get_config("whisper_base").replace(
+        dtype="float32", param_dtype="float32", num_layers=p["layers"],
+        encoder_layers=p["layers"])
+    model = get_model(cfg)
+    params = model.init(seed, device="cpu")
+    rng = np.random.default_rng(seed)
+    batch = _parity_batch(cfg, rng, p["batch"], p["tokens"])
+    prompt = {"frames": torch.from_numpy(batch["frames"]),
+              "tokens": torch.from_numpy(batch["tokens"][:, :16]).long()}
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (p["steps"] + 1, p["batch"])))
+    got = {}
+    for name, dev in (("card", "cuda:0"), ("cpu", "cpu")):
+        t1 = time.perf_counter()
+        mesh = make_mesh(SHARDED_MESH, ("data", "model"), dev)
+        placed = place_tree(params, mesh, param_shardings(mesh, params))
+        parts = [t for w in leaves(placed) for t in w.parts]
+        for t in parts:
+            t.requires_grad_(True)
+        with activate_mesh(mesh):
+            loss, _ = model.loss(placed, {k: torch.from_numpy(v).to(dev)
+                                          for k, v in batch.items()})
+        g = iter(torch.autograd.grad(loss, parts, allow_unused=True,
+                                     materialize_grads=True))
+        loss = loss.detach()
+        for t in parts:
+            t.requires_grad_(False)
+        grads = map_tree(lambda w: Sharded(w.mesh, w.spec, w.shape,
+                                           [next(g) for _ in w.parts]),
+                         placed)
+        grads = gather_tree(optimizer.reduce_grads(grads), "cpu")
+        _, logits, cache, _, _ = serve_tokens(
+            torch, model, placed, {k: v.to(dev) for k, v in prompt.items()},
+            WHISPER_MAX_LEN, p["steps"] + 1, mesh, forced=forced)
+        got[name] = (loss.item(), grads, logits,
+                     gather(cache["lengths"], "cpu"),
+                     time.perf_counter() - t1)
+        del placed, parts, cache
+    card, cpu = got["card"], got["cpu"]
+    lrel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    need(lrel <= 1e-4, f"sharded_whisper parity: loss {card[0]} on the card, "
+         f"{cpu[0]} on the CPU")
+    gerr = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+               for a, b in zip(leaves(card[1]), leaves(cpu[1])))
+    need(gerr <= 1e-3, f"sharded_whisper parity: a gradient leaf differs by "
+         f"{gerr:.3e} of its largest magnitude")
+    top = max(w.abs().max().item() for w in cpu[2])
+    err = max((a - b).abs().max().item() for a, b in zip(card[2], cpu[2]))
+    need(err <= 1e-4 * top, f"sharded_whisper parity: the logits differ by "
+         f"{err:.3e} (tol 1e-4 x {top:.3e})")
+    need(torch.equal(card[3], cpu[3]), "sharded_whisper parity: lengths "
+         "differ")
+    return (f"parity {cfg.name} at {p['layers']} + {p['layers']} layers, "
+            f"mesh {SHARDED_MESH}, float32, B={p['batch']} S={p['tokens']}: "
+            f"loss rel {lrel:.3e} (tol 1e-04), gradient leaves {gerr:.3e} "
+            f"of their largest (tol 1e-03), prefill 16 + {p['steps']} steps "
+            f"logits_max_abs_err={err:.3e} (tol 1e-4 x {top:.3e}), card_s="
+            f"{card[4]:.2f} cpu_s={cpu[4]:.2f} s="
+            f"{time.perf_counter() - t0:.2f}")
+
+
+def run_sharded_whisper(torch, seed):
+    """Phase 25: whisper-base (the ``encdec`` family) on a model mesh through
+    the entry points (the train step on ``Model.loss``, ``Model.prefill`` and
+    ``.decode`` under ``activate_mesh``), on SHARDED_SSM_MESHES repeating
+    the card. On each mesh: WHISPER_STEPS ZeRO-1 bf16 steps of 8 x
+    WHISPER_SEQ tokens beside 8 x 1500 frames (``sharded_train_run``: every
+    parameter a finite nonzero gradient), then a ``topk`` and an ``int8``
+    step, each from a zero error state; every loss and ``grad_norm`` held to
+    the same steps unsharded on the card within WHISPER_TRAIN_REL; a
+    prefill of 8 x WHISPER_PROMPT tokens beside 1500 frames into
+    WHISPER_MAX_LEN rows and FAMILY_STEPS greedy steps held to the
+    unsharded run (``serve_gap``); launches exact. Then one gradient tree
+    compressed on each mesh bit for bit as unsharded
+    (``whisper_compression_exact``), the checkpoint
+    (``whisper_checkpoint``) and the float32 parity, card against CPU
+    (``run_sharded_whisper_parity``). Returns the launch counts of the
+    sharded train and serve runs."""
+    from repro_torch import kernels
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import empty_on_mesh
+    from repro_torch.launch.mesh import activate_mesh, make_mesh
+    from repro_torch.launch.sharding import (param_shardings, place_tree,
+                                             zero1_shardings)
+    from repro_torch.models import get_model, make_batch
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.tree import map_tree
+
+    t_phase = time.perf_counter()
+    print(f"sharded_whisper: card {card_line()}", flush=True)
+    cfg = get_config("whisper_base")
+    need(cfg.remat and cfg.dtype == "bfloat16", "sharded_whisper: "
+         f"{cfg.name}'s config must train in bf16 with remat")
+    model = get_model(cfg)
+    methods = ("topk", "int8")
+    total = {k: 0 for k in REPLACES}
+    t0 = time.perf_counter()
+    want_train = whisper_reference(torch, model, cfg, seed, methods)
+    ref_s = time.perf_counter() - t0
+    params = model.init(seed, device="cuda")
+    batch = make_batch(cfg, "prefill", DECODE_PROMPTS, WHISPER_PROMPT, seed,
+                       device="cuda")
+    per_step = train_launches(cfg)
+    layers = cfg.num_layers + cfg.encoder_layers
+    for shape in SHARDED_SSM_MESHES:
+        t_run = time.perf_counter()
+        mesh = make_mesh(shape, ("data", "model"), "cuda:0")
+        P = mesh.size
+        label = f"sharded_whisper {cfg.name} mesh {shape}"
+        counts, state, metrics = sharded_train_run(
+            torch, label + " train", model, mesh, WHISPER_STEPS, seed,
+            seq=WHISPER_SEQ, keep=True)
+        b = make_batch(cfg, "train", TRAIN_BATCH, WHISPER_SEQ,
+                       seed + WHISPER_STEPS - 1, device="cuda")
+        err_specs = map_tree(lambda w: torch.empty(
+            w.shape, dtype=torch.float32, device="meta"), state["params"])
+        err_sh = zero1_shardings(mesh, err_specs)
+        kernels.reset_counts()
+        t1 = time.perf_counter()
+        for method in methods:
+            state["err"] = empty_on_mesh(err_specs, err_sh, mesh)
+            with activate_mesh(mesh):
+                state, m = make_train_step(model, TrainConfig(
+                    grad_compression=method, learning_rate=3e-4,
+                    warmup_steps=2, total_steps=WHISPER_STEPS))(state, b)
+            metrics.append(m)
+        sync_all(torch, mesh)
+        comp_s = time.perf_counter() - t1
+        comp_counts = read_counts(REPLACES)
+        check_launches(label + " compressed steps", comp_counts,
+                       tuple(per_step))
+        for k in REPLACES:
+            n = counts[k][0] + comp_counts[k][0]
+            want = per_step.get(k, 0) * P * (WHISPER_STEPS + len(methods))
+            need(n == want, f"{label}: {k} launched {n} times in "
+                 f"{WHISPER_STEPS + len(methods)} steps, want {want}")
+            total[k] += n
+        ratio = TrainConfig().compression_ratio
+        need(float(metrics[-2]["compress_ratio"]) == ratio * 8 / 2 and
+             float(metrics[-1]["compress_ratio"]) == 0.5,
+             f"{label}: compress_ratio")
+        worst = 0.0
+        for i, (m, (loss0, gn0)) in enumerate(zip(metrics, want_train)):
+            for k, want in (("loss", loss0), ("grad_norm", gn0)):
+                got = float(m[k])
+                rel = abs(got - want) / abs(want)
+                worst = max(worst, rel)
+                need(math.isfinite(got) and rel <= WHISPER_TRAIN_REL,
+                     f"{label}: step {i + 1} {k} {got} on the mesh, {want} "
+                     f"unsharded (tol {WHISPER_TRAIN_REL} relative)")
+        print(f"{label} train: the {len(methods)} compressed steps "
+              + " ".join(f"{k}: loss={float(m['loss']):.5f} grad_norm="
+                         f"{float(m['grad_norm']):.4f} compress_ratio="
+                         f"{float(m['compress_ratio'])}" for k, m in
+                         zip(methods, metrics[-len(methods):]))
+              + f" s={comp_s:.2f}; every loss and grad_norm against the "
+              f"unsharded steps on the card (s={ref_s:.2f}): worst rel "
+              f"{worst:.3e} (tol {WHISPER_TRAIN_REL}) launches a position a "
+              "step: " + " ".join(f"{k}={n}" for k, n in per_step.items()),
+              flush=True)
+        del state, metrics, b
+        torch.cuda.empty_cache()
+        placed = place_tree(params, mesh, param_shardings(mesh, params))
+        kernels.reset_counts()
+        tokens, got, cache, prefill_s, step_s = serve_tokens(
+            torch, model, placed, batch, WHISPER_MAX_LEN, FAMILY_STEPS, mesh)
+        counts = read_counts(REPLACES)
+        serve_want = {"flash_attention": layers * P,
+                      "decode_attention": cfg.num_layers * P * FAMILY_STEPS}
+        check_launches(label + " serve", counts, tuple(serve_want))
+        for k in REPLACES:
+            need(counts[k][0] == serve_want.get(k, 0), f"{label}: {k} "
+                 f"launched {counts[k][0]} times in a prefill and "
+                 f"{FAMILY_STEPS} steps, want {serve_want.get(k, 0)}")
+            total[k] += counts[k][0]
+        need(all(bool((t == WHISPER_PROMPT + FAMILY_STEPS).all())
+                 for t in cache["lengths"].parts), f"{label}: lengths")
+        specs = {k: c.spec for k, c in cache.items()}
+        form = ("the sequence form (decode_attention_lse)"
+                if "model" in str(specs["self_k"][2]) else "the heads form")
+        del cache, placed
+        _, want_logits, _, base_prefill_s, base_s = serve_tokens(
+            torch, model, params, batch, WHISPER_MAX_LEN, FAMILY_STEPS,
+            forced=tokens)
+        held = serve_gap(torch, label, got, want_logits, tokens)
+        print(f"{label} serve: cache specs {specs} B={DECODE_PROMPTS} "
+              f"prompt={WHISPER_PROMPT} frames={cfg.encoder_seq_len} "
+              f"max_len={WHISPER_MAX_LEN} steps={FAMILY_STEPS} "
+              f"prefill_s={prefill_s:.4f} median_step_ms="
+              f"{statistics.median(step_s[1:]) * 1e3:.3f} (unsharded "
+              f"{statistics.median(base_s[1:]) * 1e3:.3f}, prefill "
+              f"{base_prefill_s:.4f} s) launches a prefill flash_attention="
+              f"{layers * P}, a step decode_attention={cfg.num_layers * P} "
+              f"in {form} {held} s={time.perf_counter() - t_run:.2f}",
+              flush=True)
+        del got, want_logits
+        torch.cuda.empty_cache()
+    del params, batch
+    torch.cuda.empty_cache()
+    whisper_compression_exact(torch, cfg, [make_mesh(
+        shape, ("data", "model"), "cuda:0") for shape in SHARDED_SSM_MESHES],
+        seed)
+    t0 = time.perf_counter()
+    report = whisper_checkpoint(torch, cfg.replace(
+        num_layers=WHISPER_CKPT_LAYERS, encoder_layers=WHISPER_CKPT_LAYERS),
+        seed)
+    print(f"sharded_whisper: {report} s={time.perf_counter() - t0:.2f}",
+          flush=True)
+    print("sharded_whisper: " + run_sharded_whisper_parity(torch, seed),
+          flush=True)
+    print("sharded_whisper: launches " + " ".join(
+        f"{k}={total[k]}" for k in ("flash_attention", "flash_attention_bwd",
+                                    "decode_attention"))
+          + " (decode_attention counts the lse form's launches at (1, 16)) "
+          f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    return {k: (n, 0) for k, n in total.items()}
 
 
 def roofline_line(phase, cfg, batch, context, ms_per_step) -> None:
@@ -6051,7 +6539,11 @@ def main() -> int:
     sharded_ssm_counts = run_sharded_ssm(torch, args.seed)
     stamp("sharded_ssm")
 
-    # 25. kernels -----------------------------------------------------------
+    # 25. the encdec family on a model mesh, compression, checkpoints -------
+    sharded_whisper_counts = run_sharded_whisper(torch, args.seed)
+    stamp("sharded_whisper")
+
+    # 26. kernels -----------------------------------------------------------
     summary = []
     for k in REPLACES:
         r = results[k]
@@ -6070,7 +6562,8 @@ def main() -> int:
                    "train_parity": train_parity_counts[k][0],
                    "sharded_train": sharded_train_counts[k][0],
                    "sharded_serve": sharded_serve_counts[k][0],
-                   "sharded_ssm": sharded_ssm_counts[k][0]}
+                   "sharded_ssm": sharded_ssm_counts[k][0],
+                   "sharded_whisper": sharded_whisper_counts[k][0]}
         print(f"kernels: {k} launches={sum(by_path.values())} ("
               + ", ".join(f"{p} {n}" for p, n in by_path.items())
               + f") check=ok main_shape={r['shape']}")

@@ -8,8 +8,8 @@ default probe of the cache's structure. ``build_cell`` pairs a cell's
 function with its arguments' stand-ins (``meta`` tensors) and their
 shardings, as the reference's does for its ``jax.jit``; ``place_cell`` turns
 the stand-ins into tensors on the mesh from a seed, so that a cell runs.
-Train, prefill and decode cells run for every family but ``encdec``, whose
-cells raise on a mesh (``models.factory``).
+Train, prefill and decode cells run for every family, ``encdec``'s with its
+frames in the batch as the reference's ``input_specs`` gives them.
 
 Not ported yet (ROADMAP.md, queue 1, item 7): ``run_cell`` and ``main``
 (lower and compile every arch and shape on the production meshes), and

@@ -16,9 +16,8 @@ on a card the scans of ``ssm`` and ``hybrid`` run their backward kernels.
 Under an ambient model mesh (``launch.mesh.activate_mesh``) ``loss``,
 ``prefill`` and ``decode`` take parameters placed on it and run the
 family's sharded forms (``sharded_loss_fn``, ``sharded_prefill``,
-``sharded_decode_step`` of ``transformer``, ``rwkv6`` and ``zamba2``; the
-cache placed by ``launch.sharding.cache_shardings``); the ``encdec`` family
-does not run on a mesh yet and raises there. The dry-run's stand-ins, as the
+``sharded_decode_step`` of every family's module; the cache placed by
+``launch.sharding.cache_shardings``). The dry-run's stand-ins, as the
 reference's ``jax.eval_shape`` gives them: ``cache_specs``,
 ``param_specs(cfg)`` and ``input_specs(cfg, shape)``, empty tensors on the
 ``meta`` device; ``launch/dryrun.py`` pairs them with the shardings.
@@ -51,33 +50,22 @@ _MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": rwkv6, "hybrid": zamba2, "encdec": whisper}
 
 
-def _on_mesh(mod, cfg: ModelConfig, what: str):
-    """The ambient model mesh, or None; a family that does not run on a
-    mesh raises there rather than run unsharded."""
-    mesh = current_mesh()
-    if mesh is not None and mod is whisper:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not {what} on a "
-            "model mesh in the port yet (ROADMAP.md, queue 1, item 5)")
-    return mesh
-
-
 def _loss(mod, cfg: ModelConfig, params, batch):
-    mesh = _on_mesh(mod, cfg, "train")
+    mesh = current_mesh()
     if mesh is None:
         return mod.loss_fn(params, cfg, batch)
     return mod.sharded_loss_fn(params, cfg, batch, mesh)
 
 
 def _prefill(mod, cfg: ModelConfig, params, batch, max_len: int):
-    mesh = _on_mesh(mod, cfg, "prefill")
+    mesh = current_mesh()
     if mesh is None:
         return mod.prefill(params, cfg, batch, max_len)
     return mod.sharded_prefill(params, cfg, batch, max_len, mesh)
 
 
 def _decode(mod, cfg: ModelConfig, params, batch, cache):
-    mesh = _on_mesh(mod, cfg, "decode")
+    mesh = current_mesh()
     if mesh is None:
         return mod.decode_step(params, cfg, batch, cache)
     return mod.sharded_decode_step(params, cfg, batch, cache, mesh)

@@ -32,7 +32,10 @@ each shard's partial output merged by its log-sum-exp, ``lse_merge``).
 pieces the ssm and hybrid families add: a position's heads, its slice of a
 replicated leaf, a norm over a dim split over ``model``, and a layer under
 ``spmd.remat``; ``group_rms_norm`` is per head and runs on a position's
-heads with its slice of the gain as it is.
+heads with its slice of the gain as it is. ``cross_kv_shards`` and
+``cross_attention_shards`` are whisper's cross-attention in the cross
+cache's layout: by heads, by frames (the partials merged by ``lse_merge``)
+or whole.
 """
 from __future__ import annotations
 
@@ -113,13 +116,11 @@ def group_rms_norm(x: torch.Tensor, gamma: torch.Tensor, num_heads: int,
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last dim (population variance), float32 inside,
-    x's type out."""
-    xf = x.to(torch.float32)
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * gamma.to(torch.float32)
-            + beta.to(torch.float32)).to(x.dtype)
+    x's type out: ``F.layer_norm`` in float32, one fused operation where the
+    reference's formula is seven."""
+    return F.layer_norm(x.to(torch.float32), x.shape[-1:],
+                        gamma.to(torch.float32), beta.to(torch.float32),
+                        eps).to(x.dtype)
 
 
 def sinusoidal_positions(seq_len: int, d_model: int) -> torch.Tensor:
@@ -684,6 +685,78 @@ def lse_merge(parts: List[torch.Tensor], lses: List[torch.Tensor],
             for a, d in zip(num, den)]
 
 
+def _cross_form(spec) -> str:
+    """Which dim of a cross cache laid out by ``spec`` (the (L, B, S_enc,
+    Hkv, Dh) spec of ``launch.sharding.cache_shardings``) is split over
+    ``model``: ``"heads"``, ``"frames"`` or ``"whole"``."""
+    spec = tuple(spec) + (None,) * (5 - len(spec))
+    if MODEL_AXIS in axes_of(spec[3]):
+        return "heads"
+    return "frames" if MODEL_AXIS in axes_of(spec[2]) else "whole"
+
+
+def cross_kv_shards(p, enc_outs: List[torch.Tensor], cfg: ModelConfig,
+                    mesh: Mesh, spec):
+    """``cross_kv`` per shard: the encoder's output (B_local, S_enc, D) at
+    every position, replicated over ``model`` -> each position's block of
+    one layer's cross K and V as the cross cache's ``spec`` lays them out:
+    its KV heads (``wk``/``wv``'s column block) over every frame, or every
+    KV head over its frames, (B_local, S_enc / m, Hkv, Dh), from the
+    all-gathered weights, or every head over every frame."""
+    form, Dh = _cross_form(spec), cfg.head_dim
+    if form == "heads":
+        wk, wv = model_block(p["wk"], 1), model_block(p["wv"], 1)
+    else:
+        wk, wv = spmd.whole(p["wk"]), spmd.whole(p["wv"])
+    if form == "frames":
+        R = enc_outs[0].shape[1] // model_width(mesh)
+        enc_outs = [e[:, mesh.coord(pos, MODEL_AXIS) * R:][:, :R]
+                    for pos, e in enumerate(enc_outs)]
+    ks, vs = [], []
+    for e, a, b in zip(enc_outs, wk, wv):
+        B, S, _ = e.shape
+        ks.append((e @ a).reshape(B, S, -1, Dh))
+        vs.append((e @ b).reshape(B, S, -1, Dh))
+    return ks, vs
+
+
+def cross_attention_shards(p, xs: List[torch.Tensor], cfg: ModelConfig,
+                           ks: List[torch.Tensor], vs: List[torch.Tensor],
+                           mesh: Mesh, spec) -> List[torch.Tensor]:
+    """``cross_attention`` per shard: x (B_local, Sq, D) or (B_local, D) at
+    every position -> out of the same shape, replicated over ``model``;
+    ``ks``/``vs`` each position's block as ``cross_kv_shards`` gives it for
+    ``spec``. Plain float32 PyTorch (``ref.attention_ref``) on every device,
+    as unsharded. Heads: each position attends with its block of the query
+    heads (``wq``'s column block), and ``row_parallel`` over ``wo`` sums the
+    blocks. Frames: every query head at every position (``all_columns``)
+    over the position's frames; each partial, normalised over its own
+    frames, and its log-sum-exp (``ref.attention_lse_ref``) stay float32
+    and merge over ``model`` (``lse_merge``). Whole: every head over every
+    frame at every position."""
+    single = xs[0].dim() == 2
+    if single:
+        xs = [x[:, None, :] for x in xs]
+    form, Dh = _cross_form(spec), cfg.head_dim
+    qs = (spmd.each(torch.matmul, xs, model_block(p["wq"], 1))
+          if form == "heads" else all_columns(xs, p["wq"]))
+    outs, lses = [], []
+    for x, q, k, v in zip(xs, qs, ks, vs):
+        B, Sq, _ = x.shape
+        q = q.reshape(B, Sq, -1, Dh)
+        if form == "frames":
+            q = q.to(torch.float32)
+            lses.append(ref.attention_lse_ref(q, k, causal=False)
+                        .transpose(1, 2))
+        outs.append(ref.attention_ref(q, k, v, causal=False))
+    if form == "frames":
+        outs = lse_merge(outs, lses, mesh)
+    outs = [o.to(x.dtype).reshape(x.shape[0], x.shape[1], -1)
+            for o, x in zip(outs, xs)]
+    out = row_parallel(outs, p["wo"], form == "heads")
+    return [o[:, 0] for o in out] if single else out
+
+
 def mlp_block_shards(p, xs: List[torch.Tensor], cfg: ModelConfig,
                      mesh: Mesh) -> List[torch.Tensor]:
     """``mlp_block`` per shard: the hidden dim over ``model`` where the
@@ -838,36 +911,42 @@ def softmax_xent_shards(logits: List[torch.Tensor],
     return [-a / torch.clamp(b, min=1.0) for a, b in zip(num, den)]
 
 
-def logits_shards(params, cfg: ModelConfig, hs: List[torch.Tensor]):
+def logits_shards(params, cfg: ModelConfig, hs: List[torch.Tensor], *,
+                  tied: Optional[bool] = None):
     """(logits per position, whether they hold the position's vocab block
     over ``model``): ``h @ unembed`` (or the tied ``embed``'s transpose)
-    with the vocab split as the weight is stored, then the soft cap."""
-    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    vdim = 0 if cfg.tie_embeddings else 1
+    with the vocab split as the weight is stored, then the soft cap.
+    ``tied`` overrides ``cfg.tie_embeddings``: whisper reads the embedding's
+    transpose whatever its config says."""
+    tied = cfg.tie_embeddings if tied is None else tied
+    w = params["embed"] if tied else params["unembed"]
+    vdim = 0 if tied else 1
     split = model_width(w.mesh) > 1 and split_over_model(w, vdim)
     ws = w.parts if split else spmd.whole(w)
-    logits = [h @ (x.T if cfg.tie_embeddings else x) for h, x in zip(hs, ws)]
+    logits = [h @ (x.T if tied else x) for h, x in zip(hs, ws)]
     if cfg.logits_softcap > 0:
         c = cfg.logits_softcap
         logits = [torch.tanh(lg / c) * c for lg in logits]
     return logits, split
 
 
-def serve_layout(params, cfg: ModelConfig, B: int, mesh: Mesh, what: str):
+def serve_layout(params, cfg: ModelConfig, B: int, mesh: Mesh, what: str,
+                 *, tied: Optional[bool] = None):
     """(the batch's spec, its data axes, the logits' spec) of a serve call
     on ``mesh``: the batch over the data axes unless their width does not
     divide B (``data_sharding``); the logits (B, V) as the reference's
     ``constrain(logits, DATA, MODEL)``, the vocab over ``model`` where the
-    unembedding is stored split so. Parameters not placed on ``mesh`` are
-    refused."""
-    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    unembedding (the embedding when ``tied``, by default
+    ``cfg.tie_embeddings``) is stored split so. Parameters not placed on
+    ``mesh`` are refused."""
+    tied = cfg.tie_embeddings if tied is None else tied
+    w = params["embed"] if tied else params["unembed"]
     if not isinstance(w, Sharded) or w.mesh != mesh:
         raise ValueError(f"{what}: the parameters must be placed on the "
                          "active mesh: place_tree(params, mesh, "
                          "param_shardings(mesh, params))")
     spec = data_sharding(mesh, 1, B).spec
-    split = model_width(mesh) > 1 and split_over_model(
-        w, 0 if cfg.tie_embeddings else 1)
+    split = model_width(mesh) > 1 and split_over_model(w, 0 if tied else 1)
     return spec, axes_of(spec[0]), P(spec[0], MODEL_AXIS if split else None)
 
 

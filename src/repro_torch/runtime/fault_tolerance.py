@@ -6,8 +6,12 @@ A copy of the JAX package's ``runtime/fault_tolerance.py``. The control
 plane runs against an injectable clock and worker set, so its logic is
 testable on one CPU; ``launch/train.py`` wires the straggler accounting to
 real steps, and ``FaultTolerantRunner`` restarts a step loop from a
-checkpoint. The port runs on one card: ``ElasticScaler``'s ladder of meshes
-is kept as the reference's arithmetic, with no mesh behind it.
+checkpoint. ``ElasticScaler.replan`` names the (data, model) or (pod,
+data, model) mesh that the cards still available can hold; the restart
+onto it is ``runtime.checkpoint.restore`` with the shardings of
+``train_state_shardings`` on a mesh of that shape
+(``launch.mesh.make_mesh``), which lays the ZeRO-1 moments and the error
+state out by that mesh's ``zero1_shardings``.
 """
 from __future__ import annotations
 

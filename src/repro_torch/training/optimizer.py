@@ -39,9 +39,14 @@ def init_opt_state(params: Any) -> Dict[str, Any]:
 
 
 def clone_tree(tree: Any) -> Any:
-    """A copy of a tree of tensors, detached: what a caller keeps before
-    the in-place update."""
-    return map_tree(lambda t: t.detach().clone(), tree)
+    """A copy of a tree of tensors (or of ``Sharded``, part by part),
+    detached: what a caller keeps before the in-place update."""
+    def one(t):
+        if isinstance(t, Sharded):
+            return Sharded(t.mesh, t.spec, t.shape,
+                           [p.detach().clone() for p in t.parts])
+        return t.detach().clone()
+    return map_tree(one, tree)
 
 
 def lr_schedule(step, cfg: TrainConfig) -> torch.Tensor:
@@ -120,21 +125,40 @@ def _schedule(step: torch.Tensor, cfg: TrainConfig):
             1.0 / (1 - torch.pow(cfg.beta2, t)))
 
 
-def _adamw_tensor(p, g, m, v, cfg: TrainConfig, lr, mhat_scale, vhat_scale,
-                  grad_scale):
-    """One tensor's AdamW step: ``g`` in float32 (times ``grad_scale`` when
-    given) updates ``m`` and ``v`` IN PLACE; returns the new ``p`` (the
-    bias-corrected update with weight decay) in ``p``'s type."""
+def _adamw_parts(ps, gs, ms, vs, cfg: TrainConfig, scalars_on):
+    """The AdamW step of a list of tensors (one leaf, or the mesh positions'
+    slices of one leaf), each operation one ``torch._foreach_*`` call over
+    the tensors on one device, so that a leaf costs a few launches whatever
+    the number of positions: ``g`` in float32 (times ``grad_scale`` when
+    given) updates ``m`` and ``v`` IN PLACE, then the bias-corrected update
+    with weight decay. ``scalars_on(dev)`` gives (lr, mhat scale, vhat
+    scale, grad_scale or None) on ``dev``. Returns the new ``p``s in their
+    own types."""
     b1, b2 = cfg.beta1, cfg.beta2
-    g32 = g.to(torch.float32)
-    if grad_scale is not None:
-        g32 = g32 * grad_scale
-    m.mul_(b1).add_((1 - b1) * g32)
-    v.mul_(b2).add_((1 - b2) * g32 * g32)
-    p32 = p.to(torch.float32)
-    u = (m * mhat_scale) / (torch.sqrt(v * vhat_scale) + cfg.eps)
-    u = u + cfg.weight_decay * p32
-    return (p32 - lr * u).to(p.dtype)
+    out = [None] * len(ps)
+    by_dev: Dict[torch.device, list] = {}
+    for i, p in enumerate(ps):
+        by_dev.setdefault(p.device, []).append(i)
+    for dev, idx in by_dev.items():
+        lr, mh, vh, grad_scale = scalars_on(dev)
+        g32 = [gs[i].to(torch.float32) for i in idx]
+        if grad_scale is not None:
+            g32 = torch._foreach_mul(g32, grad_scale)
+        m = [ms[i] for i in idx]
+        v = [vs[i] for i in idx]
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, torch._foreach_mul(g32, 1 - b1))
+        torch._foreach_mul_(v, b2)
+        torch._foreach_add_(v, torch._foreach_mul(
+            torch._foreach_mul(g32, 1 - b2), g32))
+        p32 = [ps[i].to(torch.float32) for i in idx]
+        u = torch._foreach_div(torch._foreach_mul(m, mh), torch._foreach_add(
+            torch._foreach_sqrt(torch._foreach_mul(v, vh)), cfg.eps))
+        u = torch._foreach_add(u, torch._foreach_mul(p32, cfg.weight_decay))
+        new = torch._foreach_sub(p32, torch._foreach_mul(u, lr))
+        for i, t in zip(idx, new):
+            out[i] = t.to(ps[i].dtype)
+    return out
 
 
 @torch.no_grad()
@@ -142,7 +166,7 @@ def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
                  cfg: TrainConfig, *, grad_scale: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, IN PLACE on ``params`` and on ``state``'s ``m`` and
-    ``v``, one leaf at a time (``_adamw_tensor``): each gradient in float32
+    ``v``, one leaf at a time (``_adamw_parts``): each gradient in float32
     (times ``grad_scale``, the clip factor, when given), then the moments,
     the bias-corrected update with weight decay, and the parameter in its
     own type. Returns (params, {"m", "v", "step": step + 1}, {"lr"}). Trees
@@ -151,13 +175,14 @@ def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
         return _zero1_update(params, grads, state, cfg, grad_scale)
     step = state["step"] + 1
     lr, mh, vh = _schedule(step, cfg)
+    scalars = (lr, mh, vh, grad_scale)
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
                           leaves(state["v"])):
-        p.copy_(_adamw_tensor(p, g, m, v, cfg, lr, mh, vh, grad_scale))
+        p.copy_(_adamw_parts([p], [g], [m], [v], cfg, lambda _: scalars)[0])
     return params, {"m": state["m"], "v": state["v"], "step": step}, {"lr": lr}
 
 
-def _within(inner, outer) -> Tuple[slice, ...]:
+def within(inner, outer) -> Tuple[slice, ...]:
     """``inner``'s block (slices of the global shape) as slices of
     ``outer``'s, which must contain it."""
     out = []
@@ -169,13 +194,22 @@ def _within(inner, outer) -> Tuple[slice, ...]:
     return tuple(out)
 
 
+def _cut(t: torch.Tensor, sub: Tuple[slice, ...]) -> torch.Tensor:
+    """``t[sub]``, or ``t`` itself where ``sub`` covers all of it."""
+    if all(s.start == 0 and s.stop == n for s, n in zip(sub, t.shape)):
+        return t
+    return t[sub]
+
+
 def _zero1_update(params, grads, state, cfg: TrainConfig, grad_scale):
     """``adamw_update`` on a mesh. Position ``pos`` updates the slice of its
     parameter block that its moments hold (``m.region(pos)``, the data axes
     splitting what the parameter's spec leaves whole), from the reduced
-    gradient's slice; then each holder of a parameter block copies in the
-    new slices of the block, one from each distinct moment block in mesh
-    order: the all-gather over the data axes."""
+    gradient's slice (a gradient laid out as the parameter, or as the
+    moments, as compression leaves it); then each holder of a parameter
+    block copies in the new slices of the block, one from each distinct
+    moment block in mesh order: the all-gather over the data axes. The
+    positions' updates of one leaf run together (``_adamw_parts``)."""
     mesh = leaves(params)[0].mesh
     step = state["step"].parts[0] + 1
     lr, mh, vh = _schedule(step, cfg)
@@ -187,14 +221,14 @@ def _zero1_update(params, grads, state, cfg: TrainConfig, grad_scale):
                                  for x in (lr, mh, vh, grad_scale))
         return scalars[dev]
 
+    pos_range = range(mesh.size)
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
                           leaves(state["v"])):
-        new = []
-        for pos in range(mesh.size):
-            sub = _within(m.region(pos), p.region(pos))
-            new.append(_adamw_tensor(p.parts[pos][sub], g.parts[pos][sub],
-                                     m.parts[pos], v.parts[pos], cfg,
-                                     *on(p.parts[pos].device)))
+        new = _adamw_parts(
+            [_cut(p.parts[pos], within(m.region(pos), p.region(pos)))
+             for pos in pos_range],
+            [_cut(g.parts[pos], within(m.region(pos), g.region(pos)))
+             for pos in pos_range], m.parts, v.parts, cfg, on)
         for group in p.holders():
             firsts = {}
             for r in group:
@@ -202,8 +236,8 @@ def _zero1_update(params, grads, state, cfg: TrainConfig, grad_scale):
                                         for s in m.region(r)), r)
             for pos in group:
                 for r in firsts.values():
-                    sub = _within(m.region(r), p.region(r))
-                    p.parts[pos][sub].copy_(new[r])
+                    _cut(p.parts[pos], within(m.region(r),
+                                              p.region(r))).copy_(new[r])
     steps = Sharded(mesh, state["step"].spec, (), [
         step.to(d, copy=True) for d in mesh.devices])
     return params, {"m": state["m"], "v": state["v"], "step": steps}, \

@@ -53,7 +53,8 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
     number; the loss is the mean of the slices' losses. The parameters
     require grad only inside the step. Under an ambient mesh the state must
     be placed on it (``shard_train_state``) and the batch holds whole
-    tensors; gradient compression there raises ``NotImplementedError``."""
+    tensors; gradient compression there runs in the ZeRO-1 blocks
+    (``grad_compress``)."""
     use_compress = tcfg.grad_compression != "none"
 
     def grads_of(params, batch, ps, sharded):
@@ -87,10 +88,6 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
         if any(not isinstance(w, Sharded) or w.mesh != mesh for w in ws):
             raise ValueError("train_step: under a mesh the state must be "
                              "placed on it: shard_train_state(state, mesh, cfg)")
-        if use_compress:
-            raise NotImplementedError(
-                "train_step: gradient compression on a model mesh is not in "
-                "the port yet (ROADMAP.md, queue 1, item 5)")
         ps = [t for w in ws for t in w.parts]
         loss, g = grads_with(params, batch, ps, sharded=True)
         it = iter(g)

@@ -38,10 +38,10 @@ float32 at the smoke configs. Checked:
   ``layers.lse_merge`` of sequence slices against one
   ``decode_attention_ref`` over the whole cache; a slice with every length
   0 gives zeros and -inf and weighs nothing.
-- (e) The ``encdec`` family's prefill and decode raise under a mesh (the
-  ``ssm`` and ``hybrid`` families serve there:
-  ``tests/test_torch_ssm_sharding.py``); parameters or a cache not placed
-  on the active mesh are refused.
+- (e) Parameters or a cache not placed on the active mesh are refused (the
+  ``ssm`` and ``hybrid`` families serve on a mesh in
+  ``tests/test_torch_ssm_sharding.py``, ``encdec`` in
+  ``tests/test_torch_encdec_sharding.py``).
 """
 import functools
 import os
@@ -508,26 +508,8 @@ def test_a_slice_with_no_valid_row_weighs_nothing():
 
 
 # ---------------------------------------------------------------------------
-# (e) what does not serve on a mesh
+# (e) what is refused on a mesh
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["whisper_base"])
-def test_other_families_raise_under_a_mesh(arch):
-    cfg = get_smoke_config(arch).replace(**F32)
-    model = get_model(cfg)
-    params = model.init(0, device="cpu")
-    batch = _torch_batch(_case_inputs(cfg, 2, 64 if cfg.family != "encdec"
-                                      else 8)[0])
-    if cfg.family == "encdec":
-        batch["frames"] = torch.zeros(2, cfg.encoder_seq_len, cfg.d_model)
-    _, cache = model.prefill(params, batch, 96)
-    with activate_mesh(cpu_mesh((2, 2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model.prefill(params, batch, 96)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model.decode(params, {"tokens": torch.zeros(2, dtype=torch.long)},
-                         cache)
-
-
 def test_unplaced_parameters_or_cache_are_refused():
     cfg = get_smoke_config("llama3_8b").replace(**F32)
     model = get_model(cfg)
@@ -609,7 +591,6 @@ def jax_side(out_path) -> None:
 
 
 if __name__ == "__main__":
-    # at a lower priority: the compiles take every core they are given,
-    # beside the other test workers
-    os.nice(10)
+    # at the workers' own priority: at a lower one, six busy test workers
+    # starve it past the fixture's timeout
     jax_side(sys.argv[1])

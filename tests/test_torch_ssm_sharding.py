@@ -685,7 +685,6 @@ def jax_side(out_path) -> None:
 
 
 if __name__ == "__main__":
-    # at a lower priority: the compiles take every core they are given,
-    # beside the other test workers
-    os.nice(10)
+    # at the workers' own priority: at a lower one, six busy test workers
+    # starve it past the fixture's timeout
     jax_side(sys.argv[1])
