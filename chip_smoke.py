@@ -331,7 +331,24 @@ Phases, each printed on its own line; any failed check exits nonzero:
               leaf bit-equal to the saved state (the third step after the
               (2, 2) restore bit-equal to the uninterrupted one); the float32
               parity at 1 + 1 layers, card against CPU on (2, 2).
-  26. kernels one line per kernel, and the JSON summary of all of them.
+  26. dryrun  the port's dry run (``repro_torch.launch.dryrun``): (a) in
+              two processes started after the build, beside the other
+              phases on the host's CPU, ``run_cell`` at full width on the
+              production (16, 16) mesh of fake cuda positions, through the
+              kernel wrappers' fake branch, for llama3-8b decode_32k and
+              train_4k (depth-expanded where the check at a third depth
+              holds): peak GB a position, collective bytes, roofline terms;
+              (b) sharded_train's llama3-8b cell (2 layers, 8 x 512, (2,
+              2)) and a sharded_serve decode cell (2 layers, 8 sequences
+              against 4096 rows) traced on fake tensors and run on the card
+              under the collective counter and the memory tracker: every
+              number equal (collectives by kind and site, each position's
+              bytes and peak, operations, kernel calls), and the tracker's
+              peak within ``DRYRUN_MARGIN`` of ``max_memory_allocated``;
+              one card a position with four cards or more. The phase's
+              seconds are printed.
+  27. kernels one line per kernel, and the JSON summary of all of them
+              (with phase 26 (a)'s fake calls a position a step).
 
 The last line of output is ``{"ok": true, "device": {...}}``. Without a
 visible CUDA device, or without the rest of the repository beside it, the
@@ -562,7 +579,7 @@ def record_row(torch, peaks, results, name, label, err, tol, fn, plain,
 
 
 def check_kernels(torch, peaks, seed: int):
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.browse_scores import (browse_scores,
                                                    browse_scores_rows)
     from repro_torch.kernels.decode_attention import (decode_attention,
@@ -612,7 +629,8 @@ def check_kernels(torch, peaks, seed: int):
         record("tree_refresh", f"{P}x{K}x{D}", err, 1e-5,
                lambda: tree_refresh(emb, mask),
                lambda: ref.tree_refresh_ref(emb, mask),
-               (P * K * D + P * K + P * D) * 4, 2 * P * K * D + 3 * P * D, main)
+               (P * K * D + P * K + P * D) * 4, costs.tree_refresh_ops(P, K, D),
+               main)
 
     # -- browse_scores ------------------------------------------------------
     for (F, K, D), main in (((1024, 8, 256), True), ((512, 8, 4096), True),
@@ -638,7 +656,7 @@ def check_kernels(torch, peaks, seed: int):
         record("browse_scores", f"{F}x{K}x{D}", err, 2e-5,
                lambda: browse_scores(child, q, mask),
                lambda: ref.browse_scores_ref(child, q, mask),
-               (F * K * D + F * D + 2 * F * K) * 4, 2 * F * K * D, main,
+               (F * K * D + F * D + 2 * F * K) * 4, costs.browse_ops(F, K, D), main,
                library)
     packed_call = (child, q, mask)
 
@@ -771,7 +789,7 @@ def check_kernels(torch, peaks, seed: int):
                lambda: topk_sim(qn, kn, k, normalize=normalize, num_valid=nv),
                lambda: ref.topk_sim_ref(qn, kn, k, normalize=normalize,
                                         num_valid=nv),
-               (nv * D + Q * D) * 4 + Q * k * 8, 2 * Q * nv * D, main)
+               (nv * D + Q * D) * 4 + Q * k * 8, costs.topk_ops(Q, nv, D), main)
         return qn, kn, k, nv
 
     topk_case(64, 256, 256, 16, 256)
@@ -877,7 +895,8 @@ def check_kernels(torch, peaks, seed: int):
                lambda: flash_attention(q, k, v, causal=causal),
                lambda: ref.attention_ref(q, k, v, causal=causal),
                (2 * B * S * Hq * D + 2 * B * S * Hkv * D) * elem,
-               4 * B * Hq * pairs * D, main, library, ops_of[dt])
+               costs.attention_ops(B, S, Hq, D, causal), main, library,
+               ops_of[dt])
         return q, k, v
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -953,7 +972,7 @@ def check_kernels(torch, peaks, seed: int):
                lambda: decode_attention(q, kc, vc, lens),
                lambda: ref.decode_attention_ref(q, kc, vc, lens),
                2 * rows * Hkv * D * elem + 2 * B * Hq * D * elem + 4 * B,
-               4 * rows * Hq * D, main, library, ops_of[dt])
+               costs.decode_ops(rows, Hq, D), main, library, ops_of[dt])
         return q, kc, vc, lens
 
     rng = np.random.default_rng(seed)
@@ -1082,7 +1101,8 @@ def check_kernels(torch, peaks, seed: int):
                lambda: decode_attention_lse(q, kc, vc, lens),
                lambda: ref.decode_attention_lse_ref(q, kc, vc, lens),
                2 * rows * Hkv * D * elem + 2 * B * Hq * D * elem + 4 * B
-               + 4 * B * Hq, 4 * rows * Hq * D, main, library, ops_of[dt])
+               + 4 * B * Hq, costs.decode_ops(rows, Hq, D), main, library,
+               ops_of[dt])
         print(f"check: decode_attention {label} without the lse "
               f"ms={null_ms:.5f}", flush=True)
         del q, kc, vc, plain_out, plain_lse
@@ -1381,7 +1401,7 @@ def check_attention_bwd(torch, peaks, seed: int):
     give equal bits; one call is two device launches (bf16: ``bwd_dq_tc``,
     then ``bwd_dkv_tc``). The library call is SDPA's forward and backward,
     timed for comparison."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_lse)
@@ -1464,7 +1484,8 @@ def check_attention_bwd(torch, peaks, seed: int):
                                                  causal=causal),
                    (4 * B * S * Hq * D + 4 * B * S * Hkv * D) * elem
                    + 4 * B * Hq * S,
-                   5 * 2 * B * Hq * pairs * D, main, library,
+                   costs.attention_bwd_ops(B, S, Hq, D, causal), main,
+                   library,
                    "bf16" if dt == torch.bfloat16 else "fp32")
         if what == "phi3 train":
             last = (q, k, v, o, lse, do)
@@ -1558,30 +1579,19 @@ def scan_bwd_cost(kernel, B, T, H, d1, d2, elem, peaks, op):
     read once (the chunk states included) and each output written once
     (dB, dC and du after their sums); the products at the inputs' type, the
     gate's exponentials (rwkv6) at float32's, whichever takes longer."""
+    from repro_torch.kernels import costs
     C = min(64, T)
-    nc, tri, strict = T // C, C * (C + 1) // 2, C * (C - 1) // 2
+    nc = T // C
     if kernel == "mamba2_ssd":
         P, N = d1, d2
         nbytes = (3 * B * T * H * P + 4 * B * T * N) * elem + 2 * B * T * H * 4 \
             + 2 * H * 4 + B * H * nc * P * N * 4 + 2 * B * H * P * N * 4
-        # C.B^T once per (batch, chunk); per head dG, dx's two products, dC's
-        # and dB's two each, and dS's, over the lower triangle where masked
-        prods = B * nc * (2 * tri * N + H * (4 * tri * P + 4 * tri * N
-                                             + 8 * C * P * N))
-        return nbytes, prods, op
+        return nbytes, costs.ssd_bwd_ops(B, T, H, P, N), op
     K, V = d1, d2
     nbytes = (3 * B * T * H * K + 3 * B * T * H * V + 2 * H * K) * elem \
         + 2 * B * T * H * K * 4 + B * H * nc * K * V * 4 + 2 * B * H * K * V * 4
-    # per (batch, head, chunk): dA and A.do^T over the lower triangle, the
-    # gate's three terms (A, dr, dk: three operations a pair and key), and
-    # the four K x V products (k'.dS, do.S0^T, v.dS^T, the dS update); the
-    # gate's exponentials: the pairs of the diagonal 16 x 16 blocks once,
-    # and below them per-element factors of r and k (about 4 C K), as the
-    # sub-chunk form needs them
-    prods = B * H * nc * (4 * tri * V + 9 * strict * K + 8 * C * K * V)
-    sub = 16
-    diag = -(-C // sub) * sub * (sub - 1) // 2
-    exps = B * H * nc * (diag * K + 4 * C * K)
+    prods = costs.rwkv_bwd_ops(B, T, H, K, V)
+    exps = costs.rwkv_bwd_exps(B, T, H, K)
     if exps / peaks["fp32"] > prods / peaks[op]:
         return nbytes, exps, "fp32"
     return nbytes, prods, op
@@ -1747,25 +1757,15 @@ def scan_bwd_errors(kernel, got, want64, args) -> dict:
 
 
 def ssd_flops(B, T, H, P, N, C) -> int:
-    """Operations the chunked SSD needs: C.B^T once per (batch, chunk) over
-    the lower triangle (B and C are shared by the heads); per (batch, head,
-    chunk) the masked G, G.x, C.S^T and the state update."""
-    nc, tri = T // C, C * (C + 1) // 2
-    per_head = (tri * (3 + 2 * P) + C * P * (2 * N + 2) + P * N * (2 * C + 2)
-                + 4 * C)
-    return B * nc * (tri * 2 * N + H * per_head)
+    """Operations the chunked SSD needs (``kernels.costs.ssd_ops``)."""
+    from repro_torch.kernels import costs
+    return costs.ssd_ops(B, T, H, P, N, C)
 
 
 def rwkv_flops(B, T, H, K, V, C) -> int:
-    """Operations the chunked WKV6 needs per (batch, head, chunk): the
-    log-decay sums, the gated r.k over the strict lower triangle (exp
-    counted as one operation), the bonus diagonal, the rescales, A.v, the
-    carried state's term and the state update."""
-    nc, tri = T // C, C * (C + 1) // 2
-    strict = C * (C - 1) // 2
-    per_head = (3 * C * K + 5 * strict * K + 3 * C * K + 4 * C * K
-                + C * V * 2 * K + tri * 2 * V + K * V * (2 * C + 2))
-    return B * H * nc * per_head
+    """Operations the chunked WKV6 needs (``kernels.costs.rwkv_ops``)."""
+    from repro_torch.kernels import costs
+    return costs.rwkv_ops(B, T, H, K, V, C)
 
 
 # ---------------------------------------------------------------------------
@@ -6257,6 +6257,190 @@ def run_sharded_whisper(torch, seed):
     return {k: (n, 0) for k, n in total.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the dry run on fake tensors, and against the card
+# ---------------------------------------------------------------------------
+# (a): full-width cells on the production (16, 16) mesh of fake cuda
+# positions, each in a process of its own started after the build, beside
+# the phases that use the card (they use the host's CPU only)
+DRYRUN_CELLS = (("llama3_8b", "decode_32k"), ("llama3_8b", "train_4k"))
+DRYRUN_NICE = 5           # below the phases that time the card
+# (b): the tracker's peak over all positions against the card's
+# max_memory_allocated (less what the card held before that is not an
+# argument of the step): within this fraction, written before the first run
+DRYRUN_MARGIN = 0.05
+
+
+def start_dryrun(tmp: Path):
+    """Phase 26 (a) in the background: ``python -m
+    repro_torch.launch.dryrun`` for each of ``DRYRUN_CELLS`` at full width
+    on the production single-pod mesh, its output under ``tmp``. Returns the
+    processes; ``finish_dryrun`` waits for them, and they are killed at
+    exit if it never does."""
+    import atexit
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        log = open(tmp / f"{arch}__{shape}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", str(tmp)],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+            preexec_fn=lambda: os.nice(DRYRUN_NICE))
+        procs.append((arch, shape, proc, log))
+
+    def stop():
+        for _, _, proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    atexit.register(stop)
+    return procs
+
+
+def finish_dryrun(procs, tmp: Path):
+    """Wait for phase 26 (a)'s processes; print each cell's peak GB a
+    position, collective bytes and roofline terms. Returns {cell: result}."""
+    out = {}
+    for arch, shape, proc, log in procs:
+        t0 = time.perf_counter()
+        rc = proc.wait()
+        log.flush()
+        text = (tmp / f"{arch}__{shape}.log").read_text()
+        need(rc == 0, f"dryrun: {arch} {shape} exited {rc}:\n{text[-3000:]}")
+        with open(tmp / f"{arch}__{shape}__single.json") as fh:
+            r = json.load(fh)
+        need(r["ok"] and not r.get("skipped"),
+             f"dryrun: {arch} {shape}: {r.get('error')}")
+        m, t, c = r["memory"], r["roofline"], r["collectives"]
+        print(f"dryrun: (a) {arch} {shape} mesh {r['mesh_shape']} fake "
+              f"{r['device']}: {r['depth']['mode']} (layers traced "
+              f"{r['depth']['layers']}, checked "
+              f"{r['depth'].get('checked_layers', [])}) trace_s="
+              f"{r['trace_s']} waited_s={time.perf_counter() - t0:.1f} "
+              f"peak_gb={m['peak_gb']:.4f} (position {m['position']}: "
+              f"argument {m['argument_gb']:.4f}, temp {m['temp_gb']:.4f}, "
+              f"output {m['output_gb']:.4f}) all_positions_peak_gb="
+              f"{m['all_positions_peak_gb']:.2f}", flush=True)
+        print(f"dryrun: (a) {arch} {shape} collectives a device a step "
+              f"(position {r['collective_position']}): "
+              + " ".join(f"{k}={v:.6e}" for k, v in sorted(c.items()))
+              + f"; flops a position {r['cost_analysis_raw']['flops']:.6e}",
+              flush=True)
+        print(f"dryrun: (a) {arch} {shape} roofline compute_ms="
+              f"{t['compute_s'] * 1e3:.5f} memory_ms={t['memory_s'] * 1e3:.5f}"
+              f" collective_ms={t['collective_s'] * 1e3:.5f} dominant="
+              f"{t['dominant']} useful_ratio={t['useful_ratio']:.4f} "
+              f"roofline_mfu={t['roofline_mfu']:.4f}; top sites: "
+              + "; ".join(f"{b:.4e} {kind} x{n} {site}" for b, kind, n, _,
+                          site in r["collective_sites"][:4]), flush=True)
+        need(m["peak_gb"] > m["argument_gb"] > 0 and c["total"] > 0
+             and r["cost_analysis_raw"]["flops"] > 0,
+             f"dryrun: {arch} {shape}: empty figures")
+        kern = r["kernels"]
+        need("flash_attention" in kern if shape == "train_4k"
+             else "decode_attention" in kern,
+             f"dryrun: {arch} {shape}: no kernel call ({sorted(kern)})")
+        out[f"{arch}__{shape}"] = r
+    return out
+
+
+def dryrun_against_card(torch, label, cfg, shape, mesh, tcfg):
+    """Phase 26 (b): the cell traced on fake tensors, then its step run for
+    real on the card (after one step that builds and allocates what stays),
+    both under the collective counter and the memory tracker. Every number
+    of the two records must be equal, and the tracker's peak within
+    ``DRYRUN_MARGIN`` of the card's ``max_memory_allocated``, per card
+    where the positions are on cards of their own."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    fake = dryrun.trace_cell(cfg, shape, mesh, tcfg, fake=True)
+    fake_s = time.perf_counter() - t0
+    cell = dryrun.build_cell(cfg, shape, mesh, tcfg)
+    args = dryrun.cell_arguments(cell, mesh)
+    cell[0](*args)
+    sync_all(torch, mesh)
+    cards = mesh.distinct()
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    before = {d: torch.cuda.memory_allocated(d) for d in cards}
+    real = dryrun.measure_step(cell[0], args, mesh)
+    sync_all(torch, mesh)
+    peak = {d: torch.cuda.max_memory_allocated(d) for d in cards}
+    missed = dryrun.differ(fake["nums"], real["nums"])
+    need(not missed, f"dryrun: (b) {label}: the fake run differs from the "
+         "card's in " + ", ".join(f"{k} {fake['nums'].get(k)} != "
+                                  f"{real['nums'].get(k)}" for k in missed[:8]))
+    need(fake["shapes"] == real["shapes"], f"dryrun: (b) {label}: sites differ")
+    nums = real["nums"]
+    if len(cards) == 1:
+        args_bytes = sum(nums[f"mem|{p}|argument"] for p in range(mesh.size))
+        groups = [(cards[0], nums["mem_all|peak"], args_bytes)]
+    else:
+        groups = [(mesh.devices[p], nums[f"mem|{p}|peak"],
+                   nums[f"mem|{p}|argument"]) for p in range(mesh.size)]
+    ratios = []
+    for d, tracked, args_bytes in groups:
+        held = before[d] - int(args_bytes)   # on the card, not the step's
+        card = peak[d] - held
+        ratios.append(tracked / card)
+        print(f"dryrun: (b) {label} on {d}: tracker peak {int(tracked)} B, "
+              f"card max_memory_allocated {peak[d]} B less {held} B held "
+              f"before = {int(card)} B, ratio {tracked / card:.6f}",
+              flush=True)
+    coll = {k.split("|", 2)[2]: v for k, v in nums.items()
+            if k.startswith("coll|0|")}
+    print(f"dryrun: (b) {label} mesh {mesh.shape}: fake == card in all "
+          f"{len(nums)} numbers (collectives {coll}, "
+          f"{sum(1 for k in nums if k.startswith('site|'))} site entries, "
+          f"peaks {[int(nums[f'mem|{p}|peak']) for p in range(mesh.size)]}, "
+          f"flops {nums['flops']:.6e}); fake trace {fake_s:.2f} s, card step "
+          f"{real['seconds']:.2f} s", flush=True)
+    need(all(abs(r - 1) <= DRYRUN_MARGIN for r in ratios),
+         f"dryrun: (b) {label}: tracker peak over the card's "
+         f"{[round(r, 6) for r in ratios]} outside 1 +- {DRYRUN_MARGIN}")
+    return ratios
+
+
+def run_dryrun(torch, procs, tmp: Path):
+    """Phase 26: (a) the background cells' results; (b) ``sharded_train``'s
+    llama3-8b cell (2 layers, 8 x 512, (2, 2)) and a ``sharded_serve``
+    decode cell (llama3-8b at 2 layers, 8 sequences against 4096 rows,
+    (2, 2)) each traced on fake tensors and run on the card, to the byte;
+    one card a position with four cards or more. Returns (a)'s results."""
+    from repro_torch.config import ShapeConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    four = torch.cuda.device_count() >= 4
+    mesh = make_mesh(SHARDED_MESH, ("data", "model"),
+                     None if four else "cuda:0")
+    cfg = get_config("llama3_8b").replace(num_layers=2)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                       total_steps=SHARDED_STEPS[four])
+    torch.cuda.empty_cache()
+    dryrun_against_card(torch, "sharded_train llama3_8b 2 layers", cfg,
+                        ShapeConfig("train", seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, kind="train"),
+                        mesh, tcfg)
+    torch.cuda.empty_cache()
+    dryrun_against_card(torch, "sharded_serve llama3_8b decode", cfg,
+                        ShapeConfig("decode", seq_len=SERVE_MAX_LEN,
+                                    global_batch=SERVE_BATCH, kind="decode"),
+                        mesh, tcfg)
+    torch.cuda.empty_cache()
+    print(f"dryrun: (b) done at {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    results = finish_dryrun(procs, tmp)
+    print(f"dryrun: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    return results
+
+
 def roofline_line(phase, cfg, batch, context, ms_per_step) -> None:
     """The analytic bytes and FLOPs of one decode step of ``cfg`` at
     ``batch`` sequences of ``context`` tokens on one card
@@ -6393,6 +6577,11 @@ def main() -> int:
         print(f"build: {ln}")
 
     stamp("build")
+
+    # 26 (a) starts here, on the host's CPU beside the card's phases
+    import tempfile
+    dryrun_tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    dryrun_procs = start_dryrun(dryrun_tmp)
 
     # 3. kernel checks ------------------------------------------------------
     results = check_kernels(torch, peaks, args.seed)
@@ -6543,7 +6732,11 @@ def main() -> int:
     sharded_whisper_counts = run_sharded_whisper(torch, args.seed)
     stamp("sharded_whisper")
 
-    # 26. kernels -----------------------------------------------------------
+    # 26. the dry run on fake tensors, and against the card -----------------
+    dryrun_results = run_dryrun(torch, dryrun_procs, dryrun_tmp)
+    stamp("dryrun")
+
+    # 27. kernels -----------------------------------------------------------
     summary = []
     for k in REPLACES:
         r = results[k]
@@ -6564,9 +6757,13 @@ def main() -> int:
                    "sharded_serve": sharded_serve_counts[k][0],
                    "sharded_ssm": sharded_ssm_counts[k][0],
                    "sharded_whisper": sharded_whisper_counts[k][0]}
+        fake_calls = {cell: res["kernels"][k]["calls_per_position"]
+                      for cell, res in dryrun_results.items()
+                      if k in res["kernels"]}
         print(f"kernels: {k} launches={sum(by_path.values())} ("
               + ", ".join(f"{p} {n}" for p, n in by_path.items())
-              + f") check=ok main_shape={r['shape']}")
+              + f") check=ok main_shape={r['shape']} dryrun_fake_calls "
+              f"a position a step {fake_calls or 'none'}")
         summary.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k], "launches": sum(by_path.values()),
@@ -6576,6 +6773,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "peak": r["peak"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             "other_main_rows": r["other_main_rows"],
+            # calls a position a step in phase 26 (a)'s fake runs: no launch
+            "dryrun_fake_calls": fake_calls,
         })
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("tree_refresh.cu", "topk_sim.cu", "browse_scores.cu",
@@ -70,29 +71,45 @@ class LaunchCount:
     (``by_thread`` splits them by the launching thread's name: the
     maintenance plane's worker launches ``tree_refresh`` beside the serve
     thread), ``plain_calls`` counts calls served by the plain PyTorch
-    version (CPU tensors only)."""
+    version (CPU tensors only), ``fake_calls`` counts calls on fake CUDA
+    tensors (the dry run: shapes only, nothing launched) and ``ops`` the
+    operations of the launches and of the fake calls (``costs``)."""
 
-    __slots__ = ("name", "launches", "by_thread", "plain_calls", "_lock")
+    __slots__ = ("name", "launches", "by_thread", "plain_calls",
+                 "fake_calls", "ops", "_lock")
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
         self.by_thread: Dict[str, int] = {}
         self.plain_calls = 0
+        self.fake_calls = 0
+        self.ops = 0.0
         self._lock = threading.Lock()
 
-    def launched(self) -> None:
-        """Count one launch of the kernel, from the calling thread."""
+    def launched(self, ops: float = 0.0) -> None:
+        """Count one launch of the kernel (doing ``ops`` operations), from
+        the calling thread."""
         thread = threading.current_thread().name
         with self._lock:
             self.launches += 1
             self.by_thread[thread] = self.by_thread.get(thread, 0) + 1
+            self.ops += ops
+
+    def faked(self, ops: float) -> None:
+        """Count one call on fake tensors and the operations of its
+        launch."""
+        with self._lock:
+            self.fake_calls += 1
+            self.ops += ops
 
     def reset(self) -> None:
         with self._lock:
             self.launches = 0
             self.by_thread = {}
             self.plain_calls = 0
+            self.fake_calls = 0
+            self.ops = 0.0
 
 
 @dataclass
@@ -215,6 +232,15 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
                            "require grad")
 
 
+def is_fake(*tensors: torch.Tensor) -> bool:
+    """True when the inputs are fake tensors (``FakeTensorMode``): shapes
+    and types without data, as the dry run traces a cell. A CUDA wrapper
+    given fake CUDA tensors allocates what its launch would (outputs,
+    scratch, padded copies) and skips only the launch (``launch``); fake
+    CPU tensors take the plain version, as real ones do."""
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
 def is_plain(name: str, *tensors: torch.Tensor) -> bool:
     """True when every input lies on the CPU (the plain version runs);
     False when every input lies on a CUDA device (the kernel runs)."""
@@ -227,16 +253,30 @@ def is_plain(name: str, *tensors: torch.Tensor) -> bool:
                      f"CUDA device (got {sorted(kinds)})")
 
 
-def launch(name: str, entry: str, device: torch.device, *args) -> None:
-    """Call one C entry point on ``device``'s current stream; raise if the
-    launch was refused."""
+def launch(name: str, entry: str, device: torch.device, *args,
+           count: Optional[LaunchCount] = None, ops: float = 0.0) -> None:
+    """Call one C entry point on ``device``'s current stream and count the
+    launch in ``count``; raise if the launch was refused. A tensor argument
+    passes its data pointer, None a null pointer. On fake tensors
+    (``is_fake``) nothing is called and nothing of ``torch.cuda`` touched:
+    the call counts as one of ``count``'s ``fake_calls``, with ``ops``, the
+    operations of its launch. A wrapper allocates everything its kernel
+    takes before it calls this, so a fake call allocates what a launch
+    does."""
+    if is_fake(*(a for a in args if isinstance(a, torch.Tensor))):
+        if count is not None:
+            count.faked(ops)
+        return
     fn = library().entries[entry]
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+        err = fn(*ptrs, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError {err}")
+    if count is not None:
+        count.launched(ops)
 
 
 TMA_ALIGN = 8   # head dims the tensor maps take: 16-byte bf16 rows
@@ -254,7 +294,11 @@ def tma_ready(x: torch.Tensor, axes: int = 1,
         pad += [0, -d % align]
     if any(pad):
         return F.pad(x, pad)
-    return x if x.data_ptr() % 16 == 0 else x.clone()
+    if is_fake(x):      # a fresh block is 512-byte aligned; a view is offset
+        offset = x.storage_offset() * x.element_size()
+    else:
+        offset = x.data_ptr()
+    return x if offset % 16 == 0 else x.clone()
 
 
 # one zeroed counter buffer per (device, stream), shared by the kernels that
@@ -278,6 +322,15 @@ def counters(dev: torch.device, n: int) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+H100_SMS = 132      # the H100 SXM's SMs: a fake tensor's card
+
+
+def sms_of(x: torch.Tensor) -> int:
+    """The SMs of the card ``x`` lies on; an H100 SXM's for a fake tensor,
+    whose card need not exist."""
+    return H100_SMS if is_fake(x) else sm_count(x.device)
 
 
 def scan_slice(pairs: int, dim: int, sms: int, widest: int = 64,

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels.ref import browse_scores_ref, browse_scores_rows_ref
 
 COUNT = _build.LaunchCount("browse_scores")
@@ -39,11 +39,9 @@ def plan(D: int) -> int:
 def _launch(dev, arena, rows, q, lane_of, mask, F, K, D, R, L):
     out = torch.empty((F, K), dtype=torch.float32, device=dev)
     if F * K:
-        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         _build.launch("browse_scores", "memforest_browse_scores", dev,
-                      arena.data_ptr(), ptr(rows), q.data_ptr(), ptr(lane_of),
-                      mask.data_ptr(), out.data_ptr(), F, K, D, R, L, plan(D))
-        COUNT.launched()
+                      arena, rows, q, lane_of, mask, out, F, K, D, R, L,
+                      plan(D), count=COUNT, ops=costs.browse_ops(F, K, D))
     return out
 
 
@@ -88,13 +86,15 @@ def browse_scores_rows(arena: torch.Tensor, rows: torch.Tensor,
     R, L = arena.shape[0], q_rows.shape[0]
     if _build.is_plain("browse_scores_rows", *tensors):
         # on the card a range check would cost a round trip: there the
-        # kernel scores an out-of-range id NaN instead
-        if rows.numel() and not (-1 <= int(rows.min())
+        # kernel scores an out-of-range id NaN instead; fake tensors (the
+        # dry run's) have no ids to check
+        fake = _build.is_fake(*tensors)
+        if not fake and rows.numel() and not (-1 <= int(rows.min())
                                  and int(rows.max()) < R):
             raise ValueError(f"browse_scores_rows: row ids must lie in [-1, "
                              f"{R}), got [{int(rows.min())}, "
                              f"{int(rows.max())}]")
-        if lane_of.numel() and not (0 <= int(lane_of.min())
+        if not fake and lane_of.numel() and not (0 <= int(lane_of.min())
                                     and int(lane_of.max()) < L):
             raise ValueError(f"browse_scores_rows: lane ids must lie in [0, "
                              f"{L}), got [{int(lane_of.min())}, "

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels.ref import (decode_attention_lse_ref,
                                      decode_attention_ref)
 
@@ -115,15 +115,14 @@ def _decode(q, k_cache, v_cache, lengths, with_lse: bool):
         n_part, n_counters = scratch_sizes(B, Hq, Hkv, Dk, splits,
                                            q.dtype == torch.bfloat16)
         part = torch.empty(n_part, dtype=torch.float32, device=dev)
-        counters = _build.counters(dev, n_counters)
-        n_counters = counters.numel()
+        if not _build.is_fake(q):   # one buffer a stream, made before a step
+            counters = _build.counters(dev, n_counters)
+            n_counters = counters.numel()
+    # a fake call (the dry run's) counts every row of the cache: its
+    # lengths have no values
     _build.launch("decode_attention", "memforest_decode_attention", dev,
-                  q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                  lengths.data_ptr(), out.data_ptr(),
-                  None if lse is None else lse.data_ptr(),
-                  None if part is None else part.data_ptr(),
-                  None if counters is None else counters.data_ptr(),
+                  q, k_cache, v_cache, lengths, out, lse, part, counters,
                   n_part, n_counters, B, Smax, Hq, Hkv, Dk, D, chunk, splits,
-                  int(q.dtype == torch.bfloat16))
-    COUNT.launched()
+                  int(q.dtype == torch.bfloat16), count=COUNT,
+                  ops=costs.decode_ops(B * Smax, Hq, D))
     return (out if Dk == D else out[..., :D].contiguous()), lse

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels.ref import (attention_bwd_ref, attention_lse_ref,
                                      attention_ref)
 
@@ -86,10 +86,9 @@ def _forward(q, k, v, causal: bool, with_lse: bool = False):
     lse = (torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
            if with_lse else None)
     _build.launch("flash_attention", "memforest_flash_attention", dev,
-                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  None if lse is None else lse.data_ptr(),
-                  B, S, Hq, k.shape[2], q.shape[3], D, int(causal), int(bf16))
-    COUNT.launched()
+                  q, k, v, out, lse, B, S, Hq, k.shape[2], q.shape[3], D,
+                  int(causal), int(bf16), count=COUNT,
+                  ops=costs.attention_ops(B, S, Hq, D, causal))
     return (out if out.shape[3] == D else out[..., :D].contiguous()), lse
 
 
@@ -178,11 +177,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n = bwd_scratch_floats(B, S, Hq, Hkv, bf16)
     scratch = torch.empty(n, dtype=torch.float32, device=dev)
     _build.launch("flash_attention_bwd", "memforest_flash_attention_bwd", dev,
-                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), scratch.data_ptr(), n, B, S, Hq, Hkv,
-                  q.shape[3], D, int(causal), int(bf16))
-    BWD_COUNT.launched()
+                  q, k, v, o, lse, do, dq, dk, dv, scratch, n, B, S, Hq, Hkv,
+                  q.shape[3], D, int(causal), int(bf16), count=BWD_COUNT,
+                  ops=costs.attention_bwd_ops(B, S, Hq, D, causal))
     if q.shape[3] != D:
         dq, dk, dv = (x[..., :D].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv

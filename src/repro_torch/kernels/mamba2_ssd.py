@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels.ref import (SCAN_CHUNK, mamba2_ssd_bwd_ref,
                                      mamba2_ssd_chunked, scan_chunk)
 
@@ -90,18 +90,15 @@ def _forward(x, dt, A, Bm, C, state, chunk, keep_states=False):
     if bf16:                    # 16-byte rows for the asynchronous copies
         x, Bm, C = (_build.tma_ready(t) for t in (x, Bm, C))
         state = _build.tma_ready(state, 2)
-        width = _build.scan_slice(B * H, x.shape[-1], _build.sm_count(dev))
+        width = _build.scan_slice(B * H, x.shape[-1], _build.sms_of(x))
     y = torch.empty_like(x)
     s_out = torch.empty_like(state)
     states = (state.new_empty((B, H, T // chunk) + state.shape[2:])
               if keep_states else None)
     _build.launch("mamba2_ssd", "memforest_mamba2_ssd", dev,
-                  x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                  C.data_ptr(), state.data_ptr(), y.data_ptr(),
-                  s_out.data_ptr(), None if states is None else
-                  states.data_ptr(), B, T, H, x.shape[-1], Bm.shape[-1],
-                  chunk, int(bf16), width)
-    COUNT.launched()
+                  x, dt, A, Bm, C, state, y, s_out, states, B, T, H,
+                  x.shape[-1], Bm.shape[-1], chunk, int(bf16), width,
+                  count=COUNT, ops=costs.ssd_ops(B, T, H, P, N, chunk))
     if y.shape[-1] != P or s_out.shape[-1] != N:
         y, s_out = y[..., :P].contiguous(), s_out[..., :P, :N].contiguous()
         if states is not None:
@@ -225,15 +222,11 @@ def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dA_part = torch.empty((B, H), **f)
     dB_part, dC_part = (torch.empty((B, T, H // cl, N8), **f) for _ in range(2))
     _build.launch("mamba2_ssd_bwd", "memforest_mamba2_ssd_bwd", dev,
-                  x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm8.data_ptr(),
-                  C8.data_ptr(), states.data_ptr(), dy.data_ptr(),
-                  None if ds_out is None else ds_out.data_ptr(),
-                  dx.data_ptr(), ddt.data_ptr(), dA_part.data_ptr(),
-                  dB_part.data_ptr(), dC_part.data_ptr(), dstate.data_ptr(),
-                  B, T, H, P8, N8, chunk, int(bf16))
-    BWD_COUNT.launched()
+                  x, dt, A, Bm8, C8, states, dy, ds_out, dx, ddt, dA_part,
+                  dB_part, dC_part, dstate, B, T, H, P8, N8, chunk, int(bf16),
+                  count=BWD_COUNT, ops=costs.ssd_bwd_ops(B, T, H, P, N))
     if P8 != P or N8 != N:
         dx, dstate = dx[..., :P].contiguous(), dstate[..., :P, :N].contiguous()
     return (dx, ddt, dA_part.sum(dim=0),
-            dB_part.sum(dim=2)[..., :N].to(Bm.dtype),
-            dC_part.sum(dim=2)[..., :N].to(C.dtype), dstate)
+            dB_part.sum(dim=2).narrow(-1, 0, N).to(Bm.dtype),
+            dC_part.sum(dim=2).narrow(-1, 0, N).to(C.dtype), dstate)

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels.ref import (SCAN_CHUNK, rwkv6_chunked,
                                      rwkv6_scan_bwd_ref, scan_chunk)
 
@@ -93,19 +93,16 @@ def _forward(r, k, v, w, u, state, chunk, keep_states=False):
     if bf16:                    # 16-byte rows for the asynchronous copies
         r, k, v, w, u = (_build.tma_ready(t) for t in (r, k, v, w, u))
         state = _build.tma_ready(state, 2)
-        width = _build.scan_slice(B * H, v.shape[-1], _build.sm_count(dev),
+        width = _build.scan_slice(B * H, v.shape[-1], _build.sms_of(r),
                                   widest=64 if K <= 64 else 32, narrowest=32)
     o = r.new_empty(v.shape)
     s_out = torch.empty_like(state)
     states = (state.new_empty((B, H, T // chunk) + state.shape[2:])
               if keep_states else None)
     _build.launch("rwkv6_scan", "memforest_rwkv6_scan", dev,
-                  r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                  u.data_ptr(), state.data_ptr(), o.data_ptr(),
-                  s_out.data_ptr(), None if states is None else
-                  states.data_ptr(), B, T, H, r.shape[-1], v.shape[-1], chunk,
-                  int(bf16), width)
-    COUNT.launched()
+                  r, k, v, w, u, state, o, s_out, states, B, T, H,
+                  r.shape[-1], v.shape[-1], chunk, int(bf16), width,
+                  count=COUNT, ops=costs.rwkv_ops(B, T, H, K, V, chunk))
     if o.shape[-1] != V or s_out.shape[-2] != K:
         o, s_out = o[..., :V].contiguous(), s_out[..., :K, :V].contiguous()
         if states is not None:
@@ -275,13 +272,9 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n = bwd_scratch_floats(B, H, K8, V8, chunk, bf16)
     scratch = torch.empty(max(n, 1), dtype=torch.float32, device=dev)
     _build.launch("rwkv6_scan_bwd", "memforest_rwkv6_scan_bwd", dev,
-                  r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                  u.data_ptr(), states.data_ptr(), do.data_ptr(),
-                  None if ds_out is None else ds_out.data_ptr(),
-                  dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-                  du_part.data_ptr(), dstate.data_ptr(), scratch.data_ptr(),
-                  n, B, T, H, K8, V8, chunk, int(bf16))
-    BWD_COUNT.launched()
+                  r, k, v, w, u, states, do, ds_out, dr, dk, dv, dw, du_part,
+                  dstate, scratch, n, B, T, H, K8, V8, chunk, int(bf16),
+                  count=BWD_COUNT, ops=costs.rwkv_bwd_ops(B, T, H, K, V))
     if K8 != K or V8 != V:
         dr, dk, dw = (t[..., :K].contiguous() for t in (dr, dk, dw))
         dv, dstate = dv[..., :V].contiguous(), dstate[..., :K, :V].contiguous()

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels.ref import normalize_rows, topk_sim_ref
 
 COUNT = _build.LaunchCount("topk_sim")
@@ -103,19 +103,17 @@ def topk_sim(queries: torch.Tensor, keys: torch.Tensor, k: int, *,
     queries, keys = (_build.tma_ready(x, align=4) for x in (queries, keys))
     D = queries.shape[1]
     per_split, splits, cluster, slice_, split_k = plan_splits(
-        Q, nv, D, _build.sm_count(dev), cluster)
+        Q, nv, D, _build.sms_of(queries), cluster)
     cand_v = cand_i = counters = None   # the merge's scratch, with splits > 1
     n_counters = 0
     if splits > 1:
         cand_v = torch.empty((Q, splits, k), dtype=torch.float32, device=dev)
         cand_i = torch.empty((Q, splits, k), dtype=torch.int32, device=dev)
-        counters = _build.counters(dev, -(-Q // QUERY_BLOCK) * cluster)
-        n_counters = counters.numel()
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        if not _build.is_fake(queries):   # one buffer a stream
+            counters = _build.counters(dev, -(-Q // QUERY_BLOCK) * cluster)
+            n_counters = counters.numel()
     _build.launch("topk_sim", "memforest_topk_sim", dev,
-                  queries.data_ptr(), keys.data_ptr(), ptr(cand_v),
-                  ptr(cand_i), ptr(counters), n_counters, vals.data_ptr(),
-                  idx.data_ptr(), Q, N, D, nv, k, per_split, splits, cluster,
-                  slice_, int(split_k))
-    COUNT.launched()
+                  queries, keys, cand_v, cand_i, counters, n_counters, vals,
+                  idx, Q, N, D, nv, k, per_split, splits, cluster, slice_,
+                  int(split_k), count=COUNT, ops=costs.topk_ops(Q, nv, D))
     return vals, idx

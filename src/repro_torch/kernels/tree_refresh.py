@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels.ref import tree_refresh_ref
 
 COUNT = _build.LaunchCount("tree_refresh")
@@ -54,7 +54,6 @@ def tree_refresh(child_emb: torch.Tensor,
     cluster, slice_ = plan(Dp)
     out = torch.empty((P, Dp), dtype=torch.float32, device=dev)
     _build.launch("tree_refresh", "memforest_tree_refresh", dev,
-                  child_emb.data_ptr(), child_mask.data_ptr(), out.data_ptr(),
-                  P, K, Dp, cluster, slice_)
-    COUNT.launched()
+                  child_emb, child_mask, out, P, K, Dp, cluster, slice_,
+                  count=COUNT, ops=costs.tree_refresh_ops(P, K, D))
     return out if Dp == D else out[:, :D].contiguous()

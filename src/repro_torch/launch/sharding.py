@@ -30,6 +30,7 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 
+from repro_torch.launch.memory import at
 from repro_torch.launch.mesh import Mesh
 from repro_torch.tree import leaves, leaves_with_paths, path_str, unflatten
 
@@ -332,8 +333,9 @@ def place(x: torch.Tensor, mesh: Mesh, spec) -> Sharded:
     parts = []
     for pos, dev in enumerate(mesh.devices):
         block = x[shard_region(x.shape, spec, mesh, pos)]
-        parts.append(torch.empty(block.shape, dtype=x.dtype,
-                                 device=dev).copy_(block))
+        with at(pos):               # the block is that position's
+            parts.append(torch.empty(block.shape, dtype=x.dtype,
+                                     device=dev).copy_(block))
     return Sharded(mesh, spec, x.shape, parts)
 
 

@@ -13,6 +13,11 @@ the result back to each member: the bits are the same whether the mesh
 repeats one card or spans four. ``psum`` and ``all_gather`` are autograd
 functions whose backward is the same fixed-order sum (``all_gather``'s
 then sliced: a reduce-scatter).
+
+Each collective records its bytes (``launch.collectives``) and makes each
+member's copy under ``launch.memory.at(member)``, so that the dry run
+counts them per position; ``each`` runs a position's step under
+``at(pos)``.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
+from repro_torch.launch import collectives
+from repro_torch.launch.memory import at
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.sharding import (P, Sharded, _clean_spec, axes_of,
                                          place)
@@ -31,40 +38,61 @@ def _axes(mesh: Mesh, axes) -> Tuple[str, ...]:
     return tuple(a for a in axes if a in mesh.axis_names)
 
 
-def _sum_to(xs: Sequence[torch.Tensor], devs) -> Tuple[torch.Tensor, ...]:
-    """The sum of ``xs`` on the first one's device, in order, then a copy on
-    each device of ``devs`` (the first gets the sum itself)."""
-    total = xs[0]
-    for x in xs[1:]:
-        total = total + x.to(total.device)
-    return (total,) + tuple(total.to(d, copy=True) for d in devs[1:])
+def _sum_to(xs: Sequence[torch.Tensor], devs,
+            group: Sequence[int]) -> Tuple[torch.Tensor, ...]:
+    """The sum of ``xs`` (the tensors of the positions ``group``) on the
+    first one's device, in order, then a copy on each device of ``devs``
+    (the first gets the sum itself)."""
+    with at(group[0]):
+        total = xs[0]
+        for x in xs[1:]:
+            total = total + x.to(total.device)
+    out = [total]
+    for d, pos in zip(devs[1:], group[1:]):
+        with at(pos):
+            out.append(total.to(d, copy=True))
+    return tuple(out)
 
 
 class _PSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, *xs):
-        ctx.devs = [x.device for x in xs]
-        return _sum_to(xs, ctx.devs)
+    def forward(ctx, group, *xs):
+        ctx.devs, ctx.group = [x.device for x in xs], group
+        ctx.site = collectives.record("all-reduce", xs[0], group)
+        return _sum_to(xs, ctx.devs, group)
 
     @staticmethod
     def backward(ctx, *gs):
-        return _sum_to(gs, ctx.devs)
+        collectives.record("all-reduce", gs[0], ctx.group,
+                           site=ctx.site and ctx.site + " backward")
+        return (None,) + _sum_to(gs, ctx.devs, ctx.group)
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, dim, *xs):
-        ctx.dim, ctx.devs = dim, [x.device for x in xs]
+    def forward(ctx, dim, group, *xs):
+        ctx.dim, ctx.devs, ctx.group = dim, [x.device for x in xs], group
         ctx.sizes = [x.shape[dim] for x in xs]
-        whole = torch.cat([x.to(xs[0].device) for x in xs], dim)
-        return (whole,) + tuple(whole.to(d, copy=True) for d in ctx.devs[1:])
+        with at(group[0]):
+            whole = torch.cat([x.to(xs[0].device) for x in xs], dim)
+        ctx.site = collectives.record("all-gather", whole, group)
+        out = [whole]
+        for d, pos in zip(ctx.devs[1:], group[1:]):
+            with at(pos):
+                out.append(whole.to(d, copy=True))
+        return tuple(out)
 
     @staticmethod
     def backward(ctx, *gs):
-        total = _sum_to(gs, ctx.devs[:1])[0]
+        total = _sum_to(gs, ctx.devs[:1], ctx.group)[0]
+        collectives.record("reduce-scatter", total, ctx.group,
+                           site=ctx.site and ctx.site + " backward")
         parts = torch.split(total, ctx.sizes, ctx.dim)
-        return (None,) + tuple(p.to(d, copy=True)
-                               for p, d in zip(parts, ctx.devs))
+        out = []
+        for p, d, pos in zip(parts, ctx.devs, ctx.group):
+            with at(pos):
+                out.append(p.to(d, copy=True))
+        return (None, None) + tuple(out)
 
 
 def psum(xs: List[torch.Tensor], mesh: Mesh, axes) -> List[torch.Tensor]:
@@ -77,7 +105,8 @@ def psum(xs: List[torch.Tensor], mesh: Mesh, axes) -> List[torch.Tensor]:
         return out
     for group in mesh.groups(axes):
         if len(group) > 1:
-            for pos, y in zip(group, _PSum.apply(*(xs[p] for p in group))):
+            for pos, y in zip(group, _PSum.apply(tuple(group),
+                                                 *(xs[p] for p in group))):
                 out[pos] = y
     return out
 
@@ -93,11 +122,14 @@ def pmax(xs: List[torch.Tensor], mesh: Mesh, axes) -> List[torch.Tensor]:
     axes = _axes(mesh, axes)
     out = [x.detach() for x in xs]
     for group in (mesh.groups(axes) if axes else []):
+        collectives.record("all-reduce", out[group[0]], group)
         top = out[group[0]]
-        for p in group[1:]:
-            top = torch.maximum(top, out[p].to(top.device))
+        with at(group[0]):
+            for p in group[1:]:
+                top = torch.maximum(top, out[p].to(top.device))
         for p in group:
-            out[p] = top.to(mesh.devices[p], copy=True)
+            with at(p):
+                out[p] = top.to(mesh.devices[p], copy=True)
     return out
 
 
@@ -111,7 +143,7 @@ def all_gather(xs: List[torch.Tensor], mesh: Mesh, axes,
         return out
     for group in mesh.groups(axes):
         if len(group) > 1:
-            ys = _AllGather.apply(dim, *(xs[p] for p in group))
+            ys = _AllGather.apply(dim, tuple(group), *(xs[p] for p in group))
             for pos, y in zip(group, ys):
                 out[pos] = y
     return out
@@ -164,8 +196,12 @@ def axis_index(mesh: Mesh, pos: int, axis: str) -> int:
 
 def each(fn: Callable, *lists) -> List[Any]:
     """``fn`` at every position, over the positions' entries of ``lists``:
-    one step of a lockstep body."""
-    return [fn(*args) for args in zip(*lists)]
+    one step of a lockstep body, each position's under ``at(pos)``."""
+    out = []
+    for pos, args in enumerate(zip(*lists)):
+        with at(pos):
+            out.append(fn(*args))
+    return out
 
 
 def whole(x: Sharded) -> List[torch.Tensor]:

@@ -64,10 +64,12 @@ def torch_dtype(name: str) -> torch.dtype:
 def meta_specs(build: Callable[[], Any]) -> Any:
     """The tree ``build()`` returns, each leaf an empty tensor of its shape
     and type on the ``meta`` device (the reference's ``jax.eval_shape``):
-    ``build`` runs on the CPU under a fake-tensor mode, so nothing is
-    allocated."""
+    ``build`` runs on the CPU under a fake-tensor mode of its own, outside
+    any dispatch mode the caller has active (a dry run's memory tracker
+    must not count the probe), so nothing is allocated."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    with FakeTensorMode():
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes(), FakeTensorMode():
         fake = build()
     return map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                           device="meta"), fake)
@@ -901,7 +903,8 @@ def softmax_xent_shards(logits: List[torch.Tensor],
     lls = [pk - (t + torch.log(s)) for pk, t, s in zip(picked, tops, sums)]
     if masks is None:
         num = [torch.sum(ll) for ll in lls]
-        den = [torch.tensor(float(ll.numel()), device=ll.device) for ll in lls]
+        den = spmd.each(lambda ll: torch.tensor(float(ll.numel()),
+                                                device=ll.device), lls)
     else:
         ms = [m.to(torch.float32) for m in masks]
         num = [torch.sum(ll * m) for ll, m in zip(lls, ms)]

@@ -365,10 +365,11 @@ def _zero_states(cfg: ModelConfig, mesh: Mesh, xs):
     """Each position's zero wkv state (B_local, its heads, K, V) and zero
     shift (B_local, D)."""
     _, hs, _, _, n = _heads(cfg, mesh)
-    wkv = [torch.zeros((x.shape[0], n, hs, hs), dtype=torch.float32,
-                       device=x.device) for x in xs]
-    shift = [torch.zeros((x.shape[0], cfg.d_model), dtype=L.torch_dtype(
-        cfg.dtype), device=x.device) for x in xs]
+    wkv = spmd.each(lambda x: torch.zeros(
+        (x.shape[0], n, hs, hs), dtype=torch.float32, device=x.device), xs)
+    shift = spmd.each(lambda x: torch.zeros(
+        (x.shape[0], cfg.d_model), dtype=L.torch_dtype(cfg.dtype),
+        device=x.device), xs)
     return wkv, shift
 
 
@@ -425,11 +426,11 @@ def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     def body(params, batch):
         x = _embed_shards(params, cfg, batch["tokens"].parts)
         wkv0, shift0 = _zero_states(cfg, mesh, x)
-        wkv = [torch.zeros((cfg.num_layers,) + t.shape, dtype=t.dtype,
-                           device=t.device) for t in wkv0]
-        st, sc = ([torch.zeros((cfg.num_layers,) + t.shape, dtype=t.dtype,
-                               device=t.device) for t in shift0]
-                  for _ in range(2))
+        def stacked(t):
+            return torch.zeros((cfg.num_layers,) + t.shape, dtype=t.dtype,
+                               device=t.device)
+        wkv = spmd.each(stacked, wkv0)
+        st, sc = (spmd.each(stacked, shift0) for _ in range(2))
         for i, p in enumerate(params["layers"]):
             x, s_new, sh_t, sh_c = _layer_seq_shards(cfg, p, x, wkv0, shift0,
                                                      shift0, mesh)
@@ -440,8 +441,8 @@ def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         h = [L.rms_norm(t[:, -1], g, cfg.norm_eps)
              for t, g in zip(x, params["final_norm"].parts)]
         logits, _ = L.logits_shards(params, cfg, h)
-        lengths = [torch.full((t.shape[0],), T, dtype=torch.int32,
-                              device=t.device) for t in h]
+        lengths = spmd.each(lambda t: torch.full(
+            (t.shape[0],), T, dtype=torch.int32, device=t.device), h)
         return logits, wkv, st, sc, lengths
 
     logits, wkv, st, sc, lengths = spmd.shard_map(

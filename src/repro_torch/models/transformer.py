@@ -214,9 +214,10 @@ def sharded_loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             x = spmd.each(lambda pe, e: torch.cat([pe.to(e.dtype), e], dim=1),
                           batch["patch_embeds"].parts, x)
         S = x[0].shape[1]
-        positions = [torch.arange(S, device=d)[None, :] for d in mesh.devices]
-        aux = [torch.zeros((), dtype=torch.float32, device=d)
-               for d in mesh.devices]
+        positions = spmd.each(lambda d: torch.arange(S, device=d)[None, :],
+                              mesh.devices)
+        aux = spmd.each(lambda d: torch.zeros((), dtype=torch.float32,
+                                              device=d), mesh.devices)
         for p in params["layers"]:
             x, a = _layer_call(cfg, p, x, positions, mesh, batch_axes)
             if a is not None:
@@ -343,11 +344,13 @@ def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         if vlm:
             x = spmd.each(lambda pe, e: torch.cat([pe.to(e.dtype), e], dim=1),
                           batch["patch_embeds"].parts, x)
-        positions = [torch.arange(S, device=d)[None, :] for d in mesh.devices]
+        positions = spmd.each(lambda d: torch.arange(S, device=d)[None, :],
+                              mesh.devices)
         regions = [shard_region(shape, k_spec, mesh, pos)
                    for pos in range(mesh.size)]
-        ks = [torch.zeros(tuple(r.stop - r.start for r in reg), dtype=dtype,
-                          device=d) for reg, d in zip(regions, mesh.devices)]
+        ks = spmd.each(lambda reg, d: torch.zeros(
+            tuple(r.stop - r.start for r in reg), dtype=dtype, device=d),
+            regions, mesh.devices)
         vs = [torch.zeros_like(t) for t in ks]
         for i, p in enumerate(params["layers"]):
             hs = [L.rms_norm(t, g, cfg.norm_eps)
@@ -368,8 +371,8 @@ def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         h = [L.rms_norm(t[:, -1], g, cfg.norm_eps)
              for t, g in zip(x, params["final_norm"].parts)]
         logits, _ = L.logits_shards(params, cfg, h)
-        lengths = [torch.full((t.shape[0],), S, dtype=torch.int32,
-                              device=t.device) for t in h]
+        lengths = spmd.each(lambda t: torch.full(
+            (t.shape[0],), S, dtype=torch.int32, device=t.device), h)
         return logits, ks, vs, lengths
 
     logits, k, v, lengths = spmd.shard_map(

@@ -282,7 +282,8 @@ def _encode_shards(params, cfg: ModelConfig, frames, mesh: Mesh,
     S = frames[0].shape[1]
     tables = position_tables(params["embed"], cfg, S)
     xs = [f + t.to(f.dtype)[None] for f, t in zip(frames, tables)]
-    positions = [torch.arange(S, device=d)[None, :] for d in mesh.devices]
+    positions = spmd.each(lambda d: torch.arange(S, device=d)[None, :],
+                          mesh.devices)
     for p in params["enc_layers"]:
         xs = L.layer_call(lambda q, ys: _enc_layer_shards(
             cfg, q, ys, positions, mesh), p, xs, remat)
@@ -345,7 +346,8 @@ def sharded_loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                              cfg.remat)
         S = batch["tokens"].shape[1]
         x = _decoder_input(params, cfg, batch["tokens"].parts, S)
-        positions = [torch.arange(S, device=d)[None, :] for d in mesh.devices]
+        positions = spmd.each(lambda d: torch.arange(S, device=d)[None, :],
+                              mesh.devices)
         n = len(x)
         for p in params["dec_layers"]:
             x = L.layer_call(lambda q, ys: _dec_layer_shards(
@@ -391,14 +393,14 @@ def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     def body(params, batch):
         enc = _encode_shards(params, cfg, batch["frames"].parts, mesh, False)
         x = _decoder_input(params, cfg, batch["tokens"].parts, S)
-        positions = [torch.arange(S, device=d)[None, :] for d in mesh.devices]
+        positions = spmd.each(lambda d: torch.arange(S, device=d)[None, :],
+                              mesh.devices)
         regions = {k: [shard_region(shape, sh[k].spec, mesh, pos)
                        for pos in range(mesh.size)]
                    for k, shape in shapes.items()}
-        out = {k: [torch.zeros(tuple(r.stop - r.start for r in reg),
-                               dtype=dtype, device=d)
-                   for reg, d in zip(regions[k[:-1] + "k"], mesh.devices)]
-               for k in _CACHE_LEAVES[:4]}
+        out = {k: spmd.each(lambda reg, d: torch.zeros(
+            tuple(r.stop - r.start for r in reg), dtype=dtype, device=d),
+            regions[k[:-1] + "k"], mesh.devices) for k in _CACHE_LEAVES[:4]}
         for i, p in enumerate(params["dec_layers"]):
             x, kvs, (ck, cv) = _dec_layer_shards(cfg, p, x, positions, enc,
                                                  mesh, sh["cross_k"].spec)
@@ -413,8 +415,8 @@ def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         h = _norm_shards([t[:, -1] for t in x], params["dec_norm"],
                          params["dec_norm_b"], cfg)
         logits, _ = L.logits_shards(params, cfg, h, tied=True)
-        lengths = [torch.full((t.shape[0],), S, dtype=torch.int32,
-                              device=t.device) for t in h]
+        lengths = spmd.each(lambda t: torch.full(
+            (t.shape[0],), S, dtype=torch.int32, device=t.device), h)
         return (logits,) + tuple(out[k] for k in _CACHE_LEAVES[:4]) + (
             lengths,)
 

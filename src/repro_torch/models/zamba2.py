@@ -259,11 +259,12 @@ def _zero_states(cfg: ModelConfig, mesh: Mesh, xs):
     conv state (B_local, W-1, conv_dim), whole."""
     _, H, P, conv_dim = M.mamba2_dims(cfg)
     n = L.heads_of(H, mesh, 0)[1]
-    ssd = [torch.zeros((x.shape[0], n, P, cfg.ssm_state_dim),
-                       dtype=torch.float32, device=x.device) for x in xs]
-    conv = [torch.zeros((x.shape[0], cfg.ssm_conv_width - 1, conv_dim),
-                        dtype=L.torch_dtype(cfg.dtype), device=x.device)
-            for x in xs]
+    ssd = spmd.each(lambda x: torch.zeros(
+        (x.shape[0], n, P, cfg.ssm_state_dim), dtype=torch.float32,
+        device=x.device), xs)
+    conv = spmd.each(lambda x: torch.zeros(
+        (x.shape[0], cfg.ssm_conv_width - 1, conv_dim),
+        dtype=L.torch_dtype(cfg.dtype), device=x.device), xs)
     return ssd, conv
 
 
@@ -284,7 +285,8 @@ def sharded_loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     def body(params, batch):
         x = L.embed_shards(params["embed"], batch["tokens"].parts)
         T = x[0].shape[1]
-        positions = [torch.arange(T, device=d)[None, :] for d in mesh.devices]
+        positions = spmd.each(lambda d: torch.arange(T, device=d)[None, :],
+                              mesh.devices)
         ssd0, conv0 = _zero_states(cfg, mesh, x)
         for i, _g in _layer_order(cfg):
             if i is None:
@@ -327,16 +329,17 @@ def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
     def body(params, batch):
         x = L.embed_shards(params["embed"], batch["tokens"].parts)
-        positions = [torch.arange(T, device=d)[None, :] for d in mesh.devices]
+        positions = spmd.each(lambda d: torch.arange(T, device=d)[None, :],
+                              mesh.devices)
         ssd0, conv0 = _zero_states(cfg, mesh, x)
-        ssd = [torch.zeros((cfg.num_layers,) + t.shape, dtype=t.dtype,
-                           device=t.device) for t in ssd0]
-        conv = [torch.zeros((cfg.num_layers,) + t.shape, dtype=t.dtype,
-                            device=t.device) for t in conv0]
+        ssd, conv = (spmd.each(lambda t: torch.zeros(
+            (cfg.num_layers,) + t.shape, dtype=t.dtype, device=t.device), s0)
+            for s0 in (ssd0, conv0))
         regions = [shard_region(kv_shape, sh["kv_k"].spec, mesh, pos)
                    for pos in range(mesh.size)]
-        ks = [torch.zeros(tuple(r.stop - r.start for r in reg), dtype=dtype,
-                          device=d) for reg, d in zip(regions, mesh.devices)]
+        ks = spmd.each(lambda reg, d: torch.zeros(
+            tuple(r.stop - r.start for r in reg), dtype=dtype, device=d),
+            regions, mesh.devices)
         vs = [torch.zeros_like(t) for t in ks]
         for i, g in _layer_order(cfg):
             if i is None:
@@ -356,8 +359,8 @@ def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         h = [L.rms_norm(t[:, -1], g, cfg.norm_eps)
              for t, g in zip(x, params["final_norm"].parts)]
         logits, _ = L.logits_shards(params, cfg, h)
-        lengths = [torch.full((t.shape[0],), T, dtype=torch.int32,
-                              device=t.device) for t in h]
+        lengths = spmd.each(lambda t: torch.full(
+            (t.shape[0],), T, dtype=torch.int32, device=t.device), h)
         return logits, ssd, conv, ks, vs, lengths
 
     names = ("ssd", "conv", "kv_k", "kv_v", "lengths")

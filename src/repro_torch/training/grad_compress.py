@@ -37,7 +37,10 @@ bit ``torch.topk``'s k-th value. The counts are exact int64 sums
 (``index_add_``), and a device bins its elements in runs of ``_CHUNK``
 keys: beside the blocks, the select holds three int32 tensors of a run
 (192 MiB) and two histograms of 256 KiB and 512 KiB a group on a device,
-whatever the model's size.
+whatever the model's size. The histograms' and maxima's sums over the
+positions are all-reduces and the cut sent to every position a
+collective-permute, recorded where a ``launch.collectives`` counter is
+active.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from repro_torch.launch import collectives
 from repro_torch.launch.sharding import Sharded, is_sharded
 from repro_torch.training.optimizer import within
 from repro_torch.tree import leaves, leaves_with_paths, map_tree, unflatten
@@ -146,6 +150,10 @@ def _bins(blocks: List[Sharded], groups: List[List[int]], width: int,
             key.add_(gid * width)
             hist.index_add_(0, key, one.expand(key.numel()))
         total += hist.to(total.device)
+    everyone = range(mesh.size)
+    collectives.record("all-reduce", total, everyone)
+    if low is not None:
+        collectives.record("collective-permute", low, everyone[1:])
     return total.view(G, width)
 
 
@@ -181,7 +189,9 @@ def _scales(blocks: List[Sharded], groups: List[List[int]]) -> torch.Tensor:
     tops = [torch.max(torch.stack([
         torch.linalg.vector_norm(blocks[i].parts[pos], math.inf).to(dev0)
         for i in idx for pos in _owned(blocks[i])])) for idx in groups]
-    return torch.stack(tops) / 127.0 + 1e-12
+    scales = torch.stack(tops) / 127.0 + 1e-12
+    collectives.record("all-reduce", scales, range(blocks[0].mesh.size))
+    return scales
 
 
 def _compress_sharded(grads, err, method: str, ratio: float):
@@ -197,6 +207,8 @@ def _compress_sharded(grads, err, method: str, ratio: float):
         cut = _thresholds(blocks, groups, ratio)
     else:
         cut = _scales(blocks, groups)
+    collectives.record("collective-permute", cut,
+                       range(1, blocks[0].mesh.size))
     comp: List[Sharded] = [None] * len(blocks)
     for g, idx in enumerate(groups):
         on = {}

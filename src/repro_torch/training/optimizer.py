@@ -16,7 +16,9 @@ positions that hold it, ``global_norm`` counts each element once, and
 ``adamw_update`` has each position update the slice of its parameter block
 that its moments hold (the data axes split them) and then gathers the
 block's slices back into every holder's parameter, with the same arithmetic
-one leaf at a time.
+one leaf at a time. Each of these exchanges between positions records its
+bytes (``launch.collectives``) and makes each position's tensors under
+``launch.memory.at``, as the dry run counts them.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import TrainConfig
+from repro_torch.launch import collectives
+from repro_torch.launch.memory import at
 from repro_torch.launch.sharding import Sharded, is_sharded
 from repro_torch.tree import leaves, map_tree
 
@@ -72,7 +76,9 @@ def _sum_squares(x) -> torch.Tensor:
     total = None
     for group in x.holders():
         s = torch.sum(torch.square(x.parts[group[0]].to(torch.float32)))
-        total = s.to(dev) if total is None else total + s.to(dev)
+        with at(0):
+            total = s.to(dev) if total is None else total + s.to(dev)
+    collectives.record("all-reduce", total, range(x.mesh.size))
     return total
 
 
@@ -94,9 +100,12 @@ def reduce_grads(grads: Any) -> Any:
             if len(group) < 2:
                 continue
             first = g.parts[group[0]]
-            total = first.to(torch.float32)
-            for p in group[1:]:
-                total = total + g.parts[p].to(first.device, torch.float32)
+            collectives.record("all-reduce", first, group)
+            with at(group[0]):
+                total = first.to(torch.float32)
+                for p in group[1:]:
+                    total = total + g.parts[p].to(first.device,
+                                                  torch.float32)
             first.copy_(total)
             for p in group[1:]:
                 g.parts[p].copy_(first)
@@ -214,11 +223,16 @@ def _zero1_update(params, grads, state, cfg: TrainConfig, grad_scale):
     step = state["step"].parts[0] + 1
     lr, mh, vh = _schedule(step, cfg)
     scalars: Dict[torch.device, tuple] = {}
+    others = range(1, mesh.size)
+    for x in (lr, mh, vh, grad_scale):     # the first position's, sent on
+        if x is not None:
+            collectives.record("collective-permute", x, others)
 
     def on(dev):
         if dev not in scalars:
-            scalars[dev] = tuple(None if x is None else x.to(dev)
-                                 for x in (lr, mh, vh, grad_scale))
+            with at(0):
+                scalars[dev] = tuple(None if x is None else x.to(dev)
+                                     for x in (lr, mh, vh, grad_scale))
         return scalars[dev]
 
     pos_range = range(mesh.size)
@@ -234,11 +248,21 @@ def _zero1_update(params, grads, state, cfg: TrainConfig, grad_scale):
             for r in group:
                 firsts.setdefault(tuple((s.start, s.stop)
                                         for s in m.region(r)), r)
+            if len(firsts) > 1:         # each holder gathers the slices
+                collectives.record("all-gather", p.parts[group[0]], group)
+            else:                       # the one updater's block, sent on
+                r = next(iter(firsts.values()))
+                collectives.record("collective-permute", p.parts[r],
+                                   [q for q in group if q != r])
             for pos in group:
                 for r in firsts.values():
                     _cut(p.parts[pos], within(m.region(r),
                                               p.region(r))).copy_(new[r])
-    steps = Sharded(mesh, state["step"].spec, (), [
-        step.to(d, copy=True) for d in mesh.devices])
+    collectives.record("collective-permute", step, others)
+    copies = []
+    for pos, d in enumerate(mesh.devices):
+        with at(pos):
+            copies.append(step.to(d, copy=True))
+    steps = Sharded(mesh, state["step"].spec, (), copies)
     return params, {"m": state["m"], "v": state["v"], "step": steps}, \
         {"lr": lr}

@@ -149,16 +149,18 @@ def init_train_state(model: Model, tcfg: TrainConfig, seed: int = 0, *,
     return state
 
 
-def train_state_shardings(mesh: Mesh, state: Dict[str, Any], cfg
-                          ) -> Dict[str, Any]:
+def train_state_shardings(mesh: Mesh, state: Dict[str, Any], cfg, *,
+                          kv_heads: int = 0) -> Dict[str, Any]:
     """The train state's shardings on ``mesh``, the reference's
     ``build_cell``'s: the parameters by ``param_shardings`` with the model
-    config ``cfg``'s ``moe_fsdp_params``, the moments and the error state by
+    config ``cfg``'s ``moe_fsdp_params`` and ``kv_heads`` (the dry run's
+    ``--kv-replicate``), the moments and the error state by
     ``zero1_shardings``, the step replicated. ``state`` may hold ``meta``
     tensors (``train_state_specs``)."""
     specs: Dict[str, Any] = {
         "params": param_shardings(mesh, state["params"],
-                                  moe_fsdp=cfg.moe_fsdp_params),
+                                  moe_fsdp=cfg.moe_fsdp_params,
+                                  kv_heads=kv_heads),
         "opt": {"m": zero1_shardings(mesh, state["opt"]["m"]),
                 "v": zero1_shardings(mesh, state["opt"]["v"]),
                 "step": replicated(mesh)}}

@@ -55,7 +55,9 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.tree, repro_torch.kernels.flash_attention, "
             "repro_torch.launch.mesh, repro_torch.kernels.shard_ops, "
             "repro_torch.launch.sharding, repro_torch.launch.spmd, "
-            "repro_torch.launch.dryrun, "
+            "repro_torch.launch.dryrun, repro_torch.launch.collectives, "
+            "repro_torch.launch.memory, repro_torch.launch.attribution, "
+            "repro_torch.launch.report, repro_torch.kernels.costs, "
             "repro_torch.launch.serve, repro_torch.examples, "
             "repro_torch.examples.quickstart, "
             "repro_torch.examples.serve_memforest, "
@@ -114,6 +116,23 @@ def test_dryrun_keeps_its_own_shapes():
     assert res.returncode == 0, res.stdout + res.stderr
     assert shapes.SHAPES["decode_32k"].seq_len == 32768
     assert dryrun.ShapeConfig is shapes.ShapeConfig
+
+
+@pytest.mark.parametrize("module", ["dryrun", "collectives", "memory",
+                                    "attribution", "report"])
+def test_the_dry_run_modules_import_neither_jax_nor_repro(module):
+    """The dry run's modules, run as ``python -m``, load neither JAX nor the
+    JAX package, not even the reference's dry run they port."""
+    code = (f"import sys, runpy; sys.argv = ['x', '--help']\n"
+            f"try:\n    runpy.run_module('repro_torch.launch.{module}', "
+            "run_name='__main__')\nexcept SystemExit:\n    pass\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 def test_default_device_without_a_card_raises(monkeypatch):

@@ -418,13 +418,27 @@ def test_place_cell_runs_each_kind_of_cell(kind, arch):
 
 
 def test_build_cell_refuses_kv_replicate():
-    """Cells with ``wk`` and ``wv`` replicated are not ported: asking for
-    one raises rather than build a cell that no test holds."""
+    """``kv_replicate`` (the reference's ``--kv-replicate``) used to be
+    refused; it now lays out ``wk`` and ``wv`` replicated where the model
+    width does not divide the KV heads (the smoke config's 2 on 4), and the
+    decode cell gives the default layout's logits within ``REL``."""
     cfg = get_smoke_config("llama3_8b").replace(**F32)
     shape = ShapeConfig("decode", seq_len=16, global_batch=4, kind="decode")
-    with pytest.raises(NotImplementedError, match="kv_replicate"):
-        dryrun.build_cell(cfg, shape, cpu_mesh((1, 4)), TrainConfig(),
-                          kv_replicate=True)
+    mesh = cpu_mesh((1, 4))
+    logits = []
+    for kv in (False, True):
+        cell = dryrun.build_cell(cfg, shape, mesh, TrainConfig(),
+                                 kv_replicate=kv)
+        specs = {"/".join(map(str, p)): sh.spec
+                 for p, sh in leaves_with_paths(cell[2][0])}
+        for name in ("wk", "wv"):
+            want = () if kv else ((), ("model",))
+            assert _norm(specs[f"layers/0/attn/{name}"]) == want, (kv, name)
+        args = dryrun.place_cell(cfg, shape, mesh, cell, seed=3)
+        lg, cache = cell[0](*args)
+        logits.append(gather(lg))
+        assert (gather(cache["lengths"]) == 1).all()
+    assert _rel(logits[1], logits[0]) <= REL
 
 
 # ---------------------------------------------------------------------------
